@@ -1,0 +1,199 @@
+"""All-tap correlation of one steady-state super-step (kernel K1).
+
+Counterpart of ``FastTracker._taps_band`` in :mod:`gnsslib_tpu.track.fast`
+and the Pallas kernel it calls, ``gram_usum_band_impl``
+(gnsslib_tpu/ops/pallas_gram.py).  For every window b of the super-step:
+
+    ph(i)    = frac(frac(ftot_b * i) + rem_b)
+    cos_t[b] = sum_{i < n_b} x[wstart_b + i] cos(2 pi ph(i))
+                             * rc[b, i + smax + o_t]
+    sin_t[b] = the same with sin; I/Q input mixes (xr + j xi) e^{+j 2 pi ph}
+
+returned as (B, 2T) float32 interleaved [cos_t, sin_t], plus an ``ok`` flag
+that is False when an ACTIVE window's samples [wstart, wstart + n) leave
+the block.  Inactive and out-of-block windows give zeros.
+
+:func:`band_taps` launches the hand-written CUDA kernel
+(``csrc/band_taps.cu``) for CUDA tensors and uses the plain PyTorch
+version, :func:`band_taps_plain`, only for tensors on the CPU.  There is
+no fallback from the kernel to the plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .carrier import TWO_PI
+from .nco import frac
+
+MAX_TAPS = 25      # templated tap counts in csrc/band_taps.cu
+
+
+class LaunchCounts:
+    """Plain-int counters: kernel launches made by :func:`band_taps`, and
+    the CPU tensors it handed to the plain version."""
+
+    def __init__(self) -> None:
+        self.kernel = 0
+        self.plain = 0
+
+    def reset(self) -> None:
+        self.kernel = 0
+        self.plain = 0
+
+
+COUNTS = LaunchCounts()
+
+
+def band_taps_plain(block, rc, wstart, n, rem, ftot, active, offsets,
+                    smax: int):
+    """The band correlator's math in plain PyTorch (any device)."""
+    dev = block.device
+    B, nxt = rc.shape
+    nwin = nxt - 2 * smax
+    nblock = block.shape[0]
+    i = torch.arange(nwin, device=dev)
+    n_ = torch.clamp(n.long(), max=nwin)
+    w0 = wstart.long()
+    inside = (w0 >= 0) & (w0 + torch.clamp(n_, min=0) <= nblock)
+    ok = torch.all(~active | inside)
+    keep = (i[None, :] < n_[:, None]) & (active & inside)[:, None]
+    x = block[torch.clamp(w0[:, None] + i[None, :], 0, nblock - 1)]
+    ph = frac(frac(ftot[:, None] * i.to(torch.float32)[None, :])
+              + rem[:, None])
+    ang = TWO_PI * ph
+    c, s = torch.cos(ang), torch.sin(ang)
+    if block.dim() == 2:
+        xr, xi = x[..., 0], x[..., 1]
+        wc, ws = xr * c - xi * s, xr * s + xi * c
+    else:
+        wc, ws = x * c, x * s
+    wc = torch.where(keep, wc, 0.0)
+    ws = torch.where(keep, ws, 0.0)
+    rcf = rc.to(torch.float32)
+    cols = []
+    for o in offsets:
+        rep = rcf[:, smax + int(o):smax + int(o) + nwin]
+        cols += [(wc * rep).sum(dim=1), (ws * rep).sum(dim=1)]
+    return torch.stack(cols, dim=1), ok
+
+
+def _check(block, rc, wstart, n, rem, ftot, active, offsets, smax):
+    offsets = tuple(int(o) for o in offsets)
+    if len(offsets) % 2 == 0 or len(offsets) > MAX_TAPS or \
+            max(abs(o) for o in offsets) > smax:
+        raise ValueError(f"band_taps: need an odd tap count <= {MAX_TAPS} "
+                         f"with |offset| <= smax={smax}, got {offsets}")
+    B = rc.shape[0] if rc.dim() == 2 else -1
+    want = [
+        ("block", block, torch.float32, None),
+        ("rc", rc, torch.int8, None),
+        ("wstart", wstart, torch.int32, (B,)),
+        ("n", n, torch.int32, (B,)),
+        ("rem", rem, torch.float32, (B,)),
+        ("ftot", ftot, torch.float32, (B,)),
+        ("active", active, torch.bool, (B,)),
+    ]
+    for name, t, dtype, shape in want:
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"band_taps: {name} must be a tensor")
+        if t.dtype != dtype:
+            raise TypeError(f"band_taps: {name} must be {dtype}, "
+                            f"got {t.dtype}")
+        if t.device != block.device:
+            raise ValueError(f"band_taps: {name} is on {t.device}, "
+                             f"block on {block.device}")
+        if shape is not None and tuple(t.shape) != shape:
+            raise ValueError(f"band_taps: {name} shape {tuple(t.shape)} "
+                             f"!= {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"band_taps: {name} must be contiguous")
+    if rc.dim() != 2 or rc.shape[1] <= 2 * smax:
+        raise ValueError(f"band_taps: rc must be (B, next > 2*smax), got "
+                         f"{tuple(rc.shape)} with smax={smax}")
+    if not (block.dim() == 1 or (block.dim() == 2 and block.shape[1] == 2)):
+        raise ValueError("band_taps: block must be (n,) real or (n, 2) I/Q")
+    return offsets
+
+
+def band_taps(block, rc, wstart, n, rem, ftot, active, offsets, smax: int):
+    """All-tap sums of a super-step's windows -> ((B, 2T) f32, ok).
+
+    block:   (nblock,) f32 real samples or (nblock, 2) f32 I/Q
+    rc:      (B, next) int8 replica rows (row b covers sample offsets
+             [-smax, next - smax) of window b)
+    wstart:  (B,) int32 window start within the block
+    n:       (B,) int32 valid samples per window
+    rem:     (B,) f32 carrier phase at the window start (cycles)
+    ftot:    (B,) f32 carrier rate (cycles/sample, mod 1)
+    active:  (B,) bool — the window's channel is tracking
+    offsets: T host ints, the tap offsets (|o| <= smax), T odd and <= 25
+    Returns (B, 2T) f32 [cos_0, sin_0, cos_1, ...] and a 0-dim bool tensor
+    on the block's device.
+    """
+    offsets = _check(block, rc, wstart, n, rem, ftot, active, offsets, smax)
+    if block.device.type == "cpu":
+        COUNTS.plain += 1
+        return band_taps_plain(block, rc, wstart, n, rem, ftot, active,
+                               offsets, smax)
+    if block.device.type != "cuda":
+        raise ValueError(f"band_taps: unsupported device {block.device}")
+    B, T = rc.shape[0], len(offsets)
+    out = torch.empty((B, 2 * T), dtype=torch.float32, device=block.device)
+    ok = torch.ones(1, dtype=torch.int32, device=block.device)
+    launch(block, rc, wstart, n, rem, ftot, active, offsets, smax, out, ok)
+    return out, ok[0] != 0
+
+
+def launch(block, rc, wstart, n, rem, ftot, active, offsets, smax: int,
+           out, ok) -> None:
+    """Launch the kernel on the current CUDA stream into ``out`` (B, 2T)
+    f32 and ``ok`` (1,) int32 (set to 1 beforehand), with no argument
+    checks: :func:`band_taps` checks, allocates and calls this.  Raises
+    if the launch is refused."""
+    lib = _library()
+    B, nxt = rc.shape
+    offs = _device_offsets(tuple(int(o) for o in offsets), block.device)
+    with torch.cuda.device(block.device):
+        stream = torch.cuda.current_stream(block.device).cuda_stream
+        err = lib.band_taps_launch(
+            block.data_ptr(), block.shape[0], int(block.dim() == 2),
+            rc.data_ptr(), nxt, nxt - 2 * smax,
+            wstart.data_ptr(), n.data_ptr(), rem.data_ptr(),
+            ftot.data_ptr(), active.data_ptr(), offs.data_ptr(),
+            offs.shape[0], int(smax), B, out.data_ptr(), ok.data_ptr(),
+            stream)
+    if err != 0:
+        msg = lib.band_taps_error_string(err).decode()
+        raise RuntimeError(f"band_taps kernel launch failed: {msg} "
+                           f"(cudaError {err})")
+    COUNTS.kernel += 1
+
+
+@functools.lru_cache(maxsize=64)
+def _device_offsets(offsets: tuple, device: torch.device) -> torch.Tensor:
+    """The tap offsets as an int32 tensor on ``device``, uploaded once."""
+    return torch.tensor(offsets, dtype=torch.int32, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    """Build (first use) and bind ``csrc/band_taps.cu``."""
+    from .. import cuda_build
+    lib = cuda_build.load("band_taps")
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.band_taps_launch.argtypes = [
+        vp, i64, i32, vp, i32, i32, vp, vp, vp, vp, vp, vp,
+        i32, i32, i32, vp, vp, vp]
+    lib.band_taps_launch.restype = ctypes.c_int
+    lib.band_taps_error_string.argtypes = [ctypes.c_int]
+    lib.band_taps_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def load_kernel() -> None:
+    """Build and load the kernel library now (set-up time), instead of at
+    the first CUDA launch."""
+    _library()

@@ -1,0 +1,103 @@
+"""Command line of the port — file replay on a CUDA card (or the CPU).
+
+Usage:
+    python -m gnsslib_tpu_torch <config.ini> [--device {cuda,cpu}]
+        [--seconds N] [--nsteps N] [--quiet]
+
+``--device cuda`` (the default) requires a CUDA card and never falls back
+to the CPU.  Options of the JAX package's CLI that the port does not carry
+yet raise ``NotImplementedError`` naming the option.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+
+import torch
+
+from gnsslib_tpu.io.frontend import FileFrontend
+
+from .config import load_ini
+from .receiver import Receiver
+
+# flags of `python -m gnsslib_tpu` that the port does not carry yet
+UNPORTED_FLAGS = ("--devices", "--ftype", "--spp", "--spec", "--watch",
+                  "--watch-html", "--profile", "--checkpoint", "--resume")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="gnsslib_tpu_torch",
+        description="GNSS SDR receiver on PyTorch/CUDA (file replay)")
+    ap.add_argument("config", help="gnss-sdrcli-style INI file")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="where the receiver runs (default: cuda)")
+    ap.add_argument("--seconds", type=float, default=None,
+                    help="limit processing to the first N stream seconds")
+    ap.add_argument("--nsteps", type=int, default=400,
+                    help="code periods per device block")
+    ap.add_argument("--quiet", action="store_true")
+    for flag in UNPORTED_FLAGS:
+        ap.add_argument(flag, nargs="?", const=True, default=None,
+                        help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    for flag in UNPORTED_FLAGS:
+        if getattr(args, flag.lstrip("-").replace("-", "_")) is not None:
+            raise NotImplementedError(
+                f"{flag} is not ported to gnsslib_tpu_torch yet")
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("error: --device cuda but torch sees no CUDA card "
+              "(use --device cpu to run on the CPU)", file=sys.stderr)
+        return 1
+    device = torch.device(args.device)
+
+    cfg = load_ini(args.config)
+    if not cfg.fends:
+        print("error: config has no front end ([FEND] missing?)",
+              file=sys.stderr)
+        return 1
+    ftype = cfg.channels[0].ftype if cfg.channels else 1
+    path = cfg.files[ftype - 1] if len(cfg.files) >= ftype else ""
+    if not path:
+        print("error: no IF file configured (FILE1/FILE2)", file=sys.stderr)
+        return 1
+    fe = FileFrontend(path, cfg.fends[ftype - 1])
+    rx = Receiver(cfg, fe, device=device, nsteps_per_block=args.nsteps)
+    spec = fe.spec
+    if not args.quiet:
+        print(f"gnsslib_tpu_torch: {len(rx.channels)} channels on "
+              f"{device}, f_sf={spec.f_sf/1e6:.3f} MHz, "
+              f"f_if={spec.f_if/1e6:.3f} MHz, "
+              f"{fe.nsamples/spec.f_sf:.1f} s of IF data")
+
+    def progress(t):
+        if not args.quiet:
+            locked = sum(ch.locked for ch in rx.channels)
+            dec = sum(ch.nav.flagdec for ch in rx.channels)
+            print(f"\r  t={t:7.1f}s locked={locked} decoded={dec} "
+                  f"epochs={rx.epochs_written}", end="", flush=True)
+
+    try:
+        stats = rx.run_seconds(args.seconds, progress=progress)
+    finally:
+        rx.close()
+        fe.close()
+    if not args.quiet:
+        print()
+        for ev in rx.events:
+            print("  event:", ev)
+        sw = stats["stage_wall"]
+        print(f"done: {stats['seconds']:.1f} s in {stats['wall']:.1f} s "
+              f"({stats['msps']:.2f} Msamples/s); wall by phase: acquire "
+              f"{sw['acquire']:.1f} s, pull-in {sw['pullin']:.1f} s, "
+              f"steady {sw['steady']:.1f} s; locked PRNs "
+              f"{stats['locked']}, decoded {stats['decoded']}, "
+              f"{stats['epochs']} obs epochs, {stats['ephs']} eph records")
+        if rx.obs_writer:
+            print(f"rinex obs: {rx.obs_writer.path}")
+            print(f"rinex nav: {rx.nav_writer.path}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

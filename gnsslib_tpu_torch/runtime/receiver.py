@@ -1,0 +1,404 @@
+"""Block-streamed file-replay receiver (port of
+:mod:`gnsslib_tpu.runtime.receiver`, one front-end group, unsharded).
+
+For each block of IF samples:
+
+    acquisition search  (pending channels, pipelined: decided
+                         ``acq_pipeline_depth`` blocks later)
+    tracking            (per-period Tracker during pull-in, FastTracker
+                         once every locked channel is bit-synced)
+    nav framers         (host, per channel)
+    observable history + epoch alignment + RINEX output
+
+Tracking blocks and searches are queued on the device ``PIPELINE_DEPTH``
+blocks deep (the JAX receiver's defaults: pipelined acquisition, pull-in
+and steady state); a block's telemetry is copied to the host (``.cpu()``)
+only after later blocks have been queued, so the copy and the host nav
+work overlap device compute.  A search's decision therefore starts a
+channel two blocks after its searched block, with the code phase
+propagated along the acquired code-Doppler trajectory.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import os
+import time
+
+import numpy as np
+
+from gnsslib_tpu.constants import ACQSLEEP, OBSINTERPN
+from gnsslib_tpu.nav import NavChannel
+from gnsslib_tpu.obs.epoch import ChannelObsInput, EpochAligner, SdrObs
+from gnsslib_tpu.obs.history import ObsHistory
+from gnsslib_tpu.obs.rinex import RinexNavWriter, RinexObsWriter
+
+from ..acquire.search import Acquirer, AcqResult
+from ..io.devcache import DeviceBlockCache
+from ..ops.nco import NSPAN
+from ..track.fast import FastTracker
+from ..track.loop import Tracker
+from ..track.state import loop_interval
+from .config import ReceiverConfig, unported_options
+
+PIPELINE_DEPTH = 2        # blocks (and searches) in flight before collect
+
+
+@dataclasses.dataclass
+class ChannelRuntime:
+    """Mutable per-channel receiver state (beyond the device state)."""
+    idx: int
+    cfg: object              # ChannelConfig
+    nav: NavChannel
+    hist: ObsHistory
+    locked: bool = False
+    synced: bool = False
+    last_acq_attempt: float = -1e9
+    acq_codei: int = -1      # code phase the search reported (searched block)
+    acq_dcarr: float = 0.0   # its Doppler bin (Hz)
+
+
+class OutputHub:
+    """RINEX obs/nav writers plus the common-epoch clock."""
+
+    def __init__(self, cfg: ReceiverConfig):
+        self.aligner = EpochAligner(cfg.outms)
+        self.outms_ms = int(cfg.outms)
+        self._oldreftow = 0.0
+        self.obs_writer: RinexObsWriter | None = None
+        self.nav_writer: RinexNavWriter | None = None
+        if cfg.rinex:
+            ts = time.gmtime()
+            stamp = time.strftime("%Y%m%d%H%M%S", ts)
+            date = [ts.tm_year, ts.tm_mon, ts.tm_mday, ts.tm_hour,
+                    ts.tm_min, ts.tm_sec]
+            os.makedirs(cfg.rinexpath, exist_ok=True)
+            self.obs_writer = RinexObsWriter(
+                os.path.join(cfg.rinexpath, f"sdr_{stamp}.obs"), date)
+            self.nav_writer = RinexNavWriter(
+                os.path.join(cfg.rinexpath, f"sdr_{stamp}.nav"), date)
+        self.epochs_written = 0
+        self.ephs_written = 0
+
+    def emit_epochs(self, inputs: list[ChannelObsInput]
+                    ) -> list[list[SdrObs]]:
+        """Emit every OUTMS-grid epoch now covered by all channel
+        histories."""
+        if not inputs:
+            return []
+        newest = min(float(c.hist.tow[0]) for c in inputs)
+        lo = self._oldreftow if self._oldreftow > 0 else newest - 0.6
+        epochs = []
+        k = int(np.floor(lo * 1000.0 / self.outms_ms + 1e-6)) + 1
+        while k * self.outms_ms <= newest * 1000.0 + 1e-3:
+            t = k * self.outms_ms / 1000.0
+            obs = self.aligner._epoch_at(inputs, t)
+            if obs:
+                epochs.append(obs)
+                if self.obs_writer:
+                    self.obs_writer.write_epoch(obs)
+                self.epochs_written += 1
+            k += 1
+        self._oldreftow = newest
+        return epochs
+
+    def emit_nav(self, channels: list[ChannelRuntime]) -> None:
+        """Nav records on ephemeris update (src/sdrsync.c:137-156)."""
+        for ch in channels:
+            eph = ch.nav.eph
+            if eph.update and eph.cnt >= eph.cntth:
+                eph.cnt = 0
+                eph.update = False
+                self.ephs_written += 1
+                if self.nav_writer:
+                    self.nav_writer.write_eph(ch.cfg.sys, ch.cfg.prn,
+                                              eph.eph)
+
+    def close(self) -> None:
+        for w in (self.obs_writer, self.nav_writer):
+            if w is not None and hasattr(w, "close"):
+                w.close()
+
+
+class Receiver:
+    """The receiver for one front end replayed from a file
+    (``frontend.read(start, n)`` + ``nsamples``), on ``device``: the
+    channels of ``cfg`` (one RF path of real-sampled GPS L1CA channels;
+    anything else raises ``NotImplementedError``)."""
+
+    def __init__(self, cfg: ReceiverConfig, frontend, *, device,
+                 nsteps_per_block: int = 400):
+        missing = unported_options(cfg)
+        if missing:
+            raise NotImplementedError(
+                "not ported to gnsslib_tpu_torch yet: " + ", ".join(missing))
+        if getattr(frontend, "is_live", False):
+            raise NotImplementedError("live front ends are not ported")
+        if not cfg.channels:
+            raise ValueError("no channels configured")
+        self.cfg = cfg
+        self.frontend = frontend
+        self._pending = []            # FIFO of (getter, base, cnt0, locked0)
+        self._acq_pend: list = []     # (getter, base, t_disp, pend_idx)
+        chans = cfg.channels
+        spec = cfg.fends[chans[0].ftype - 1]
+        self.spec = spec
+        prns = [c.prn for c in chans]
+        ctypes = [c.ctype for c in chans]
+        foffsets = [spec.foffset + c.foffset_fdma for c in chans]
+
+        self.acq = Acquirer(prns, ctypes, spec.f_sf, spec.f_if, spec.dtype,
+                            foffsets=foffsets, device=device)
+        self.trk = Tracker(cfg.track, prns, ctypes, spec.f_sf, spec.f_if,
+                           spec.dtype, foffsets=foffsets,
+                           f_cfs=[c.f_cf for c in chans], device=device)
+        self.fast = FastTracker(self.trk)
+        self.state = self.trk.init_state()
+        self.nsamp = self.trk.n_nom
+        self.nsteps = int(nsteps_per_block)
+        self.block_len = (self.nsteps * self.nsamp + self.trk.nwin
+                          + NSPAN * self.nsteps + 2 * self.nsamp + 64)
+        self.cache = DeviceBlockCache(frontend, self.block_len,
+                                      device=device)
+        self.base = 0
+        self.channels = []
+        for i, c in enumerate(chans):
+            nav = NavChannel(c.ctype, c.prn, sat=0, ref_week=cfg.ref_week)
+            depth = max(OBSINTERPN,
+                        2 * self.nsteps // loop_interval(c.ctype) + 8)
+            hist = ObsHistory(
+                ctime=float(self.trk.ctime[i]), f_sf=spec.f_sf,
+                crate=float(self.trk.crate[i]),
+                loop_periods=loop_interval(c.ctype), depth=depth)
+            self.channels.append(ChannelRuntime(idx=i, cfg=c, nav=nav,
+                                                hist=hist))
+        self.hub = OutputHub(cfg)
+        # host shadow of state.cnt (+nsteps per block for channels active
+        # at dispatch, 0 at start_channels): no device read per block
+        self._cnt_host = np.zeros(len(self.channels), np.int64)
+        self._events = []
+        # wall-clock milestones since construction ("first_block",
+        # "first_lock", "first_sync", "steady", "first_epoch"), and wall
+        # seconds spent in step_block per phase: "acquire" (no channel
+        # locked), "pullin" (per-period scan), "steady" (FastTracker)
+        self.timeline = {"t0": time.time()}
+        self.stage_wall = {"acquire": 0.0, "pullin": 0.0, "steady": 0.0}
+
+    def _mark(self, name: str) -> None:
+        if name not in self.timeline:
+            self.timeline[name] = time.time() - self.timeline["t0"]
+
+    @property
+    def events(self) -> list:
+        """Receiver events in stream-time order."""
+        return sorted(self._events, key=lambda e: e[1])
+
+    @property
+    def epochs_written(self) -> int:
+        return self.hub.epochs_written
+
+    @property
+    def ephs_written(self) -> int:
+        return self.hub.ephs_written
+
+    @property
+    def obs_writer(self):
+        return self.hub.obs_writer
+
+    @property
+    def nav_writer(self):
+        return self.hub.nav_writer
+
+    # ------------------------------------------------------------------ #
+    def _collect_acq(self, all_pending: bool = False) -> None:
+        """Apply in-flight searches dispatched at least PIPELINE_DEPTH
+        blocks ago (all of them with ``all_pending``)."""
+        adv = self.nsteps * self.nsamp
+        while self._acq_pend and (
+                all_pending
+                or self.base - self._acq_pend[0][1] >= PIPELINE_DEPTH * adv
+                or len(self._acq_pend) > PIPELINE_DEPTH):
+            getter, base_s, t_disp, pend_idx = self._acq_pend.pop(0)
+            self._apply_acq(getter(), base_s, t_disp, pend_idx)
+
+    def _try_acquire(self) -> None:
+        t_stream = self.base / self.spec.f_sf
+        pend = [ch for ch in self.channels if not ch.locked and
+                t_stream - ch.last_acq_attempt >= ACQSLEEP / 1000.0 - 1e-9]
+        if not pend:
+            return
+        for ch in pend:
+            ch.last_acq_attempt = t_stream
+        idx = [ch.idx for ch in pend]
+        handle = self.acq.search_dev_start(
+            self.cache.get(self.base, self.block_len), idx=idx)
+        self._acq_pend.append((
+            functools.partial(self.acq.search_dev_collect, handle),
+            self.base, t_stream, idx))
+
+    def _apply_acq(self, res: AcqResult, base_s: int, t_disp: float,
+                   pend_idx: list[int]) -> None:
+        """Start tracking for every pending channel the search accepted;
+        a decision that arrives later than its searched block propagates
+        the code phase along the acquired code-Doppler trajectory."""
+        delta = self.base - base_s
+        for i in pend_idx:
+            ch = self.channels[i]
+            if ch.locked or not bool(res.acquired[i]):
+                continue
+            codei = int(res.codei[i])
+            dcarr = float(res.dcarr[i])
+            ch.acq_codei, ch.acq_dcarr = codei, dcarr
+            if delta:
+                cfreq = float(self.trk.crate[i]) + dcarr * float(
+                    self.trk.aid[i])
+                tc_samp = self.trk._clens[i] / cfreq * self.spec.f_sf
+                codei = int(round((codei - delta) % tc_samp))
+            ch.locked = True
+            self._mark("first_lock")
+            self.state = self.trk.start_channels(
+                self.state, [i], [codei], [dcarr])
+            self._cnt_host[i] = 0
+            self._events.append(
+                ("acq", t_disp, ch.cfg.prn, float(res.cn0[i]),
+                 float(res.peakr[i])))
+
+    # ------------------------------------------------------------------ #
+    def _feed_nav_and_obs(self, out, cnt0: np.ndarray, base: int,
+                          locked0: list[bool]) -> None:
+        for ch in self.channels:
+            if not (ch.locked and locked0[ch.idx]):
+                continue
+            i = ch.idx
+            was_started = int(cnt0[i])
+            steps = out.ip.shape[0]
+            evs = ch.nav.update(
+                out.ip[:, i], base + out.loc[:, i].astype(np.int64),
+                was_started)
+            for e in evs:
+                self._events.append(("nav:" + e.kind, base / self.spec.f_sf,
+                                     ch.cfg.prn, e.sfid, e.tow))
+            if ch.nav.flagsync and not ch.synced:
+                self.state = self.trk.set_bit_sync(self.state, i,
+                                                   ch.nav.sync_offset)
+                ch.synced = True
+                self._mark("first_sync")
+            if ch.nav.flagdec:
+                ch.hist.update(
+                    cnts=was_started + np.arange(steps),
+                    bufflocs=base + out.loc[:, i].astype(np.int64),
+                    ns=out.n[:, i], dcarr=out.dcarr[:, i],
+                    remcode=out.remcode[:, i], dcode=out.dcode[:, i],
+                    sum_i=out.sum_i[:, i], remcarr=out.remcarr[:, i],
+                    flagloopfilter=out.flagloopfilter[:, i],
+                    firstsftow=ch.nav.firstsftow,
+                    firstsfcnt=ch.nav.firstsfcnt,
+                    flagsyncf=ch.nav.flagsyncf, polarity=ch.nav.polarity)
+
+    def collect_obs_inputs(self) -> list[ChannelObsInput]:
+        """Aligner inputs for every channel with a full, decoded history."""
+        ready = [ch for ch in self.channels
+                 if ch.nav.flagdec and ch.nav.eph.week_gpst != 0
+                 and ch.hist.full]
+        return [ChannelObsInput(
+            hist=ch.hist, sys=ch.cfg.sys, prn=ch.nav.prn,
+            week=ch.nav.eph.week_gpst, nsamp=self.nsamp,
+            ctime=float(self.trk.ctime[ch.idx]), ti=self.trk.ti,
+            firstsf=ch.nav.firstsf, firstsfcnt=ch.nav.firstsfcnt, fcn=0)
+            for ch in ready]
+
+    def _emit_epochs(self) -> list[list[SdrObs]]:
+        epochs = self.hub.emit_epochs(self.collect_obs_inputs())
+        self.hub.emit_nav(self.channels)
+        if self.hub.epochs_written:
+            self._mark("first_epoch")
+        return epochs
+
+    # ------------------------------------------------------------------ #
+    def end_sample(self, seconds: float | None = None) -> int:
+        end = self.frontend.nsamples
+        if seconds is not None:
+            end = min(end, int(seconds * self.spec.f_sf))
+        return end
+
+    def can_step(self, end_sample: int) -> bool:
+        return self.base + self.block_len <= end_sample
+
+    def step_block(self) -> None:
+        """Process one block: acquire, track, nav, observable history and
+        epochs.  The block is only queued here; its nav/obs host work runs
+        when it matures (:meth:`flush` finalizes the rest)."""
+        t0 = time.time()
+        advance = self.nsteps * self.nsamp
+        self._collect_acq()
+        self._try_acquire()
+        if not any(ch.locked for ch in self.channels):
+            self.base += advance
+            self._mark("first_block")
+            self.stage_wall["acquire"] += time.time() - t0
+            return
+        use_fast = (self.nsteps % self.fast.L == 0
+                    and all(ch.synced for ch in self.channels if ch.locked))
+        if use_fast:
+            self._mark("steady")
+        eng = self.fast if use_fast else self.trk
+        cnt0 = self._cnt_host.copy()
+        locked0 = [ch.locked for ch in self.channels]
+        block = self.cache.get(self.base, self.block_len)
+        self.state, handle = eng.run_block_start(self.state, block,
+                                                 self.nsteps)
+        self._pending.append((functools.partial(eng.run_block_collect,
+                                                handle),
+                              self.base, cnt0, locked0))
+        while len(self._pending) > PIPELINE_DEPTH:
+            self._collect(*self._pending.pop(0))
+        self._cnt_host[np.asarray(locked0)] += self.nsteps
+        self.state = self.trk.rebase(self.state, advance)
+        self.base += advance
+        self._mark("first_block")
+        self.stage_wall["steady" if use_fast else "pullin"] += \
+            time.time() - t0
+
+    def _collect(self, getter, base: int, cnt0: np.ndarray,
+                 locked0: list[bool]) -> None:
+        self._feed_nav_and_obs(getter(), cnt0, base, locked0)
+        self._emit_epochs()
+
+    def flush(self) -> None:
+        """Apply in-flight searches, then finalize in-flight blocks."""
+        self._collect_acq(all_pending=True)
+        pending, self._pending = self._pending, []
+        for p in pending:
+            self._collect(*p)
+
+    def close(self) -> None:
+        """Flush pending work and close output files."""
+        self.flush()
+        self.hub.close()
+
+    def _summary(self, t_start: float, nblocks: int) -> dict:
+        wall = time.time() - t_start
+        return dict(
+            samples=self.base, seconds=self.base / self.spec.f_sf,
+            wall=wall, msps=self.base / 1e6 / max(wall, 1e-9),
+            blocks=nblocks,
+            locked=[ch.cfg.prn for ch in self.channels if ch.locked],
+            decoded=[ch.cfg.prn for ch in self.channels if ch.nav.flagdec],
+            epochs=self.epochs_written, ephs=self.ephs_written,
+            stage_wall=dict(self.stage_wall),
+        )
+
+    def run_seconds(self, seconds: float | None = None,
+                    progress=None) -> dict:
+        """Process the stream (whole file by default); returns summary
+        statistics.  ``progress``: optional callable(t_stream_seconds)."""
+        t_start = time.time()
+        end_sample = self.end_sample(seconds)
+        nblocks = 0
+        while self.can_step(end_sample):
+            self.step_block()
+            nblocks += 1
+            if progress:
+                progress(self.base / self.spec.f_sf)
+        self.flush()
+        return self._summary(t_start, nblocks)

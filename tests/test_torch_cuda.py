@@ -1,0 +1,139 @@
+"""Card-only tests of the port's CUDA kernel (marker ``cuda``).
+
+They skip without a card.  This file imports no JAX, so it also runs on a
+machine that has only PyTorch; there, skip the JAX-pinning conftest:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from gnsslib_tpu.constants import CodeType, DType
+from gnsslib_tpu_torch.ops import band_taps as bt
+from gnsslib_tpu_torch.track import (FastTracker, TrackConfig, Tracker,
+                                     state_from_numpy, state_to_numpy)
+
+torch.set_num_threads(2)
+
+F_SF, F_IF = 16.368e6, 4.092e6
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the GPU machine)")
+    return torch.device("cuda")
+
+
+def _inputs(trk, B, iq, seed, dev):
+    rng = np.random.default_rng(seed)
+    nn = trk.n_nom
+    nblock = 12 * nn + trk.next
+    block = rng.integers(-128, 128, (nblock, 2) if iq else nblock
+                         ).astype(np.float32)
+    wstart = rng.integers(0, 10 * nn, B).astype(np.int32)
+    n = rng.integers(nn - 2, nn + 3, B).astype(np.int32)
+    rem = rng.uniform(0, 1, B).astype(np.float32)
+    ftot = rng.uniform(-0.5, 0.5, B).astype(np.float32)
+    rc = rng.choice(np.asarray([-1, 1], np.int8), (B, trk.next))
+    act = rng.uniform(size=B) < 0.8
+    host = (block, rc, wstart, n, rem, ftot, act)
+    return host, [torch.from_numpy(a).to(dev) for a in host]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iq,corrn", [(False, 6), (True, 6), (False, 1),
+                                      (False, 12)])
+def test_band_taps_kernel_matches_plain(dev, iq, corrn):
+    """Kernel vs band_taps_plain on the card (both f32; only summation
+    order and sincospif-vs-cos/sin rounding differ), at the main path's
+    window shapes and at the smallest and largest templated tap counts."""
+    trk = Tracker(TrackConfig(corrn, 3, 3), [1], [CodeType.L1CA], F_SF,
+                  F_IF, DType.IQ if iq else DType.REAL, device="cpu")
+    host, args = _inputs(trk, 320, iq, corrn + iq, dev)
+    offsets = trk.offsets
+    bt.COUNTS.reset()
+    zk, okk = bt.band_taps(*args, offsets, trk.smax)
+    zp, okp = bt.band_taps_plain(*args, offsets, trk.smax)
+    torch.cuda.synchronize()
+    assert bt.COUNTS.kernel == 1 and bt.COUNTS.plain == 0
+    assert bool(okk) and bool(okp)
+    block, _, wstart, n = host[:4]
+    # each tap sums n products bounded by |x_i| (|replica| <= 1): f32
+    # rounding in either order stays below 1e-5 of that L1 norm
+    l1 = max(float(np.abs(block[w:w + k]).sum()) for w, k in zip(wstart, n))
+    assert float((zk - zp).abs().max()) <= 1e-5 * l1
+    assert torch.all(zk[~args[6]] == 0)
+
+
+@pytest.mark.cuda
+def test_band_taps_kernel_flags_out_of_block(dev):
+    trk = Tracker(TrackConfig(6, 3, 6), [1], [CodeType.L1CA], F_SF, F_IF,
+                  DType.REAL, device="cpu")
+    host, args = _inputs(trk, 16, False, 1, dev)
+    offsets = trk.offsets
+    args[6] = torch.ones_like(args[6])
+    z, ok = bt.band_taps(*args, offsets, trk.smax)
+    assert bool(ok)
+    args[2] = args[2].clone()
+    args[2][3] = host[0].shape[0] - 100            # runs off the end
+    args[2][5] = -1                                 # starts before it
+    z, ok = bt.band_taps(*args, offsets, trk.smax)
+    assert not bool(ok)
+    assert torch.all(z[3] == 0) and torch.all(z[5] == 0)
+    args[6][3] = args[6][5] = False                 # inactive: no flag
+    z, ok = bt.band_taps(*args, offsets, trk.smax)
+    assert bool(ok)
+
+
+@pytest.mark.cuda
+def test_band_taps_kernel_rejects_bad_inputs(dev):
+    trk = Tracker(TrackConfig(6, 3, 6), [1], [CodeType.L1CA], F_SF, F_IF,
+                  DType.REAL, device="cpu")
+    _, args = _inputs(trk, 8, False, 2, dev)
+    offsets = trk.offsets
+    mixed = list(args)
+    mixed[4] = mixed[4].cpu()
+    with pytest.raises(ValueError, match="rem is on cpu"):
+        bt.band_taps(*mixed, offsets, trk.smax)
+    with pytest.raises(ValueError, match="odd tap count"):
+        bt.band_taps(*args, list(range(-13, 14)), 13)
+
+
+@pytest.mark.cuda
+def test_fast_tracker_card_matches_cpu(dev):
+    """FastTracker through the kernel on the card against the plain
+    correlator on the CPU, from one state (test_fast.py's tolerances)."""
+    from gnsslib_tpu import sim
+    prns = [3, 9, 14]
+    f_sf, f_if = 4.092e6, 1.023e6
+    ch = [sim.SimChannel(prn=3, doppler=900.0,
+                         code_phase=-800 * 1.023e6 / f_sf),
+          sim.SimChannel(prn=9, doppler=-1500.0,
+                         code_phase=-2100 * 1.023e6 / f_sf)]
+    noise = sim.noise_std_for_cn0(1.0, 45.0, f_sf, DType.REAL)
+    x = np.asarray(sim.synthesize(ch, f_sf, f_if, DType.REAL,
+                                  int(1.0 * f_sf), noise_std=noise, seed=4),
+                   np.float32)
+    cpu = torch.device("cpu")
+    trks = {d: Tracker(TrackConfig(4, 2, 2), prns, [CodeType.L1CA] * 3,
+                       f_sf, f_if, DType.REAL, device=d) for d in (dev, cpu)}
+    st = trks[cpu].start_channels(trks[cpu].init_state(), [0, 1],
+                                  [800, 2100], [-900.0, 1500.0])
+    st, _ = trks[cpu].run_block(st, torch.from_numpy(x), 300)
+    for c in range(2):
+        st = trks[cpu].set_bit_sync(st, c, 0)
+    snap = state_to_numpy(st)
+    out = {}
+    for d in (dev, cpu):
+        _, out[d] = FastTracker(trks[d]).run_block(
+            state_from_numpy(snap, d), torch.from_numpy(x).to(d), 600)
+    a, b = out[cpu], out[dev]
+    np.testing.assert_array_equal(a.loc[:, :2], b.loc[:, :2])
+    scale = np.max(np.abs(a.ip[:, :2]))
+    for u, v in ((a.ip, b.ip), (a.qp, b.qp)):
+        d = np.abs(u[:, :2] - v[:, :2])
+        assert int(np.sum(d > 5e-3 * scale)) <= 3
+        assert np.median(d) < 1e-3 * scale
+    np.testing.assert_allclose(a.dcarr[:, :2], b.dcarr[:, :2], atol=0.5)

@@ -1,0 +1,91 @@
+"""The port stands without JAX, and its chip smoke script refuses to run
+without a CUDA card."""
+import os
+import subprocess
+import sys
+import textwrap
+
+import torch
+
+torch.set_num_threads(2)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+BLOCK_JAX = textwrap.dedent("""
+    import importlib.abc, sys
+
+    class _NoJax(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name == "jax" or name.startswith(("jax.", "jaxlib")):
+                raise ImportError("jax is blocked in this process")
+            return None
+
+    sys.meta_path.insert(0, _NoJax())
+    for m in [m for m in sys.modules if m == "jax" or m.startswith("jax")]:
+        del sys.modules[m]
+""")
+
+
+def _run(code, cwd=ROOT, timeout=300):
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def test_port_imports_and_tracks_without_jax():
+    """Every module of the port imports with ``jax`` blocked, and a short
+    Tracker block plus a FastTracker block run on the CPU."""
+    code = BLOCK_JAX + textwrap.dedent("""
+        import pkgutil, importlib, numpy as np, torch
+        torch.set_num_threads(2)
+        import gnsslib_tpu_torch
+        for m in pkgutil.walk_packages(gnsslib_tpu_torch.__path__,
+                                       "gnsslib_tpu_torch."):
+            importlib.import_module(m.name)
+        from gnsslib_tpu import sim
+        from gnsslib_tpu.constants import CodeType, DType
+        from gnsslib_tpu_torch.track import (FastTracker, TrackConfig,
+                                             Tracker)
+        f_sf = 4.092e6
+        ch = sim.SimChannel(prn=7, doppler=900.0,
+                            code_phase=-800 * 1.023e6 / f_sf)
+        x = sim.synthesize([ch], f_sf, 1.023e6, DType.REAL, 200000, seed=1)
+        block = torch.from_numpy(np.asarray(x, np.float32))
+        trk = Tracker(TrackConfig(4, 2, 2), [7], [CodeType.L1CA], f_sf,
+                      1.023e6, DType.REAL, device="cpu")
+        st = trk.start_channels(trk.init_state(), [0], [800], [-900.0])
+        st, out = trk.run_block(st, block, 20)
+        st = trk.set_bit_sync(st, 0, 0)
+        st, out2 = FastTracker(trk).run_block(st, block, 20)
+        assert np.all(np.diff(out.loc[:, 0]) > 0) and out2.ip.shape == (20, 1)
+        assert not any(m == "jax" or m.startswith("jax.")
+                       for m in sys.modules)
+        print("NOJAX OK")
+    """)
+    r = _run(code)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "NOJAX OK" in r.stdout
+
+
+def test_chip_smoke_refuses_without_cuda():
+    """Here there is no card: the script must exit nonzero and print no
+    success line."""
+    if torch.cuda.is_available():                     # pragma: no cover
+        return
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300,
+                       env=dict(os.environ, PYTHONPATH=ROOT))
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    """In a directory that holds chip_smoke.py and nothing else of the
+    repository the script fails without a success line."""
+    src = open(os.path.join(ROOT, "chip_smoke.py")).read()
+    (tmp_path / "chip_smoke.py").write_text(src)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                       capture_output=True, text=True, timeout=300, env=env)
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout
