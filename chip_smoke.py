@@ -8,20 +8,26 @@ Run from the root of a checkout on a machine with one CUDA card:
 Phases (each prints its own lines; any failure raises and exits nonzero):
 
 1. refuse to run without CUDA; print the card, torch and CUDA versions;
-2. build the band correlator kernel (csrc/band_taps.cu) with nvcc;
-3. kernel vs its plain PyTorch version at the main path's shapes (320
-   windows of 16376 samples, 16412-sample int8 replica rows, 13 taps),
-   real and I/Q input, with CUDA-event times of both;
+2. build the correlator kernels (csrc/band_taps.cu, window_taps.cu,
+   gram_taps.cu), one nvcc each, all in parallel;
+3. each kernel vs its plain PyTorch version at the main path's shapes (320
+   windows of 16376 samples, 16412-sample replica rows, 13 taps; K2 on
+   (320, 128, 128) bf16 rows), real and I/Q input, with CUDA-event times
+   of both and the card's bound for the same work;
 4. synthesize the capture (4 visible GPS L1CA PRNs with LNAV bit streams,
    16.368 Msps real int8 at a 4.092 MHz IF) in a process pool;
-5. FastTracker.run_block on the card vs on the CPU from one state;
+5. FastTracker.run_block on the card vs on the CPU from one state, with
+   the band, pallas (K3) and fused (K2) correlator backends;
 6. the slice: ``Receiver.run_seconds`` from INI files with 32 L1CA
    channels, checked for acquisition, bit sync, TOW decode, the steady
-   state through the kernel, and RINEX pseudoranges against the truth;
+   state through the band kernel, and RINEX pseudoranges against the
+   truth;
 7. steady-state throughput at bench.py's workload (a record, not a
-   benchmark).
+   benchmark);
+8. the correlator profiler (``gnsslib_tpu_torch.tools.profile_fast``) at
+   full width: every backend and probe, launching K1-K5.
 
-The last two lines are a JSON object describing the kernel and the
+The last two lines are a JSON object describing the kernels and the
 ``{"ok": true, "device": {...}}`` line.  This script imports no JAX.
 """
 import json
@@ -46,6 +52,12 @@ CN0 = 47.0
 TRUTH = {3: (1500, 1234.0), 11: (6000, -2345.0), 19: (10500, 3210.0),
          27: (14000, -567.0)}
 WORK = os.path.join(ROOT, "build", "gnsslib_tpu_torch", "smoke")
+# the card's peaks for a kernel's bound (NVIDIA H100 SXM data sheet, at
+# 700 W): device memory rate, and f32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+L2_BYTES = 50e6
+KERNELS = ("band_taps", "window_taps", "gram_taps")
 
 
 def log(msg: str) -> None:
@@ -56,8 +68,8 @@ def _synth_chunk(args):
     """Samples [t0, t0+n) of the capture as int8 bytes (a pool worker;
     everything it needs comes in ``args``)."""
     t0, n, f_sf, f_if, truth = args
-    from gnsslib_tpu import sim
-    from gnsslib_tpu.constants import DType
+    from gnsslib_tpu_torch import sim
+    from gnsslib_tpu_torch.constants import DType
     chans = []
     for prn, (d, dop) in truth.items():
         eph = sim.example_eph(prn=prn, week=2200, toe_tow=TOW0)
@@ -103,11 +115,56 @@ def cuda_ms(fn, reps: int, rounds: int = 5) -> float:
     return float(np.median(times))
 
 
+def cold_ms(fn_k, ncopy: int, reps: int = 60, rounds: int = 5) -> float:
+    """Like :func:`cuda_ms` for ``fn_k(k)``, whose call k reads input copy
+    ``k % ncopy``: with the copies together beyond the L2 cache, each
+    launch reads its inputs from device memory, as the tracker's does."""
+    import torch
+    fn_k(0)
+    times = []
+    for _ in range(rounds):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for r in range(reps):
+            fn_k(r % ncopy)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    return float(np.median(times))
+
+
+def copies_for(nbytes: int) -> int:
+    """Input copies whose total is at least twice the L2 cache."""
+    return max(2, int(np.ceil(2 * L2_BYTES / nbytes)))
+
+
+def bound(nbytes: float, flops: float):
+    """(ms, "bytes" or "operations"): the least time the card takes to move
+    ``nbytes`` and do ``flops`` f32 operations, the larger of the two."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = flops / F32_FLOP_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def union_len(starts, lens) -> int:
+    """Samples in the union of the intervals [start, start + len)."""
+    total, end = 0, None
+    for a, b in sorted(zip(starts, np.asarray(starts) + np.asarray(lens))):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return int(total)
+
+
 # --------------------------------------------------------------------- #
 def phase_kernel(dev, iq: bool):
     """Kernel vs plain at the 32-channel L1CA super-step's shapes."""
     import torch
-    from gnsslib_tpu.constants import CodeType, DType
+    from gnsslib_tpu_torch.constants import CodeType, DType
     from gnsslib_tpu_torch.ops import band_taps as bt
     from gnsslib_tpu_torch.track import TrackConfig, Tracker
     trk = Tracker(TrackConfig(6, 3, 6), [1], [CodeType.L1CA], F_SF, F_IF,
@@ -152,7 +209,151 @@ def phase_kernel(dev, iq: bool):
         f"(tol {tol:.4g}, max|taps| {float(zp.abs().max()):.4g}); kernel "
         f"{ms:.4f} ms/launch, wrapper call {call_ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms (CUDA events over back-to-back calls)")
-    return err, ms, plain_ms
+    # the bound: the block samples the active windows cover (their shared
+    # band, read once), their replica rows, the scalars and the taps out
+    T = len(offsets)
+    nv = np.minimum(n, trk.nwin)[act]
+    comp = 2 if iq else 1
+    nbytes = (union_len(wstart[act], nv) * 4 * comp + len(nv) * trk.next
+              + B * 17 + B * 2 * T * 4)
+    flops = float(nv.sum()) * (4 * T + (6 if iq else 2))
+    bms, by = bound(nbytes, flops)
+    copies = [[a.clone() for a in args] for _ in range(copies_for(nbytes))]
+    cms = cold_ms(lambda k: bt.launch(*copies[k], offsets, trk.smax, out,
+                                      ok), len(copies))
+    log(f"[3] band_taps {kind:4s}: kernel {cms:.4f} ms/launch with inputs "
+        f"rotated over {len(copies)} copies (beyond L2); bound {bms:.4f} ms "
+        f"by {by} ({nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP)")
+    return dict(err=err, ms=cms, warm_ms=ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by)
+
+
+def _window_inputs(trk, B: int, iq: bool, seed: int):
+    """Fetched windows at the main path's shapes: 8-bit samples, +-1
+    replica rows, valid lengths around n_nom, rates near the IF."""
+    rng = np.random.default_rng(seed)
+    nn = trk.n_nom
+    win = rng.integers(-128, 128, (B, trk.nwin, 2) if iq else (B, trk.nwin)
+                       ).astype(np.float32)
+    rc = rng.choice(np.asarray([-1, 1], np.int8), (B, trk.next))
+    rem = rng.uniform(0, 1, B).astype(np.float32)
+    ftot = (0.25 + rng.uniform(-4e-4, 4e-4, B)).astype(np.float32)
+    n = rng.integers(nn - 2, nn + 3, B).astype(np.int32)
+    a = np.abs(win).reshape(B, trk.nwin, -1).sum(-1)
+    l1 = max(float(a[b, :k].sum()) for b, k in enumerate(n))
+    return win, rc, rem, ftot, n, l1
+
+
+def phase_window_kernels(dev, iq: bool) -> dict:
+    """K5, K4 (f32) and K3 (bf16 windows, int8 rows) vs their plain
+    version at the 32-channel L1CA super-step's shapes."""
+    import torch
+    from gnsslib_tpu_torch.constants import CodeType, DType
+    from gnsslib_tpu_torch.ops import window_taps as wt
+    from gnsslib_tpu_torch.track import TrackConfig, Tracker
+    trk = Tracker(TrackConfig(6, 3, 6), [1], [CodeType.L1CA], F_SF, F_IF,
+                  DType.IQ if iq else DType.REAL, device=dev)
+    B, T, smax = 320, len(trk.offsets), trk.smax
+    win, rc, rem, ftot, n, l1 = _window_inputs(trk, B, iq, 17 + iq)
+    kind = "iq" if iq else "real"
+    nv = np.minimum(n, trk.nwin)
+    comp = 2 if iq else 1
+    res = {}
+    for name, k in (("correlate_windows", 0), ("correlate_windows8", 0),
+                    ("correlate_windows16", 1)):
+        fn = getattr(wt, name)
+        w = torch.from_numpy(win).to(dev)
+        r = torch.from_numpy(rc).to(dev)
+        if k == 1:
+            w = w.to(torch.bfloat16)
+        else:
+            r = r.to(torch.float32)
+        args = [w, r] + [torch.from_numpy(a).to(dev) for a in (rem, ftot, n)]
+        zk = fn(*args, trk.offsets, smax)
+        zp = wt.window_taps_plain(*args, trk.offsets, smax)
+        torch.cuda.synchronize()
+        err = float((zk - zp).abs().max())
+        # f32: summation order and sincosf rounding, 1e-5 of the window's
+        # L1 norm (as K1); bf16 (K3): an ulp of sincosf can also flip a
+        # mixed sample's bf16 rounding, each flip moving a tap by at most
+        # 2^-8 |x_i|: 1e-4
+        tol = (1e-4 if k == 1 else 1e-5) * l1
+        if not err <= tol:
+            raise AssertionError(f"{name} kernel vs plain ({kind}): "
+                                 f"max_abs_err {err} > {tol}")
+        out = torch.empty_like(zk)
+        wb, rb = w.element_size() * comp, r.element_size()
+        nbytes = (float(nv.sum()) * wb + float((nv + 2 * smax).sum()) * rb
+                  + B * 12 + B * 2 * T * 4)
+        flops = float(nv.sum()) * (4 * T + (6 if iq else 2))
+        bms, by = bound(nbytes, flops)
+        copies = [[a.clone() for a in args]
+                  for _ in range(copies_for(nbytes))]
+        ms = cold_ms(lambda c: wt.launch(k, *copies[c], trk.offsets, smax,
+                                         out), len(copies))
+        call_ms = cuda_ms(lambda: fn(*args, trk.offsets, smax), 50)
+        plain_ms = cuda_ms(lambda: wt.window_taps_plain(
+            *args, trk.offsets, smax), 5)
+        log(f"[3] {name} {kind:4s} B={B} nwin={trk.nwin} next={trk.next} "
+            f"taps={T}: max_abs_err {err:.4g} (tol {tol:.4g}, max|taps| "
+            f"{float(zp.abs().max()):.4g}); kernel {ms:.4f} ms/launch "
+            f"(inputs rotated over {len(copies)} copies), wrapper call "
+            f"{call_ms:.4f} ms, plain {plain_ms:.4f} ms; bound {bms:.4f} ms "
+            f"by {by} ({nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP)")
+        res[name] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                         bound_by=by)
+    return res
+
+
+def phase_gram_kernel(dev, iq: bool) -> dict:
+    """K2 vs its plain version on (320, 128, 128) bf16 window rows fetched
+    and masked as the fused backend fetches them."""
+    import torch
+    from gnsslib_tpu_torch.constants import CodeType, DType
+    from gnsslib_tpu_torch.ops import gram_taps as gt
+    from gnsslib_tpu_torch.track import FastTracker, TrackConfig, Tracker
+    trk = Tracker(TrackConfig(6, 3, 6), [1], [CodeType.L1CA], F_SF, F_IF,
+                  DType.IQ if iq else DType.REAL, device=dev)
+    fast = FastTracker(trk)
+    B, T, smax = 320, len(trk.offsets), trk.smax
+    win, rc, rem, ftot, n, l1 = _window_inputs(trk, B, iq, 23 + iq)
+    w = torch.from_numpy(win.reshape((-1,) + win.shape[2:])).to(dev)
+    starts = torch.arange(B, dtype=torch.int32, device=dev) * trk.nwin
+    nt = torch.from_numpy(n).to(dev)
+    rows = fast._fetch_windows(fast._block_rows(w), starts, rowform=True,
+                               nvalid=nt)
+    wi, wq = rows if iq else (rows, None)
+    args = [wi, wq] + [torch.from_numpy(a).to(dev) for a in (rc, rem, ftot)]
+    zk = gt.gram_taps(*args, trk.offsets, smax)
+    zp = gt.gram_taps_plain(*args, trk.offsets, smax)
+    torch.cuda.synchronize()
+    err = float((zk - zp).abs().max())
+    tol = 1e-4 * l1          # bf16 rounding flips, as K3
+    kind = "iq" if iq else "real"
+    if not err <= tol:
+        raise AssertionError(f"gram_taps kernel vs plain ({kind}): "
+                             f"max_abs_err {err} > {tol}")
+    K = wi.shape[1]
+    out = torch.empty_like(zk)
+    nbytes = (B * K * 128 * 2 * (2 if iq else 1)
+              + B * min(trk.next, K * 128 + 2 * smax) + B * 8
+              + B * 2 * T * 4)
+    flops = float(np.minimum(n, trk.nwin).sum()) * (4 * T + (12 if iq else 8))
+    bms, by = bound(nbytes, flops)
+    copies = [[None if a is None else a.clone() for a in args]
+              for _ in range(copies_for(nbytes))]
+    ms = cold_ms(lambda c: gt.launch(*copies[c], trk.offsets, smax, out),
+                 len(copies))
+    call_ms = cuda_ms(lambda: gt.gram_taps(*args, trk.offsets, smax), 50)
+    plain_ms = cuda_ms(lambda: gt.gram_taps_plain(*args, trk.offsets, smax),
+                       5)
+    log(f"[3] gram_taps {kind:4s} B={B} rows={K}x128 next={trk.next} "
+        f"taps={T}: max_abs_err {err:.4g} (tol {tol:.4g}, max|taps| "
+        f"{float(zp.abs().max()):.4g}); kernel {ms:.4f} ms/launch (inputs "
+        f"rotated over {len(copies)} copies), wrapper call {call_ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms; bound {bms:.4f} ms by {by} "
+        f"({nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP)")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
 
 
 def phase_synth(path: str) -> float:
@@ -177,7 +378,7 @@ def phase_fast_vs_cpu(dev, path: str):
     """FastTracker on the card vs on the CPU (plain correlator) from one
     state: 4 locked + 4 idle channels after a 1000-period pull-in."""
     import torch
-    from gnsslib_tpu.constants import CodeType, DType
+    from gnsslib_tpu_torch.constants import CodeType, DType
     from gnsslib_tpu_torch.track import (FastTracker, TrackConfig, Tracker,
                                          state_from_numpy, state_to_numpy)
     prns = list(TRUTH) + [1, 2, 4, 5]
@@ -196,33 +397,61 @@ def phase_fast_vs_cpu(dev, path: str):
     for c in range(4):
         st = t.set_bit_sync(st, c, 0)
     snap = state_to_numpy(st)
+    # the fetch backends run half as many steps: their CPU side costs
+    # ~15-18 s per 600 steps of the script's time
+    for corr, nsteps in (("band", 600), ("pallas", 300), ("fused", 300)):
+        _fast_vs_cpu(corr, nsteps, trks, blocks, snap, dev, len(prns))
+
+
+def _fast_vs_cpu(corr: str, nsteps: int, trks, blocks, snap, dev,
+                 nch: int) -> None:
+    """One backend's ``nsteps`` on the card and on the CPU from ``snap``:
+    loc identical, test_fast.py's inter-backend tolerances on ip/qp and
+    dcarr, and on the card the backend's kernel launched, never its plain
+    version."""
+    import torch
+    from gnsslib_tpu_torch.ops import band_taps, gram_taps, window_taps
+    from gnsslib_tpu_torch.track import FastTracker, state_from_numpy
+    counts = {"band": band_taps.COUNTS, "pallas": window_taps.COUNTS16,
+              "fused": gram_taps.COUNTS}[corr]
+    cpu = torch.device("cpu")
     outs = {}
     for d in (dev, cpu):
         f = FastTracker(trks[d])
+        f.corr = corr
+        counts.reset()
         t0 = time.time()
-        _, outs[d] = f.run_block(state_from_numpy(snap, d), blocks[d], 600)
-        log(f"[5] FastTracker 600 steps x {len(prns)} ch on {d.type}: "
-            f"{time.time() - t0:.2f} s wall")
+        _, outs[d] = f.run_block(state_from_numpy(snap, d), blocks[d],
+                                 nsteps)
+        tag = "FastTracker" if corr == "band" else f"FastTracker ({corr})"
+        log(f"[5] {tag} {nsteps} steps x {nch} ch on {d.type}: "
+            f"{time.time() - t0:.2f} s wall; kernel launches "
+            f"{counts.kernel}, plain calls {counts.plain}")
+        if d.type == "cuda" and (counts.kernel <= 0 or counts.plain != 0):
+            raise AssertionError(f"FastTracker ({corr}) on the card: "
+                                 f"{counts.kernel} launches, {counts.plain} "
+                                 f"plain calls")
     a, b = outs[cpu], outs[dev]
     act = slice(0, 4)
     if not np.array_equal(a.loc[:, act], b.loc[:, act]):
-        raise AssertionError("FastTracker loc differs between card and CPU")
+        raise AssertionError(f"FastTracker ({corr}) loc differs between card "
+                             "and CPU")
     scale = float(np.max(np.abs(a.ip[:, act])))
     for name in ("ip", "qp"):
         d = np.abs(getattr(a, name)[:, act] - getattr(b, name)[:, act])
         outl = int(np.sum(d > 5e-3 * scale))
         med = float(np.median(d))
-        corr = min(np.corrcoef(getattr(a, name)[:, c],
-                               getattr(b, name)[:, c])[0, 1]
-                   for c in range(4))
-        log(f"[5] {name}: outliers>5e-3*scale {outl}, median/scale "
-            f"{med / scale:.3g}, min corr {corr:.6f}")
-        if outl > 3 or med >= 1e-3 * scale or corr <= 0.999:
-            raise AssertionError(f"FastTracker {name} card vs CPU")
+        corr_min = min(np.corrcoef(getattr(a, name)[:, c],
+                                   getattr(b, name)[:, c])[0, 1]
+                       for c in range(4))
+        log(f"[5] {corr} {name}: outliers>5e-3*scale {outl}, median/scale "
+            f"{med / scale:.3g}, min corr {corr_min:.6f}")
+        if outl > 3 or med >= 1e-3 * scale or corr_min <= 0.999:
+            raise AssertionError(f"FastTracker ({corr}) {name} card vs CPU")
     dd = float(np.max(np.abs(a.dcarr[:, act] - b.dcarr[:, act])))
-    log(f"[5] dcarr max diff {dd:.4g} Hz; loc identical")
+    log(f"[5] {corr} dcarr max diff {dd:.4g} Hz; loc identical")
     if dd > 0.5:
-        raise AssertionError("FastTracker dcarr card vs CPU")
+        raise AssertionError(f"FastTracker ({corr}) dcarr card vs CPU")
 
 
 def _write_ini(capture: str) -> str:
@@ -264,9 +493,9 @@ def phase_slice(dev, capture: str) -> int:
     """The receiver's main path from an INI file; returns the kernel's
     launch count during the run."""
     import shutil
-    from gnsslib_tpu.constants import CLIGHT, PTIMING
-    from gnsslib_tpu.gtime import epoch2time, time2gpst
-    from gnsslib_tpu.io.frontend import FileFrontend
+    from gnsslib_tpu_torch.constants import CLIGHT, PTIMING
+    from gnsslib_tpu_torch.gtime import epoch2time, time2gpst
+    from gnsslib_tpu_torch.io.frontend import FileFrontend
     from gnsslib_tpu_torch.ops import band_taps as bt
     from gnsslib_tpu_torch.runtime.config import load_ini
     from gnsslib_tpu_torch.runtime.receiver import Receiver
@@ -351,7 +580,7 @@ def phase_throughput(dev) -> float:
     noise block, a pending-subset search each block, depth-2 pipelining."""
     import torch
     from collections import deque
-    from gnsslib_tpu.constants import CodeType, DType
+    from gnsslib_tpu_torch.constants import CodeType, DType
     from gnsslib_tpu_torch.acquire import Acquirer
     from gnsslib_tpu_torch.track import FastTracker, TrackConfig, Tracker
     C, nsteps, blocks, passes = 32, 2000, 6, 3
@@ -409,6 +638,38 @@ def phase_throughput(dev) -> float:
     return best
 
 
+def phase_profiler(dev) -> dict:
+    """The correlator profiler at full width (32 channels, 50 super-steps
+    per run): every backend and probe, so K1-K5 all launch; returns each
+    kernel's launch count over the run."""
+    from gnsslib_tpu_torch.ops import band_taps, gram_taps, window_taps
+    from gnsslib_tpu_torch.tools import profile_fast
+    counts = {"band_taps": band_taps.COUNTS, "gram_taps": gram_taps.COUNTS,
+              "correlate_windows16": window_taps.COUNTS16,
+              "correlate_windows8": window_taps.COUNTS8,
+              "correlate_windows": window_taps.COUNTS5}
+    for c in counts.values():
+        c.reset()
+    t0 = time.time()
+    res = profile_fast.profile(dev, steps=50, channels=32,
+                               log=lambda m: log(f"[8] {m}"))
+    launches = {k: c.kernel for k, c in counts.items()}
+    plain = {k: c.plain for k, c in counts.items()}
+    log(f"[8] profiler {time.time() - t0:.1f} s; launches {launches}, "
+        f"plain calls {plain}")
+    for tag, rec in res.items():
+        t = [rec["wall_ms"], rec["event_ms"]]
+        if not all(np.isfinite(v) and v > 0 for v in t):
+            raise AssertionError(f"profiler {tag}: times {t}")
+        if "launches" in rec and (rec["launches"] != 1 or rec["plain"]):
+            raise AssertionError(f"profiler {tag}: {rec['launches']} "
+                                 f"launches, {rec['plain']} plain calls per "
+                                 f"super-step")
+    if min(launches.values()) <= 0 or max(plain.values()) != 0:
+        raise AssertionError(f"profiler launches {launches}, plain {plain}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -428,36 +689,64 @@ def main() -> int:
         f"{torch.cuda.device_count()}")
 
     t0 = time.time()
+    cuda_build.build_all(KERNELS)
     bt.load_kernel()
-    secs, out = cuda_build.build_info.get("band_taps", (0.0, "(cached)"))
-    log(f"[2] built csrc/band_taps.cu in {time.time() - t0:.1f} s "
-        f"(nvcc {secs:.1f} s)")
-    entry = ""
-    for ln in out.splitlines():          # ptxas -v, 13-tap instantiations
-        if "Compiling entry function" in ln:
-            entry = ln
-        elif "ILi13E" in entry and re.search(r"registers|spill", ln):
-            kind = "iq" if "Lb1E" in entry else "real"
-            log(f"[2]   {kind}: {ln.split(':', 1)[-1].strip()}")
+    log(f"[2] built csrc/{{{','.join(KERNELS)}}}.cu in parallel in "
+        f"{time.time() - t0:.1f} s (nvcc "
+        + ", ".join(f"{k} {cuda_build.build_info.get(k, (0.0, ''))[0]:.1f} s"
+                    for k in KERNELS) + ")")
+    for name in KERNELS:                 # ptxas -v, 13-tap instantiations
+        entry = ""
+        for ln in cuda_build.build_info.get(name, (0.0, ""))[1].splitlines():
+            if "Compiling entry function" in ln:
+                entry = ln
+            elif "ILi13E" in entry and re.search(r"registers|spill", ln):
+                kind = ("iq" if "ILi13ELb1E" in entry else "real") + (
+                    " bf16" if "bfloat16" in entry else "")
+                log(f"[2]   {name} {kind}: "
+                    f"{ln.split(':', 1)[-1].strip()}")
 
-    err_r, ms, plain_ms = phase_kernel(dev, iq=False)
-    err_i, _, _ = phase_kernel(dev, iq=True)
+    k = {"band_taps": [phase_kernel(dev, iq=False),
+                       phase_kernel(dev, iq=True)]}
+    for iq in (False, True):
+        for name, r in phase_window_kernels(dev, iq).items():
+            k.setdefault(name, []).append(r)
+        k.setdefault("gram_taps", []).append(phase_gram_kernel(dev, iq))
 
     os.makedirs(WORK, exist_ok=True)
     capture = os.path.join(WORK, "capture_l1ca_int8.bin")
     phase_synth(capture)
     phase_fast_vs_cpu(dev, capture)
-    launches = phase_slice(dev, capture)
+    launches = {"band_taps": phase_slice(dev, capture)}
     phase_throughput(dev)
+    prof = phase_profiler(dev)
+    launches.update({n: prof[n] for n in prof if n != "band_taps"})
     log(f"total {time.time() - t_all:.1f} s")
 
     log(card_line())
-    print(json.dumps({"kernels": [{
-        "name": "band_taps", "route": "cuda",
-        "source": "gnsslib_tpu_torch/csrc/band_taps.cu",
-        "replaces": "gnsslib_tpu/ops/pallas_gram.py:192",
-        "launches": launches, "max_abs_err": max(err_r, err_i),
-        "ms": ms, "plain_ms": plain_ms}]}), flush=True)
+    where = {
+        "band_taps": ("band_taps.cu", "gnsslib_tpu/ops/pallas_gram.py:192"),
+        "gram_taps": ("gram_taps.cu", "gnsslib_tpu/ops/pallas_gram.py:267"),
+        "correlate_windows16": ("window_taps.cu",
+                                "gnsslib_tpu/ops/pallas_corr.py:236"),
+        "correlate_windows8": ("window_taps.cu",
+                               "gnsslib_tpu/ops/pallas_corr.py:156"),
+        "correlate_windows": ("window_taps.cu",
+                              "gnsslib_tpu/ops/pallas_corr.py:66"),
+    }
+    rows = []
+    for name, (src, replaces) in where.items():
+        real = k[name][0]          # real input: the main path's signal
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"gnsslib_tpu_torch/csrc/{src}",
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max(r["err"] for r in k[name]),
+            "ms": real["ms"], "plain_ms": real["plain_ms"],
+            "bound_ms": real["bound_ms"], "bound_by": real["bound_by"],
+            # no single PyTorch call mixes, masks and sums the shifted taps
+            "library_ms": None})
+    print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

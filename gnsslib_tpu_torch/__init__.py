@@ -1,26 +1,32 @@
 """gnsslib_tpu_torch — the GNSS SDR receiver on PyTorch and CUDA.
 
-A port of :mod:`gnsslib_tpu` (JAX/Pallas) to PyTorch with a hand-written
-CUDA band correlator for NVIDIA Hopper.  The module layout follows the JAX
+A port of :mod:`gnsslib_tpu` (JAX/Pallas) to PyTorch with hand-written
+CUDA correlators for NVIDIA Hopper.  The module layout follows the JAX
 package so each counterpart is easy to find:
 
 * ``ops``      — NCO tables, carrier mixing, code resampling, tap
                  correlation, FFT correlation, masked reductions, and the
-                 band correlator (``ops.band_taps``, kernel in
-                 ``csrc/band_taps.cu``).
+                 steady-state correlators with their CUDA kernels
+                 (``ops.band_taps``, ``ops.window_taps``,
+                 ``ops.gram_taps``; sources in ``csrc/``).
 * ``track``    — per-period ``Tracker`` (pull-in) and the steady-state
-                 ``FastTracker`` (L periods per super-step).
+                 ``FastTracker`` (L periods per super-step, correlator
+                 backend chosen by ``FastTracker.corr``).
 * ``acquire``  — batched FFT acquisition search.
-* ``io``       — the device-resident sample cache.
+* ``io``       — the file front end and the device-resident sample cache.
 * ``runtime``  — configuration, the file-replay ``Receiver`` and the CLI.
+* ``tools``    — ``tools.profile_fast``, the correlator backend profiler.
 
-Host-side layers without any array framework (codes, nav decoding,
-observables, RINEX writers, front-end file formats) are imported from
-:mod:`gnsslib_tpu`, so there is one copy of each byte-exact writer.
+The host-side layers without any array framework are the port's own
+copies of the JAX package's modules, with the same behaviour:
+``constants``, ``gtime``, ``sat``, ``codes``, ``nav``, ``obs`` (epoch
+alignment, observable history, RINEX writers, satellite positions),
+``io.frontend``/``io.formats`` and ``sim`` (signal synthesis).  A test
+holds each against its original on the same inputs.
 
-This package imports ``torch`` and never ``jax``.  Every function takes
-an explicit ``device``; there is no global default device and no silent
-fallback from CUDA to the CPU.
+This package imports ``torch`` and never ``jax`` or :mod:`gnsslib_tpu`.
+Every function takes an explicit ``device``; there is no global default
+device and no silent fallback from CUDA to the CPU.
 """
 
 __version__ = "0.1.0"

@@ -19,9 +19,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from gnsslib_tpu import codes
-from gnsslib_tpu.constants import ACQHBAND, ACQINTG_L1CA, ACQSTEP, ACQTH
-
+from .. import codes
+from ..constants import ACQHBAND, ACQINTG_L1CA, ACQSTEP, ACQTH
 from ..ops import fftcorr, stats
 from ..ops.carrier import TWO_PI
 from ..ops.nco import frac
@@ -61,7 +60,7 @@ class Acquirer:
 
     def __init__(self, prns, ctypes, f_sf: float, f_if: float, dtype: int,
                  foffsets=None, *, device):
-        from gnsslib_tpu.constants import DType
+        from ..constants import DType
         prns = list(prns)
         C = len(prns)
         ctypes = list(ctypes) if not np.isscalar(ctypes) else [ctypes] * C

@@ -27,7 +27,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
-# name -> (seconds, compiler output) of the build this process ran
+# name -> (seconds since its build batch started, compiler output) of
+# the builds this process ran
 build_info: dict[str, tuple[float, str]] = {}
 
 
@@ -47,31 +48,55 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{key[:16]}.so"
 
 
+def _build(names) -> None:
+    """Compile every ``csrc/<name>.cu`` of ``names`` that has no build of
+    its current source, one nvcc process each, all started together;
+    raises after all have ended if any failed.  Holds ``_lock``."""
+    todo = [n for n in names if not library_path(n).exists()]
+    if not todo:
+        return
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    jobs = {}
+    t0 = time.time()
+    try:
+        for name in todo:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            jobs[name] = (tmp, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        failed = []
+        for name, (tmp, proc) in jobs.items():
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed for {name}.cu:\n{err}")
+                continue
+            os.replace(tmp, library_path(name))   # atomic: no half-built .so
+            build_info[name] = (time.time() - t0, out + err)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    finally:
+        for tmp, proc in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+
+
 def load(name: str) -> ctypes.CDLL:
     """Return the loaded library for ``csrc/<name>.cu``, building it if no
     build of the current source exists."""
     with _lock:
-        if name in _loaded:
-            return _loaded[name]
-        path = library_path(name)
-        if not path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            t0 = time.time()
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            try:
-                proc = subprocess.run(
-                    [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                     str(CSRC / f"{name}.cu")],
-                    capture_output=True, text=True)
-                if proc.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed for {name}.cu:\n{proc.stderr}")
-                os.replace(tmp, path)            # atomic: no half-built .so
-            finally:
-                if os.path.exists(tmp):
-                    os.unlink(tmp)
-            build_info[name] = (time.time() - t0,
-                                proc.stdout + proc.stderr)
-        _loaded[name] = ctypes.CDLL(str(path))
+        if name not in _loaded:
+            _build([name])
+            _loaded[name] = ctypes.CDLL(str(library_path(name)))
         return _loaded[name]
+
+
+def build_all(names) -> None:
+    """Build the libraries of ``names`` that are not built yet, all nvcc
+    processes in parallel (set-up time); :func:`load` then only loads."""
+    with _lock:
+        _build([n for n in names if n not in _loaded])

@@ -26,23 +26,9 @@ import functools
 import torch
 
 from .carrier import TWO_PI
+from .kernels import (LaunchCounts, bind, check_offsets, check_tensors,
+                      device_offsets, raise_on, route, stream_of)
 from .nco import frac
-
-MAX_TAPS = 25      # templated tap counts in csrc/band_taps.cu
-
-
-class LaunchCounts:
-    """Plain-int counters: kernel launches made by :func:`band_taps`, and
-    the CPU tensors it handed to the plain version."""
-
-    def __init__(self) -> None:
-        self.kernel = 0
-        self.plain = 0
-
-    def reset(self) -> None:
-        self.kernel = 0
-        self.plain = 0
-
 
 COUNTS = LaunchCounts()
 
@@ -81,13 +67,9 @@ def band_taps_plain(block, rc, wstart, n, rem, ftot, active, offsets,
 
 
 def _check(block, rc, wstart, n, rem, ftot, active, offsets, smax):
-    offsets = tuple(int(o) for o in offsets)
-    if len(offsets) % 2 == 0 or len(offsets) > MAX_TAPS or \
-            max(abs(o) for o in offsets) > smax:
-        raise ValueError(f"band_taps: need an odd tap count <= {MAX_TAPS} "
-                         f"with |offset| <= smax={smax}, got {offsets}")
-    B = rc.shape[0] if rc.dim() == 2 else -1
-    want = [
+    offsets = check_offsets("band_taps", offsets, smax)
+    B = rc.shape[0] if isinstance(rc, torch.Tensor) and rc.dim() == 2 else -1
+    check_tensors("band_taps", block.device, [
         ("block", block, torch.float32, None),
         ("rc", rc, torch.int8, None),
         ("wstart", wstart, torch.int32, (B,)),
@@ -95,21 +77,7 @@ def _check(block, rc, wstart, n, rem, ftot, active, offsets, smax):
         ("rem", rem, torch.float32, (B,)),
         ("ftot", ftot, torch.float32, (B,)),
         ("active", active, torch.bool, (B,)),
-    ]
-    for name, t, dtype, shape in want:
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"band_taps: {name} must be a tensor")
-        if t.dtype != dtype:
-            raise TypeError(f"band_taps: {name} must be {dtype}, "
-                            f"got {t.dtype}")
-        if t.device != block.device:
-            raise ValueError(f"band_taps: {name} is on {t.device}, "
-                             f"block on {block.device}")
-        if shape is not None and tuple(t.shape) != shape:
-            raise ValueError(f"band_taps: {name} shape {tuple(t.shape)} "
-                             f"!= {shape}")
-        if not t.is_contiguous():
-            raise ValueError(f"band_taps: {name} must be contiguous")
+    ])
     if rc.dim() != 2 or rc.shape[1] <= 2 * smax:
         raise ValueError(f"band_taps: rc must be (B, next > 2*smax), got "
                          f"{tuple(rc.shape)} with smax={smax}")
@@ -134,12 +102,10 @@ def band_taps(block, rc, wstart, n, rem, ftot, active, offsets, smax: int):
     on the block's device.
     """
     offsets = _check(block, rc, wstart, n, rem, ftot, active, offsets, smax)
-    if block.device.type == "cpu":
+    if route("band_taps", block.device) == "plain":
         COUNTS.plain += 1
         return band_taps_plain(block, rc, wstart, n, rem, ftot, active,
                                offsets, smax)
-    if block.device.type != "cuda":
-        raise ValueError(f"band_taps: unsupported device {block.device}")
     B, T = rc.shape[0], len(offsets)
     out = torch.empty((B, 2 * T), dtype=torch.float32, device=block.device)
     ok = torch.ones(1, dtype=torch.int32, device=block.device)
@@ -155,42 +121,26 @@ def launch(block, rc, wstart, n, rem, ftot, active, offsets, smax: int,
     if the launch is refused."""
     lib = _library()
     B, nxt = rc.shape
-    offs = _device_offsets(tuple(int(o) for o in offsets), block.device)
+    offs = device_offsets(tuple(int(o) for o in offsets), block.device)
     with torch.cuda.device(block.device):
-        stream = torch.cuda.current_stream(block.device).cuda_stream
         err = lib.band_taps_launch(
             block.data_ptr(), block.shape[0], int(block.dim() == 2),
             rc.data_ptr(), nxt, nxt - 2 * smax,
             wstart.data_ptr(), n.data_ptr(), rem.data_ptr(),
             ftot.data_ptr(), active.data_ptr(), offs.data_ptr(),
             offs.shape[0], int(smax), B, out.data_ptr(), ok.data_ptr(),
-            stream)
-    if err != 0:
-        msg = lib.band_taps_error_string(err).decode()
-        raise RuntimeError(f"band_taps kernel launch failed: {msg} "
-                           f"(cudaError {err})")
+            stream_of(block.device))
+    raise_on(lib, "band_taps", err)
     COUNTS.kernel += 1
-
-
-@functools.lru_cache(maxsize=64)
-def _device_offsets(offsets: tuple, device: torch.device) -> torch.Tensor:
-    """The tap offsets as an int32 tensor on ``device``, uploaded once."""
-    return torch.tensor(offsets, dtype=torch.int32, device=device)
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     """Build (first use) and bind ``csrc/band_taps.cu``."""
-    from .. import cuda_build
-    lib = cuda_build.load("band_taps")
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.band_taps_launch.argtypes = [
+    return bind("band_taps", "band_taps_launch", [
         vp, i64, i32, vp, i32, i32, vp, vp, vp, vp, vp, vp,
-        i32, i32, i32, vp, vp, vp]
-    lib.band_taps_launch.restype = ctypes.c_int
-    lib.band_taps_error_string.argtypes = [ctypes.c_int]
-    lib.band_taps_error_string.restype = ctypes.c_char_p
-    return lib
+        i32, i32, i32, vp, vp, vp])
 
 
 def load_kernel() -> None:

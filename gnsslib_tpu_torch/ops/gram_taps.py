@@ -1,0 +1,142 @@
+"""All-tap correlation of fetched window rows with the factored carrier
+(kernel K2).
+
+Counterpart of ``FastTracker._taps_fused`` in :mod:`gnsslib_tpu.track.fast`
+and the Pallas kernel it calls, ``gram_usum_impl``
+(gnsslib_tpu/ops/pallas_gram.py).  Window b arrives as K rows of 128
+samples, masked to its valid length; with i = 128 k + j the carrier angle
+splits into the row-start angle theta_k and the in-row ramp phi_j:
+
+    theta_k = 2 pi frac(frac(ftot_b * 128 k) + rem_b),  phi_j = 2 pi ftot_b j
+    a + j b = (xr + j xi) e^{j theta_k}
+    wc = bf16(a cos phi_j - b sin phi_j),  ws = bf16(b cos phi_j + a sin phi_j)
+    cos_t[b] = sum_i wc(i) rc[b, i + smax + o_t]   (rc past its end counts 0)
+    sin_t[b] = sum_i ws(i) rc[b, i + smax + o_t]
+
+returned as (B, 2T) float32 interleaved [cos_t, sin_t] — what
+``_taps_fused`` returns.  The bf16 rounding of wc/ws is the TPU kernel's;
+its bf16 Gram matrix, split 64-lane layout and one-hot diagonal extractor
+fed the TPU's matrix unit only and are not reproduced (sums stay f32).
+
+:func:`gram_taps` launches ``csrc/gram_taps.cu`` for CUDA tensors and uses
+:func:`gram_taps_plain` only for tensors on the CPU.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .carrier import TWO_PI
+from .kernels import (LaunchCounts, bind, check_offsets, check_tensors,
+                      device_offsets, raise_on, route, stream_of)
+from .nco import frac
+
+COUNTS = LaunchCounts()
+LANES = 128                  # samples per window row
+
+
+def _bf16_round(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def gram_taps_plain(win_i, win_q, rc, rem, ftot, offsets, smax: int):
+    """The factored-carrier tap sums in plain PyTorch (any device)."""
+    B, K, _ = win_i.shape
+    dev = win_i.device
+    kk = torch.arange(K, device=dev, dtype=torch.float32) * float(LANES)
+    th = TWO_PI * frac(frac(ftot[:, None] * kk[None, :]) + rem[:, None])
+    ck, sk = torch.cos(th)[..., None], torch.sin(th)[..., None]   # (B, K, 1)
+    jj = torch.arange(LANES, device=dev, dtype=torch.float32)
+    phj = TWO_PI * (ftot[:, None] * jj[None, :])
+    cj, sj = torch.cos(phj)[:, None, :], torch.sin(phj)[:, None, :]
+    wr = win_i.to(torch.float32)
+    if win_q is not None:
+        wi = win_q.to(torch.float32)
+        a, b = wr * ck - wi * sk, wr * sk + wi * ck
+    else:
+        a, b = wr * ck, wr * sk
+    wc = _bf16_round(a * cj - b * sj).reshape(B, K * LANES)
+    ws = _bf16_round(b * cj + a * sj).reshape(B, K * LANES)
+    span = K * LANES + 2 * smax
+    rcf = torch.zeros((B, span), dtype=torch.float32, device=dev)
+    m = min(span, rc.shape[1])
+    rcf[:, :m] = rc[:, :m].to(torch.float32)
+    cols = []
+    for o in offsets:
+        rep = rcf[:, smax + int(o):smax + int(o) + K * LANES]
+        cols += [(wc * rep).sum(dim=1), (ws * rep).sum(dim=1)]
+    return torch.stack(cols, dim=1)
+
+
+def _check(win_i, win_q, rc, rem, ftot, offsets, smax):
+    op = "gram_taps"
+    offsets = check_offsets(op, offsets, smax)
+    if not (isinstance(win_i, torch.Tensor) and win_i.dim() == 3
+            and win_i.shape[2] == LANES):
+        raise ValueError(f"{op}: win_i must be (B, K, {LANES})")
+    B = win_i.shape[0]
+    want = [("win_i", win_i, torch.bfloat16, None),
+            ("rc", rc, torch.int8, None),
+            ("rem", rem, torch.float32, (B,)),
+            ("ftot", ftot, torch.float32, (B,))]
+    if win_q is not None:
+        want.append(("win_q", win_q, torch.bfloat16, tuple(win_i.shape)))
+    check_tensors(op, win_i.device, want)
+    if rc.dim() != 2 or rc.shape[0] != B or rc.shape[1] <= 2 * smax:
+        raise ValueError(f"{op}: rc must be (B={B}, next > 2*smax), got "
+                         f"{tuple(rc.shape)}")
+    return offsets
+
+
+def gram_taps(win_i, win_q, rc, rem, ftot, offsets, smax: int):
+    """K2: all-tap sums of masked window rows -> (B, 2T) f32.
+
+    win_i:   (B, K, 128) bf16 window rows, masked to the valid length
+             (real samples, or the I component)
+    win_q:   (B, K, 128) bf16 Q component, or None for real signals
+    rc:      (B, next) int8 replica rows (row b covers sample offsets
+             [-smax, next - smax) of window b)
+    rem:     (B,) f32 carrier phase at the window start (cycles)
+    ftot:    (B,) f32 total carrier rate (cycles/sample)
+    offsets: T host ints (|o| <= smax), T odd and <= 25
+    """
+    offsets = _check(win_i, win_q, rc, rem, ftot, offsets, smax)
+    if route("gram_taps", win_i.device) == "plain":
+        COUNTS.plain += 1
+        return gram_taps_plain(win_i, win_q, rc, rem, ftot, offsets, smax)
+    out = torch.empty((win_i.shape[0], 2 * len(offsets)),
+                      dtype=torch.float32, device=win_i.device)
+    launch(win_i, win_q, rc, rem, ftot, offsets, smax, out)
+    COUNTS.kernel += 1
+    return out
+
+
+def launch(win_i, win_q, rc, rem, ftot, offsets, smax: int, out) -> None:
+    """Launch the kernel on the current CUDA stream into ``out`` (B, 2T)
+    f32, with no argument checks and no count: :func:`gram_taps` checks,
+    allocates, counts and calls this.  Raises if the launch is refused."""
+    lib = _library()
+    offs = device_offsets(tuple(int(o) for o in offsets), win_i.device)
+    iq = win_q is not None
+    with torch.cuda.device(win_i.device):
+        err = lib.gram_taps_launch(
+            int(iq), win_i.data_ptr(), win_q.data_ptr() if iq else None,
+            win_i.shape[1], rc.data_ptr(), rc.shape[1], rem.data_ptr(),
+            ftot.data_ptr(), offs.data_ptr(), offs.shape[0], int(smax),
+            win_i.shape[0], out.data_ptr(), stream_of(win_i.device))
+    raise_on(lib, "gram_taps", err)
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    """Build (first use) and bind ``csrc/gram_taps.cu``."""
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    return bind("gram_taps", "gram_taps_launch", [
+        i32, vp, vp, i32, vp, i32, vp, vp, vp, i32, i32, i32, vp, vp])
+
+
+def load_kernel() -> None:
+    """Build and load the kernel library now (set-up time)."""
+    _library()

@@ -15,8 +15,7 @@ import sys
 
 import torch
 
-from gnsslib_tpu.io.frontend import FileFrontend
-
+from ..io.frontend import FileFrontend
 from .config import load_ini
 from .receiver import Receiver
 

@@ -16,10 +16,9 @@ import configparser
 import dataclasses
 import os
 
-from gnsslib_tpu.constants import (CodeType, DFRQ1_GLO, DType, FREQ1,
-                                   FREQ1_GLO, FrontendType, SYS_GPS)
-from gnsslib_tpu.io.frontend import FrontendSpec
-
+from ..constants import (CodeType, DFRQ1_GLO, DType, FREQ1, FREQ1_GLO,
+                         FrontendType, SYS_GPS)
+from ..io.frontend import FrontendSpec
 from ..track.state import LoopParams, TrackConfig
 
 

@@ -27,12 +27,11 @@ import time
 
 import numpy as np
 
-from gnsslib_tpu.constants import ACQSLEEP, OBSINTERPN
-from gnsslib_tpu.nav import NavChannel
-from gnsslib_tpu.obs.epoch import ChannelObsInput, EpochAligner, SdrObs
-from gnsslib_tpu.obs.history import ObsHistory
-from gnsslib_tpu.obs.rinex import RinexNavWriter, RinexObsWriter
-
+from ..constants import ACQSLEEP, OBSINTERPN
+from ..nav import NavChannel
+from ..obs.epoch import ChannelObsInput, EpochAligner, SdrObs
+from ..obs.history import ObsHistory
+from ..obs.rinex import RinexNavWriter, RinexObsWriter
 from ..acquire.search import Acquirer, AcqResult
 from ..io.devcache import DeviceBlockCache
 from ..ops.nco import NSPAN

@@ -2,7 +2,7 @@
 
 ``Tracker`` advances every channel one code period at a time (pull-in);
 ``FastTracker`` runs L periods per super-step once all channels are
-bit-synced, through the band correlator kernel.
+bit-synced, through the correlator backend its ``corr`` names.
 """
 from .state import (LoopParams, TrackConfig, TrackState,  # noqa: F401
                     state_from_numpy, state_to_numpy)

@@ -1,5 +1,5 @@
 """Steady-state fast tracking: L code periods per super-step (port of
-:mod:`gnsslib_tpu.track.fast`, band correlator branch).
+:mod:`gnsslib_tpu.track.fast`).
 
 After nav bit sync every channel's loop filter runs once per ``loop``
 periods, so between updates all NCO rates are constant and the L-period
@@ -7,8 +7,19 @@ span is closed form:
 
 * window placement, code phase and carrier phase for all L periods are
   (C, L) vector math (``_geo_only``);
-* all C*L windows correlate in one launch of the band correlator
-  (:func:`gnsslib_tpu_torch.ops.band_taps.band_taps`, kernel K1);
+* all C*L windows correlate in one call of the correlator backend that
+  ``corr`` names (one kernel launch per super-step on a card):
+
+  - ``"band"`` (default): windows read straight from the block,
+    :func:`~gnsslib_tpu_torch.ops.band_taps.band_taps` (kernel K1);
+  - ``"pallas"``: windows fetched first (``_fetch_windows``, bf16), direct
+    phase, :func:`~gnsslib_tpu_torch.ops.window_taps.correlate_windows16`
+    (K3);
+  - ``"fused"``: window rows fetched and masked first, factored carrier,
+    :func:`~gnsslib_tpu_torch.ops.gram_taps.gram_taps` (K2);
+  - ``"xla"``: fetched windows through the plain eager formulation of the
+    JAX package's einsum backend (``_taps_xla``), no kernel;
+
 * exactly one loop-filter update per channel per super-step
   (``_filter``), with the same discriminators and NCO equations as the
   per-period path.
@@ -24,15 +35,25 @@ import numpy as np
 import torch
 
 from ..ops.band_taps import band_taps
+from ..ops.carrier import TWO_PI
+from ..ops.gram_taps import gram_taps
 from ..ops.nco import frac
+from ..ops.window_taps import correlate_windows16
 from .loop import F32, I32, Tracker, TrackOutputs, as_block, discriminators
 from .state import TrackState, loop_interval
 
+BACKENDS = ("band", "pallas", "fused", "xla")
+UNPORTED_BACKENDS = ("diag", "diag2")
+
 
 class FastTracker:
-    """Wraps a :class:`Tracker` for the post-bit-sync steady state."""
+    """Wraps a :class:`Tracker` for the post-bit-sync steady state.
 
-    def __init__(self, tracker: Tracker):
+    ``use_pallas`` keeps the JAX package's meaning: ``None`` selects the
+    default backend ``"band"``, ``True`` selects ``"pallas"``, ``False``
+    selects ``"xla"``.  Assign :attr:`corr` to choose any backend."""
+
+    def __init__(self, tracker: Tracker, use_pallas: bool | None = None):
         loops = {int(loop_interval(ct)) for ct in tracker._ctypes}
         if len(loops) != 1:
             raise ValueError("fast path needs a uniform loop interval; "
@@ -42,6 +63,7 @@ class FastTracker:
         self.L = loops.pop()
         self.C = tracker.C
         self.n_nom = tracker.n_nom
+        self.nwin = tracker.nwin
         self.next = tracker.next
         self.smax = tracker.smax
         self.offsets = tracker.offsets
@@ -68,6 +90,31 @@ class FastTracker:
                          for kk, v in fconsts.items()}
         self._consts = tracker._consts
         self._ki = torch.arange(L, dtype=F32, device=dev)
+        # window rows of the fetch backends: nwin rounded up to whole
+        # 128-sample rows
+        self._fetch_k = (self.nwin + 127) // 128
+        self._fetch_i = torch.arange(self._fetch_k * 128, device=dev)
+        self.corr = ("band" if use_pallas is None
+                     else "pallas" if use_pallas else "xla")
+
+    @property
+    def corr(self) -> str:
+        """The correlator backend: ``"band"``, ``"pallas"``, ``"fused"`` or
+        ``"xla"``.  ``"diag"``/``"diag2"`` (the JAX package's XLA Gram
+        formulations) are not ported and raise ``NotImplementedError``.
+        The JAX package's ``2*smax <= 64`` rule for ``"fused"`` belonged
+        to its split 64-lane Gram layout; the port's K2 has no such layout
+        and takes any tap geometry."""
+        return self._corr
+
+    @corr.setter
+    def corr(self, value: str) -> None:
+        if value in UNPORTED_BACKENDS:
+            raise NotImplementedError(
+                f"corr={value!r} is not ported; use one of {BACKENDS}")
+        if value not in BACKENDS:
+            raise ValueError(f"corr={value!r}: expected one of {BACKENDS}")
+        self._corr = value
 
     def _base_e(self, e: torch.Tensor) -> torch.Tensor:
         """base_adv_e[c, e + emax] for (C, ...) sample offsets ``e``; an
@@ -200,34 +247,147 @@ class FastTracker:
         return new, packf, packi
 
     # ------------------------------------------------------------------ #
-    def run_steps(self, carry: dict, block: torch.Tensor, nsuper: int):
-        """``nsuper`` super-steps -> (carry, packf (S, C, F),
-        packi (S, C, L+3)).  The last int column is the band correlator's
-        ok flag of that step."""
+    def _block_rows(self, block: torch.Tensor) -> torch.Tensor:
+        """The block cut to whole 128-sample rows, (nrow, 128) real or
+        (nrow, 128, 2) I/Q (a view) — the extent ``_fetch_windows`` and
+        the JAX package's row take see."""
+        nrow = block.shape[0] // 128
+        return block[:nrow * 128].reshape((nrow, 128) + block.shape[1:])
+
+    def _fetch_windows(self, block2: torch.Tensor, wstart: torch.Tensor,
+                       rowform: bool = False, nvalid=None):
+        """(B,) window starts -> (B, nwin[, 2]) bf16 windows, or with
+        ``rowform`` (B, K, 128) bf16 rows (a tuple (I, Q) of them for I/Q
+        blocks), zeroed from ``nvalid`` on when it is given.
+
+        Plain indexing of the block rows ``block2``: sample wstart + i of
+        the rows' extent.  Indices are clamped into the block, so a window
+        that leaves it (an inactive channel's far-negative start after
+        ``rebase``) reads edge samples instead of faulting the device; the
+        active mask discards such windows, and the out-of-block flag of
+        :meth:`_inside` catches active ones.  bf16 is exact for the 8-bit
+        sample alphabet of every capture path."""
+        B = wstart.shape[0]
+        flat = block2.reshape((-1,) + block2.shape[2:])
+        nout = self._fetch_k * 128 if rowform else self.nwin
+        i = self._fetch_i[:nout]
+        idx = (wstart.long()[:, None] + i[None, :]).clamp_(0, flat.shape[0]
+                                                            - 1)
+        win = flat[idx].to(torch.bfloat16)                # (B, nout[, 2])
+        if nvalid is not None:
+            keep = i[None, :] < nvalid.long()[:, None]
+            if win.dim() == 3:
+                keep = keep[..., None]
+            win = torch.where(keep, win, torch.zeros((), dtype=win.dtype,
+                                                     device=win.device))
+        if not rowform:
+            return win
+        win = win.reshape((B, self._fetch_k, 128) + win.shape[2:])
+        if win.dim() == 4:
+            return win[..., 0].contiguous(), win[..., 1].contiguous()
+        return win
+
+    @staticmethod
+    def _inside(block2, wstart, n, active) -> torch.Tensor:
+        """False when an ACTIVE window's samples [wstart, wstart + n) leave
+        the block rows (0-dim bool tensor)."""
+        extent = block2.shape[0] * 128
+        w0 = wstart.long()
+        inside = (w0 >= 0) & (w0 + n.long().clamp(min=0) <= extent)
+        return torch.all(~active | inside)
+
+    def _taps_xla(self, st: dict, geo: dict, win: torch.Tensor,
+                  rc: torch.Tensor):
+        """The JAX package's einsum backend (``_taps_xla``) in plain
+        PyTorch: carrier from the channel's base-phase table, mixed
+        samples rounded to bf16, f32 tap sums.  Returns (cur_i, cur_q),
+        each (C, L, T)."""
+        C, L, nwin, smax = self.C, self.L, self.nwin, self.smax
+        i = self.trk._iwin_f
+        ph = frac(self._consts["base_phase"][:, None, :]
+                  + frac(st["dcps"][:, None] * i[None, :])[:, None, :]
+                  + geo["rem_k"][:, :, None])                # (C, L, nwin)
+        ang = TWO_PI * ph
+        c, s = torch.cos(ang), torch.sin(ang)
+        w = win.to(F32).reshape((C, L) + win.shape[1:])
+        if w.dim() == 4:
+            wr, wi = w[..., 0], w[..., 1]
+            mr, mi = wr * c - wi * s, wr * s + wi * c
+        else:
+            mr, mi = w * c, w * s
+        keep = i[None, None, :] < geo["n_k"].to(F32)[..., None]
+        mr = torch.where(keep, mr, 0.0).to(torch.bfloat16).to(F32)
+        mi = torch.where(keep, mi, 0.0).to(torch.bfloat16).to(F32)
+        rcf = rc.to(F32).reshape(C, L, -1)
+        zr, zi = [], []
+        for o in self.offsets:
+            rep = rcf[..., smax + int(o):smax + int(o) + nwin]
+            zr.append((rep * mr).sum(-1))
+            zi.append((rep * mi).sum(-1))
+        scale = self.trk._tbl_scale
+        # reference I/Q mapping (see loop.py): cur_q = real, cur_i = imag
+        return (torch.stack(zi, -1) * scale, torch.stack(zr, -1) * scale)
+
+    def _correlate(self, block, block2, st: dict, geo: dict,
+                   rc: torch.Tensor):
+        """All taps of one super-step through the ``corr`` backend ->
+        (cur_i, cur_q) each (C, L, T), and the 0-dim bool ok flag (False
+        when an active window left the block)."""
         C, L = self.C, self.L
         B = C * L
-        fbt = self._fconsts["fbt"]
+
+        def flat(t):
+            return t.reshape(B).contiguous()
+        wstart, n, rem = flat(geo["wstart"]), flat(geo["n_k"]), \
+            flat(geo["rem_k"])
+        ftot = flat((self._fconsts["fbt"] + st["dcps"])[:, None].expand(C, L))
+        act = flat(st["active"][:, None].expand(C, L))
+        if self._corr == "band":
+            z2, ok = band_taps(block, rc, wstart, n, rem, ftot, act,
+                               self.offsets, self.smax)
+        else:
+            ok = self._inside(block2, wstart, n, act)
+            if self._corr == "xla":
+                cur_i, cur_q = self._taps_xla(
+                    st, geo, self._fetch_windows(block2, wstart), rc)
+                return cur_i, cur_q, ok
+            if self._corr == "pallas":
+                z2 = correlate_windows16(self._fetch_windows(block2, wstart),
+                                         rc, rem, ftot, n, self.offsets,
+                                         self.smax)
+            else:                                       # "fused"
+                rows = self._fetch_windows(block2, wstart, rowform=True,
+                                           nvalid=n)
+                wi, wq = rows if isinstance(rows, tuple) else (rows, None)
+                z2 = gram_taps(wi, wq, rc, rem, ftot, self.offsets,
+                               self.smax)
+        if self.trk._tbl_scale != 1.0:
+            z2 = z2 * self.trk._tbl_scale
+        z2 = z2.reshape(C, L, -1)
+        return z2[..., 1::2], z2[..., 0::2], ok
+
+    @staticmethod
+    def _merge(carry: dict, new: dict) -> dict:
+        """Active channels take the filter's new values; inactive ones
+        keep theirs."""
+        a = carry["active"]
+        return {k: (torch.where(a.view((-1,) + (1,) * (v.dim() - 1)),
+                                new[k], v) if k in new else v)
+                for k, v in carry.items()}
+
+    def run_steps(self, carry: dict, block: torch.Tensor, nsuper: int):
+        """``nsuper`` super-steps -> (carry, packf (S, C, F),
+        packi (S, C, L+3)).  The last int column is the correlator's ok
+        flag of that step (False: an active window left the block)."""
+        C = self.C
+        block2 = self._block_rows(block) if self._corr != "band" else None
         pf, pi = [], []
         for _ in range(int(nsuper)):
             geo = self._geo_only(carry)
             rc = self._replica_rows(geo["q_idx"])
-            ftot = (fbt + carry["dcps"])[:, None].expand(C, L)
-            act = carry["active"][:, None].expand(C, L)
-            z2, ok = band_taps(
-                block, rc, geo["wstart"].reshape(B).contiguous(),
-                geo["n_k"].reshape(B).contiguous(),
-                geo["rem_k"].reshape(B).contiguous(),
-                ftot.reshape(B).contiguous(), act.reshape(B).contiguous(),
-                self.offsets, self.smax)
-            if self.trk._tbl_scale != 1.0:
-                z2 = z2 * self.trk._tbl_scale
-            z2 = z2.reshape(C, L, -1)
-            new, packf, packi = self._filter(carry, geo, z2[..., 1::2],
-                                             z2[..., 0::2])
-            a = carry["active"]
-            carry = {k: (torch.where(a.view((-1,) + (1,) * (v.dim() - 1)),
-                                     new[k], v) if k in new else v)
-                     for k, v in carry.items()}
+            cur_i, cur_q, ok = self._correlate(block, block2, carry, geo, rc)
+            new, packf, packi = self._filter(carry, geo, cur_i, cur_q)
+            carry = self._merge(carry, new)
             pf.append(packf)
             pi.append(torch.cat(
                 [packi, ok.to(I32).expand(C)[:, None]], dim=1))
@@ -274,9 +434,9 @@ class FastTracker:
         o = self._unpack(packf.cpu().numpy(), packi.cpu().numpy())
         if not np.all(o["bandok"]):
             raise RuntimeError(
-                "band correlator: an active window ran outside the sample "
-                "block — the block's outputs are invalid (the caller must "
-                "keep every window inside the block)")
+                f"{self._corr} correlator: an active window ran outside the "
+                "sample block — the block's outputs are invalid (the caller "
+                "must keep every window inside the block)")
         S = o["k_c"].shape[0]
         L, taps = self.L, self.cfg.ntaps
         C = o["k_c"].shape[1]

@@ -18,9 +18,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from gnsslib_tpu import codes
-from gnsslib_tpu.constants import PI
-
+from .. import codes
+from ..constants import PI
 from ..ops import correlator as corr_ops
 from ..ops.carrier import TWO_PI
 from ..ops.nco import NSPAN, frac

@@ -12,7 +12,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from gnsslib_tpu.constants import LOOP_G1, LOOP_L1CA, LOOP_SBAS, CodeType
+from ..constants import LOOP_G1, LOOP_L1CA, LOOP_SBAS, CodeType
 
 
 @dataclasses.dataclass(frozen=True)

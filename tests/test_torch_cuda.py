@@ -1,4 +1,4 @@
-"""Card-only tests of the port's CUDA kernel (marker ``cuda``).
+"""Card-only tests of the port's CUDA kernels (marker ``cuda``).
 
 They skip without a card.  This file imports no JAX, so it also runs on a
 machine that has only PyTorch; there, skip the JAX-pinning conftest:
@@ -9,8 +9,11 @@ import numpy as np
 import pytest
 import torch
 
-from gnsslib_tpu.constants import CodeType, DType
+from gnsslib_tpu_torch import sim
+from gnsslib_tpu_torch.constants import CodeType, DType
 from gnsslib_tpu_torch.ops import band_taps as bt
+from gnsslib_tpu_torch.ops import gram_taps as gt
+from gnsslib_tpu_torch.ops import window_taps as wt
 from gnsslib_tpu_torch.track import (FastTracker, TrackConfig, Tracker,
                                      state_from_numpy, state_to_numpy)
 
@@ -101,11 +104,101 @@ def test_band_taps_kernel_rejects_bad_inputs(dev):
         bt.band_taps(*args, list(range(-13, 14)), 13)
 
 
+def _window_inputs(trk, B, iq, seed, dev):
+    """Fetched-window inputs at ``trk``'s shapes: 8-bit windows, +-1
+    replica rows, valid lengths around n_nom."""
+    rng = np.random.default_rng(seed)
+    shape = (B, trk.nwin, 2) if iq else (B, trk.nwin)
+    win = rng.integers(-128, 128, shape).astype(np.float32)
+    rc = rng.choice(np.asarray([-1, 1], np.int8), (B, trk.next))
+    rem = rng.uniform(0, 1, B).astype(np.float32)
+    ftot = rng.uniform(-0.5, 0.5, B).astype(np.float32)
+    n = rng.integers(trk.n_nom - 2, trk.n_nom + 3, B).astype(np.int32)
+    t = [torch.from_numpy(a).to(dev) for a in (win, rc, rem, ftot, n)]
+    return win, n, t
+
+
+def _tol(win, n, rel):
+    """``rel`` of the largest window L1 norm over its valid samples (each
+    tap sums n products bounded by |x_i|, |replica| <= 1)."""
+    a = np.abs(win).reshape(win.shape[0], win.shape[1], -1).sum(-1)
+    return rel * max(float(a[b, :k].sum()) for b, k in enumerate(n))
+
+
 @pytest.mark.cuda
-def test_fast_tracker_card_matches_cpu(dev):
+@pytest.mark.parametrize("fn,iq", [(f, iq) for f in ("correlate_windows",
+                                                    "correlate_windows8",
+                                                    "correlate_windows16")
+                                   for iq in (False, True)])
+def test_window_taps_kernels_match_plain(dev, fn, iq):
+    """K5/K4 (f32) and K3 (bf16 windows, int8 rows) against
+    window_taps_plain on the card at the main path's shapes.  f32: only
+    summation order and sincosf rounding differ (1e-5 of the L1 norm, as
+    K1); K3: one sincosf ulp can also flip a mixed sample's bf16 rounding,
+    each flip moving a tap by <= 2^-8 |x_i|, so 1e-4."""
+    trk = Tracker(TrackConfig(6, 3, 6), [1], [CodeType.L1CA], F_SF, F_IF,
+                  DType.IQ if iq else DType.REAL, device="cpu")
+    win, n, (w, rc, rem, ftot, nt) = _window_inputs(trk, 320, iq, 5 + iq,
+                                                   dev)
+    bf16 = fn == "correlate_windows16"
+    if bf16:
+        w = w.to(torch.bfloat16)
+    else:
+        rc = rc.to(torch.float32)
+    counts = {"correlate_windows": wt.COUNTS5, "correlate_windows8":
+              wt.COUNTS8, "correlate_windows16": wt.COUNTS16}[fn]
+    counts.reset()
+    zk = getattr(wt, fn)(w, rc, rem, ftot, nt, trk.offsets, trk.smax)
+    zp = wt.window_taps_plain(w, rc, rem, ftot, nt, trk.offsets, trk.smax)
+    torch.cuda.synchronize()
+    assert counts.kernel == 1 and counts.plain == 0
+    err = float((zk - zp).abs().max())
+    assert err <= _tol(win, n, 1e-4 if bf16 else 1e-5), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iq", [False, True])
+def test_gram_taps_kernel_matches_plain(dev, iq):
+    """K2 against gram_taps_plain on the card at the main path's shapes
+    ((320, 128, 128) bf16 rows); bf16 flips bound the error as for K3."""
+    trk = Tracker(TrackConfig(6, 3, 6), [1], [CodeType.L1CA], F_SF, F_IF,
+                  DType.IQ if iq else DType.REAL, device=dev)
+    fast = FastTracker(trk)
+    win, n, (w, rc, rem, ftot, nt) = _window_inputs(trk, 320, iq, 9 + iq,
+                                                   dev)
+    block2 = fast._block_rows(w.reshape((-1,) + w.shape[2:]))
+    starts = torch.arange(320, device=dev, dtype=torch.int32) * trk.nwin
+    rows = fast._fetch_windows(block2, starts, rowform=True, nvalid=nt)
+    wi, wq = rows if iq else (rows, None)
+    gt.COUNTS.reset()
+    zk = gt.gram_taps(wi, wq, rc, rem, ftot, trk.offsets, trk.smax)
+    zp = gt.gram_taps_plain(wi, wq, rc, rem, ftot, trk.offsets, trk.smax)
+    torch.cuda.synchronize()
+    assert gt.COUNTS.kernel == 1 and gt.COUNTS.plain == 0
+    assert float((zk - zp).abs().max()) <= _tol(win, n, 1e-4)
+
+
+@pytest.mark.cuda
+def test_fetch_backends_reject_bad_inputs(dev):
+    trk = Tracker(TrackConfig(6, 3, 6), [1], [CodeType.L1CA], F_SF, F_IF,
+                  DType.REAL, device="cpu")
+    _, _, (w, rc, rem, ftot, nt) = _window_inputs(trk, 8, False, 2, dev)
+    with pytest.raises(TypeError, match="rc must be torch.float32"):
+        wt.correlate_windows(w, rc, rem, ftot, nt, trk.offsets, trk.smax)
+    with pytest.raises(ValueError, match="rem is on cpu"):
+        wt.correlate_windows16(w.to(torch.bfloat16), rc, rem.cpu(), ftot,
+                               nt, trk.offsets, trk.smax)
+    with pytest.raises(ValueError, match="odd tap count"):
+        gt.gram_taps(torch.zeros((8, 2, 128), dtype=torch.bfloat16,
+                                 device=dev), None, rc, rem, ftot,
+                     list(range(-13, 14)), 13)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("corr", ["band", "pallas", "fused"])
+def test_fast_tracker_card_matches_cpu(dev, corr):
     """FastTracker through the kernel on the card against the plain
     correlator on the CPU, from one state (test_fast.py's tolerances)."""
-    from gnsslib_tpu import sim
     prns = [3, 9, 14]
     f_sf, f_if = 4.092e6, 1.023e6
     ch = [sim.SimChannel(prn=3, doppler=900.0,
@@ -127,8 +220,10 @@ def test_fast_tracker_card_matches_cpu(dev):
     snap = state_to_numpy(st)
     out = {}
     for d in (dev, cpu):
-        _, out[d] = FastTracker(trks[d]).run_block(
-            state_from_numpy(snap, d), torch.from_numpy(x).to(d), 600)
+        f = FastTracker(trks[d])
+        f.corr = corr
+        _, out[d] = f.run_block(state_from_numpy(snap, d),
+                                torch.from_numpy(x).to(d), 600)
     a, b = out[cpu], out[dev]
     np.testing.assert_array_equal(a.loc[:, :2], b.loc[:, :2])
     scale = np.max(np.abs(a.ip[:, :2]))

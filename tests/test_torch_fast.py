@@ -1,5 +1,7 @@
 """The port's band correlator and steady-state FastTracker against the
-JAX package's band-resident Pallas kernel (interpret mode on the CPU).
+JAX package's band-resident Pallas kernel (interpret mode on the CPU), and
+the FastTracker's other correlator backends against their JAX
+counterparts.
 
 Tolerances are test_fast.py's between correlator backends: ip/qp median
 error < 1e-3·scale with at most 3 outliers > 5e-3·scale, correlation >
@@ -155,6 +157,88 @@ def test_fast_run_block_matches_jax_band(locked):
     np.testing.assert_allclose(to.dcarr, jo.dcarr, atol=0.5)
     np.testing.assert_array_equal(to.flagloopfilter, jo.flagloopfilter)
     np.testing.assert_array_equal(to.n, jo.n)
+
+
+# port backend -> how the JAX FastTracker runs its counterpart on the CPU
+JAX_BACKEND = {"pallas": {"use_pallas": "interpret"},
+               "fused": {"use_pallas": False, "corr": "fused-interpret"},
+               "xla": {"use_pallas": False}}
+
+
+def _jax_fast(jtrk, corr):
+    kw = dict(JAX_BACKEND[corr])
+    name = kw.pop("corr", None)
+    jf = JaxFastTracker(jtrk, **kw)
+    if name:
+        jf.corr = name
+    return jf
+
+
+@pytest.mark.parametrize("corr", ["pallas", "fused", "xla"])
+def test_fast_backend_matches_jax(locked, corr):
+    """600 steady-state steps from test_fast's locked state through the
+    port's fetch backends (plain K3, plain K2, the eager einsum
+    formulation) against the JAX FastTracker with the same backend (Pallas
+    kernels in interpret mode), at test_fast.py's inter-backend
+    tolerances."""
+    jtrk, js, jblock = locked
+    _, jo = _jax_fast(jtrk, corr).run_block(js, jblock, 600)
+    _, tf = _ports(jtrk, [7])
+    tf.corr = corr
+    _, to = tf.run_block(state_from_numpy(_np_state(js), "cpu"),
+                         torch.from_numpy(np.array(jblock)), 600)
+    np.testing.assert_array_equal(to.loc, jo.loc)
+    scale = np.max(np.abs(jo.ip))
+    for a, b in ((jo.ip, to.ip), (jo.qp, to.qp)):
+        _close(b, a, scale)
+        assert np.corrcoef(a[:, 0], b[:, 0])[0, 1] > 0.999
+    np.testing.assert_allclose(to.dcarr, jo.dcarr, atol=0.5)
+    np.testing.assert_array_equal(to.flagloopfilter, jo.flagloopfilter)
+
+
+def test_fast_corr_choice(locked):
+    """use_pallas keeps the JAX meaning; corr takes the ported backends,
+    refuses unknown names and says the diag formulations are unported."""
+    jtrk, _, _ = locked
+    tt, _ = _ports(jtrk, [7])
+    assert FastTracker(tt).corr == "band"
+    assert FastTracker(tt, use_pallas=True).corr == "pallas"
+    assert FastTracker(tt, use_pallas=False).corr == "xla"
+    f = FastTracker(tt)
+    for corr in ("band", "pallas", "fused", "xla"):
+        f.corr = corr
+        assert f.corr == corr
+    with pytest.raises(ValueError, match="expected one of"):
+        f.corr = "band-interpret"
+    for corr in ("diag", "diag2"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            f.corr = corr
+    assert f.corr == "xla"
+
+
+@pytest.mark.parametrize("corr", ["pallas", "fused", "xla"])
+def test_fast_fetch_backends_tolerate_inactive_channels(locked, corr):
+    """A far-negative inactive start is clamped by the window fetch (no
+    device fault, no out-of-block flag) and leaves the active channel as
+    the band backend tracks it; an ACTIVE window past the block end still
+    raises at collect."""
+    jtrk, _, jblock = locked
+    tt, tf = _ports(jtrk, [7, 8])
+    st = tt.rebase(tt.init_state(), 40 * tt.n_nom)
+    st = tt.start_channels(st, [0], [800], [-900.0])
+    st = tt.set_bit_sync(st, 0, 0)
+    block = torch.from_numpy(np.array(jblock))
+    _, ob = tf.run_block(st, block, 100)
+    tf.corr = corr
+    _, of = tf.run_block(st, block, 100)
+    np.testing.assert_array_equal(of.loc[:, 0], ob.loc[:, 0])
+    scale = np.max(np.abs(ob.ip[:, 0]))
+    assert np.median(np.abs(ob.ip[:, 0] - of.ip[:, 0])) < 1e-3 * scale
+    far = tt.start_channels(st, [1], [block.shape[0] - tt.n_nom], [-900.0])
+    far = tt.set_bit_sync(far, 1, 0)
+    _, handle = tf.run_block_start(far, block, 20)
+    with pytest.raises(RuntimeError, match="outside the sample block"):
+        tf.run_block_collect(handle)
 
 
 def test_fast_out_of_block_window_raises(locked):

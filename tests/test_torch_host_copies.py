@@ -1,0 +1,152 @@
+"""The port's own copies of the JAX package's host-side modules (constants,
+codes, sim, nav, obs, io) against their originals on the same inputs: the
+two copies must give identical arrays, events and file bytes, so they
+cannot drift apart unnoticed."""
+import dataclasses
+
+import numpy as np
+import pytest
+
+import gnsslib_tpu.codes as j_codes
+import gnsslib_tpu.constants as j_const
+import gnsslib_tpu.sim as j_sim
+import gnsslib_tpu_torch.codes as t_codes
+import gnsslib_tpu_torch.constants as t_const
+import gnsslib_tpu_torch.sim as t_sim
+from gnsslib_tpu import gtime as j_gtime
+from gnsslib_tpu.io import frontend as j_fe
+from gnsslib_tpu.nav import NavChannel as JNav
+from gnsslib_tpu.nav import eph as j_eph
+from gnsslib_tpu.obs import epoch as j_epoch
+from gnsslib_tpu.obs import rinex as j_rinex
+from gnsslib_tpu_torch import gtime as t_gtime
+from gnsslib_tpu_torch.io import frontend as t_fe
+from gnsslib_tpu_torch.nav import NavChannel as TNav
+from gnsslib_tpu_torch.nav import eph as t_eph
+from gnsslib_tpu_torch.obs import epoch as t_epoch
+from gnsslib_tpu_torch.obs import rinex as t_rinex
+
+
+def _constants(tmp_path):
+    names = [n for n in dir(j_const) if n.isupper()]
+    assert names
+    for n in names:
+        a, b = getattr(j_const, n), getattr(t_const, n)
+        assert a == b, n
+    for enum in ("CodeType", "DType", "FrontendType"):
+        ja, ta = getattr(j_const, enum), getattr(t_const, enum)
+        assert {m.name: int(m) for m in ja} == {m.name: int(m) for m in ta}
+
+
+def _codes(tmp_path):
+    prns = {"L1CA": (1, 7, 32), "L1CP": (1, 17), "L1CD": (1, 17),
+            "L1CO": (1, 17), "G1": (0, 5), "L1SBAS": (120, 129),
+            "NH10": (0,), "NH20": (0,)}
+    for ct in j_const.CodeType:
+        for prn in prns[ct.name]:
+            cj, rj = j_codes.gencode(prn, ct)
+            ctc, rt = t_codes.gencode(prn, t_const.CodeType(int(ct)))
+            assert rj == rt and cj.dtype == ctc.dtype, (ct.name, prn)
+            np.testing.assert_array_equal(cj, ctc)
+
+
+def _sim(tmp_path):
+    out = []
+    for mod in (j_sim, t_sim):
+        eph = mod.example_eph(prn=9, week=2200, toe_tow=352800.0)
+        bits = mod.lnav_bit_stream(eph, 352806.0, nframes=1)
+        chans = [mod.SimChannel(prn=9, doppler=1234.0, code_phase=-300.5,
+                                carr_phase=0.2, nav_bits=bits),
+                 mod.SimChannel(prn=3, doppler=-800.0, code_phase=-90.0)]
+        for dt in (j_const.DType.REAL, j_const.DType.IQ):
+            noise = mod.noise_std_for_cn0(1.0, 45.0, 4.092e6, dt)
+            x = mod.synthesize(chans, 4.092e6, 1.023e6, dt, 40000,
+                               noise_std=noise, seed=7, t0=12345)
+            out.append((bits, x, mod.quantize_int8(x, 4.0)))
+    half = len(out) // 2
+    for a, b in zip(out[:half], out[half:]):
+        for u, v in zip(a, b):
+            np.testing.assert_array_equal(u, v)
+
+
+def _nav(tmp_path):
+    eph = j_sim.example_eph(prn=9)
+    bits = j_sim.lnav_bit_stream(eph, 352800.0, nframes=2)
+    rng = np.random.default_rng(5)
+    lead = np.concatenate([np.tile([1, -1], 80),
+                           rng.integers(0, 2, 7) * 2 - 1])
+    ip = np.repeat(np.concatenate([lead, bits]).astype(np.float64) * 1000.0,
+                   20) + rng.normal(0, 150.0, (len(lead) + len(bits)) * 20)
+    bl = np.arange(len(ip), dtype=np.int64) * 16368
+    evs = []
+    for cls in (JNav, TNav):
+        nc = cls(int(j_const.CodeType.L1CA), prn=9, ref_week=2200)
+        ev, pos = [], 0
+        for chunk in (1500, 700, 3000, 2000, 50000):
+            ev += [dataclasses.asdict(e) for e in
+                   nc.update(ip[pos:pos + chunk], bl[pos:pos + chunk], pos)]
+            pos += chunk
+        evs.append((ev, dataclasses.asdict(nc.eph.eph), nc.firstsftow))
+    assert any(e["kind"] == "decode" for e in evs[0][0])
+    assert evs[0] == evs[1]
+
+
+def _rinex(tmp_path):
+    texts = []
+    for tag, rx, ephm, ep, gt in (("j", j_rinex, j_eph, j_epoch, j_gtime),
+                                  ("t", t_rinex, t_eph, t_epoch, t_gtime)):
+        obs = tmp_path / f"{tag}.obs"
+        nav = tmp_path / f"{tag}.nav"
+        w = rx.RinexObsWriter(str(obs), [2026, 8, 16, 12, 0, 0])
+        for k in range(3):
+            w.write_epoch([ep.SdrObs(sys=j_const.SYS_GPS, prn=p, week=2200,
+                                     tow=352800.0 + 0.4 * k,
+                                     P=21234567.123 + 1000 * p + k,
+                                     L=123456.789 - p, D=1234.5 + k, S=45.0)
+                           for p in (5, 12)])
+        n = rx.RinexNavWriter(str(nav), [2026, 8, 16, 12, 0, 0])
+        e = ephm.Eph(week=2200, iode=44, iodc=44,
+                     toe=gt.gpst2time(2200, 352800.0),
+                     toc=gt.gpst2time(2200, 352800.0),
+                     ttr=gt.gpst2time(2200, 352500.0), A=26559850.0, e=0.01,
+                     toes=352800.0, f0=1.2e-4)
+        n.write_eph(j_const.SYS_GPS, 7, e)
+        n.write_geph(5, ephm.Geph(
+            iode=30, frq=-2, toe=gt.gpst2time(2200, 352800.0),
+            tof=gt.gpst2time(2200, 352700.0), pos=[1.2e7, -2.3e7, 5.6e6],
+            vel=[100.0, -200.0, 300.0], acc=[1e-6, 2e-6, -3e-6],
+            taun=1e-7, gamn=1e-12))
+        texts.append((obs.read_bytes(), nav.read_bytes()))
+    assert texts[0][0] and texts[0][1]
+    assert texts[0] == texts[1]
+
+
+def _frontend(tmp_path):
+    raw = np.random.default_rng(3).integers(0, 256, 20000, dtype=np.uint8)
+    path = tmp_path / "if.bin"
+    path.write_bytes(raw.tobytes())
+    FT, DT = j_const.FrontendType, j_const.DType
+    specs = [(FT.FILE, DT.REAL), (FT.FILE, DT.IQ), (FT.FRTLSDR, DT.IQ),
+             (FT.FGN3SV2, DT.IQ), (FT.FGN3SV3, DT.REAL),
+             (FT.FGN3SV3, DT.IQ), (FT.FSTEREO, DT.REAL),
+             (FT.FBLADERF, DT.IQ)]
+    for fend, dt in specs:
+        got = []
+        for fe in (j_fe, t_fe):
+            spec = fe.FrontendSpec(fend=int(fend), f_cf=1575.42e6,
+                                   f_sf=4.092e6, f_if=1.023e6, dtype=int(dt))
+            with fe.FileFrontend(str(path), spec) as f:
+                got.append((spec.foffset, f.nsamples, f.read(100, 700),
+                            f.read(f.nsamples - 50, 100),
+                            f.read_narrow(10, 300)))
+        for u, v in zip(*got):
+            np.testing.assert_array_equal(u, v, err_msg=str((fend, dt)))
+
+
+CASES = {"constants": _constants, "codes": _codes, "sim": _sim,
+         "nav": _nav, "rinex": _rinex, "frontend": _frontend}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_host_copy_matches_original(case, tmp_path):
+    CASES[case](tmp_path)

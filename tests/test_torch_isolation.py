@@ -1,5 +1,5 @@
-"""The port stands without JAX, and its chip smoke script refuses to run
-without a CUDA card."""
+"""The port stands without JAX and without the JAX package, and its chip
+smoke script refuses to run without a CUDA card."""
 import os
 import subprocess
 import sys
@@ -11,17 +11,23 @@ torch.set_num_threads(2)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+# refuse ``jax`` and the JAX package ``gnsslib_tpu`` (not the port,
+# ``gnsslib_tpu_torch``) in the process that runs the code after it
 BLOCK_JAX = textwrap.dedent("""
     import importlib.abc, sys
 
+    def _blocked(name):
+        return (name in ("jax", "gnsslib_tpu")
+                or name.startswith(("jax.", "jaxlib", "gnsslib_tpu.")))
+
     class _NoJax(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
-            if name == "jax" or name.startswith(("jax.", "jaxlib")):
-                raise ImportError("jax is blocked in this process")
+            if _blocked(name):
+                raise ImportError(f"{name} is blocked in this process")
             return None
 
     sys.meta_path.insert(0, _NoJax())
-    for m in [m for m in sys.modules if m == "jax" or m.startswith("jax")]:
+    for m in [m for m in sys.modules if _blocked(m)]:
         del sys.modules[m]
 """)
 
@@ -33,8 +39,9 @@ def _run(code, cwd=ROOT, timeout=300):
 
 
 def test_port_imports_and_tracks_without_jax():
-    """Every module of the port imports with ``jax`` blocked, and a short
-    Tracker block plus a FastTracker block run on the CPU."""
+    """Every module of the port imports with ``jax`` and ``gnsslib_tpu``
+    blocked, and a short Tracker block plus a FastTracker block run on the
+    CPU from a capture the port's own ``sim`` synthesizes."""
     code = BLOCK_JAX + textwrap.dedent("""
         import pkgutil, importlib, numpy as np, torch
         torch.set_num_threads(2)
@@ -42,8 +49,8 @@ def test_port_imports_and_tracks_without_jax():
         for m in pkgutil.walk_packages(gnsslib_tpu_torch.__path__,
                                        "gnsslib_tpu_torch."):
             importlib.import_module(m.name)
-        from gnsslib_tpu import sim
-        from gnsslib_tpu.constants import CodeType, DType
+        from gnsslib_tpu_torch import sim
+        from gnsslib_tpu_torch.constants import CodeType, DType
         from gnsslib_tpu_torch.track import (FastTracker, TrackConfig,
                                              Tracker)
         f_sf = 4.092e6
@@ -58,13 +65,41 @@ def test_port_imports_and_tracks_without_jax():
         st = trk.set_bit_sync(st, 0, 0)
         st, out2 = FastTracker(trk).run_block(st, block, 20)
         assert np.all(np.diff(out.loc[:, 0]) > 0) and out2.ip.shape == (20, 1)
-        assert not any(m == "jax" or m.startswith("jax.")
-                       for m in sys.modules)
+        assert not any(_blocked(m) for m in sys.modules)
         print("NOJAX OK")
     """)
     r = _run(code)
     assert r.returncode == 0, r.stderr[-3000:]
     assert "NOJAX OK" in r.stdout
+
+
+def test_chip_smoke_imports_without_jax():
+    """chip_smoke.py and every module its phases import load with ``jax``
+    and ``gnsslib_tpu`` blocked (the modules are read from its source, so
+    a new phase's imports are covered too)."""
+    code = BLOCK_JAX + textwrap.dedent("""
+        import ast, importlib
+        tree = ast.parse(open("chip_smoke.py").read())
+        mods = {}
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods.update((a.name, ()) for a in node.names)
+            elif isinstance(node, ast.ImportFrom):
+                mods.setdefault(node.module, ())
+                mods[node.module] += tuple(a.name for a in node.names)
+        assert any(m.startswith("gnsslib_tpu_torch.") for m in mods), mods
+        import chip_smoke
+        for m, names in sorted(mods.items()):
+            mod = importlib.import_module(m)
+            for n in names:                 # as ``from m import n`` does
+                if not hasattr(mod, n):
+                    importlib.import_module(f"{m}.{n}")
+        assert not any(_blocked(m) for m in sys.modules)
+        print("SMOKE IMPORTS OK", len(mods))
+    """)
+    r = _run(code)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "SMOKE IMPORTS OK" in r.stdout
 
 
 def test_chip_smoke_refuses_without_cuda():
