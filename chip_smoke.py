@@ -9,13 +9,16 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
 
 1. refuse to run without CUDA; print the card, torch and CUDA versions;
 2. build the correlator kernels (csrc/band_taps.cu, window_taps.cu,
-   gram_taps.cu), one nvcc each, all in parallel;
+   gram_taps.cu, ablation_taps.cu), one nvcc each, all in parallel;
 3. each kernel vs its plain PyTorch version at the main path's shapes (320
    windows of 16376 samples, 16412-sample replica rows, 13 taps; K2 on
-   (320, 128, 128) bf16 rows), real and I/Q input, with CUDA-event times
-   of both and the card's bound for the same work;
-4. synthesize the capture (4 visible GPS L1CA PRNs with LNAV bit streams,
-   16.368 Msps real int8 at a 4.092 MHz IF) in a process pool;
+   (320, 128, 128) bf16 rows; K6's four variants at the profiler's 320 x
+   16493 windows and 18229-sample rows), real and I/Q input, with
+   CUDA-event times of both and the card's bound for the same work;
+4. synthesize both captures in one process pool: the slice's (4 visible
+   GPS L1CA PRNs with LNAV bit streams) and the positioning run's (7
+   satellites above 15 degrees for a known receiver position, one dark
+   in [26, 28) s), 16.368 Msps real int8 at a 4.092 MHz IF;
 5. FastTracker.run_block on the card vs on the CPU from one state, with
    the band, pallas (K3) and fused (K2) correlator backends;
 6. the slice: ``Receiver.run_seconds`` from INI files with 32 L1CA
@@ -25,7 +28,16 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
 7. steady-state throughput at bench.py's workload (a record, not a
    benchmark);
 8. the correlator profiler (``gnsslib_tpu_torch.tools.profile_fast``) at
-   full width: every backend and probe, launching K1-K5.
+   full width: every backend and probe, launching K1-K5;
+9. the kernel profiler (``gnsslib_tpu_torch.tools.profile_kernel``): K6's
+   four variants per launch, and 100 chained launches eager and replayed
+   from one CUDA graph;
+10. the positioning receiver from INI files with 32 L1CA channels and
+   SPP, SMOOTH, RAIM, RELOCK, ACQCONFIRM, HOTSTART, RTCM and LOG: fixes
+   against the true position, the faded satellite's loss of lock and
+   restart, the .pos file, CRC-valid RTCM 1019/1077 frames read by a TCP
+   client, track logs; then ``--checkpoint`` at 14 s and ``--resume`` on
+   the CLI against an uninterrupted run.
 
 The last two lines are a JSON object describing the kernels and the
 ``{"ok": true, "device": {...}}`` line.  This script imports no JAX.
@@ -57,32 +69,71 @@ WORK = os.path.join(ROOT, "build", "gnsslib_tpu_torch", "smoke")
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 L2_BYTES = 50e6
-KERNELS = ("band_taps", "window_taps", "gram_taps")
+KERNELS = ("band_taps", "window_taps", "gram_taps", "ablation_taps")
+CORR = (6, 3, 6)        # CORRN/CORRD/CORRP of the receiver runs (13 taps)
+# the positioning run: a geometry-consistent constellation (the JAX
+# package's test_receiver_spp.py construction, 30 candidate orbits so that
+# 7 satellites stand above 15 degrees), one satellite dark in a window
+# after its ephemeris has been decoded
+POS_SECONDS = 34.0
+POS_RCV = (-3954844.0, 3354936.0, 3700264.0)     # ECEF (m)
+POS_T_OBS = 25.0
+POS_FADE = (26.0, 28.0)
+POS_FADED = 27                                  # the PRN that goes dark
+CKPT_SECONDS = 14.0
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def pos_geometry():
+    """The positioning run's visible satellites (dicts of
+    ``sim.geometry_scenario``) and every candidate's ephemeris by PRN."""
+    from gnsslib_tpu_torch import sim
+    cands, k = [], 0
+    for omg0 in (-0.9, -0.55, -0.2, 0.15, 0.5, 0.85):
+        for m0 in (-0.8, -0.4, 0.0, 0.4, 0.8):
+            k += 1
+            cands.append(sim.example_eph(prn=k, week=2200, toe_tow=TOW0,
+                                         m0=m0, omg0=omg0))
+    geo = sim.geometry_scenario(cands, np.asarray(POS_RCV), TOW0 + POS_T_OBS,
+                                TOW0, min_elev_deg=15.0)
+    return geo, {e.prn: e for e in cands}
+
+
 def _synth_chunk(args):
-    """Samples [t0, t0+n) of the capture as int8 bytes (a pool worker;
-    everything it needs comes in ``args``)."""
-    t0, n, f_sf, f_if, truth = args
+    """Samples [t0, t0+n) of capture ``kind`` ("slice" or "pos") as int8
+    bytes (a pool worker; everything it needs comes in ``args``)."""
+    kind, t0, n, f_sf, f_if, truth = args
     from gnsslib_tpu_torch import sim
     from gnsslib_tpu_torch.constants import DType
+    pad = np.concatenate([np.tile([1, -1], 149), [1, 1]]).astype(np.int8)
+    if kind == "pos":
+        geo, ephs = pos_geometry()
+        dark = POS_FADE[0] <= t0 / f_sf < POS_FADE[1]
+        chans = [sim.SimChannel(
+            prn=g["prn"], doppler=g["doppler"], code_phase=g["code_phase"],
+            carr_phase=0.11 * g["prn"], nav_bits=np.concatenate(
+                [pad, sim.lnav_bit_stream(ephs[g["prn"]], TOW0 + 6.0,
+                                          nframes=2)]))
+            for g in geo if not (dark and g["prn"] == POS_FADED)]
+        noise = sim.noise_std_for_cn0(1.0, CN0, f_sf, DType.REAL)
+        x = sim.synthesize(chans, f_sf, f_if, DType.REAL, n, noise_std=noise,
+                           seed=2000 + t0, t0=t0)
+        return kind, sim.quantize_int8(x, QUANT).tobytes()
     chans = []
     for prn, (d, dop) in truth.items():
         eph = sim.example_eph(prn=prn, week=2200, toe_tow=TOW0)
         frames = sim.lnav_bit_stream(eph, TOW0 + 6.0, nframes=5)
         # 300 pad bits (6 s) ending +1,+1 so word-1 parity sees D29*=D30*=0
-        pad = np.concatenate([np.tile([1, -1], 149), [1, 1]]).astype(np.int8)
         chans.append(sim.SimChannel(
             prn=prn, doppler=dop, code_phase=-d * 1.023e6 / f_sf,
             carr_phase=0.1 * prn, nav_bits=np.concatenate([pad, frames])))
     noise = sim.noise_std_for_cn0(1.0, CN0, f_sf, DType.REAL)
     x = sim.synthesize(chans, f_sf, f_if, DType.REAL, n, noise_std=noise,
                        seed=1000 + t0, t0=t0)
-    return sim.quantize_int8(x, QUANT).tobytes()
+    return kind, sim.quantize_int8(x, QUANT).tobytes()
 
 
 def card_line() -> str:
@@ -356,21 +407,81 @@ def phase_gram_kernel(dev, iq: bool) -> dict:
     return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
 
 
-def phase_synth(path: str) -> float:
+def phase_ablation_kernel(dev) -> dict:
+    """K6's four variants vs their plain versions at the kernel profiler's
+    shapes (B = 320, nwin = 16493, W = 18229, 13 taps)."""
+    import torch
+    from gnsslib_tpu_torch.ops import ablation_taps as ab
+    from gnsslib_tpu_torch.tools import profile_kernel as pk
+    args = pk.inputs(dev)
+    win, rc, rem, ftot, n = args
+    B, nwin = win.shape
+    offs, smax, T = pk.OFFSETS, pk.SMAX, len(pk.OFFSETS)
+    nv = np.minimum(np.ceil(n.cpu().numpy()), nwin).astype(np.int64)
+    l1 = win.abs().sum(dim=1)
+    res = {}
+    for v in ab.VARIANTS:
+        zk = ab.ablation_taps(*args, offs, smax, v)
+        zp = ab.PLAIN[v](*args, offs, smax)
+        torch.cuda.synchronize()
+        errw = (zk - zp).abs().max(dim=1).values
+        err = float(errw.max())
+        # f32 both: summation order and sincosf rounding, 1e-5 of each
+        # window's L1 norm (as K1, K4, K5)
+        if not bool(torch.all(errw <= 1e-5 * l1)):
+            raise AssertionError(f"ablation_taps[{v}] kernel vs plain: "
+                                 f"max_abs_err {err}")
+        # the bytes the variant needs: the valid window samples, the union
+        # of the replica ranges its taps read, the scalars, the taps out
+        lg = ab.lags(v, offs, smax)
+        span = (lg[0] if v == "onetap" else max(lg)) - min(lg)
+        tc = 1 if v == "onetap" else T
+        nbytes = float(nv.sum() * 4 + (nv + span).sum() * 4 + B * 12
+                       + B * 2 * T * 4)
+        flops = float(nv.sum()) * (4 * tc + 2 + (2 if v == "nosin" else 0))
+        bms, by = bound(nbytes, flops)
+        out = torch.empty_like(zk)
+        copies = [[a.clone() for a in args]
+                  for _ in range(copies_for(nbytes))]
+        ms = cold_ms(lambda c: ab.launch(v, *copies[c], offs, smax, out),
+                     len(copies))
+        plain_ms = cuda_ms(lambda: ab.PLAIN[v](*args, offs, smax), 5)
+        log(f"[3] ablation_taps[{v}] B={B} nwin={nwin} W={rc.shape[1]} "
+            f"taps={T}: max_abs_err {err:.4g} (tol 1e-5 of each window's "
+            f"L1 norm, min {float(l1.min()):.4g}); kernel {ms:.4f} ms/launch "
+            f"(inputs rotated over {len(copies)} copies), plain "
+            f"{plain_ms:.4f} ms; bound {bms:.4f} ms by {by} "
+            f"({nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP)")
+        res[v] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                      bound_by=by)
+        del copies
+    return res
+
+
+def phase_synth(paths: dict) -> float:
+    """Both captures ({"slice": path, "pos": path}), 1 s chunks of each
+    in one spawn pool."""
     import multiprocessing as mp
-    n = int(SECONDS * F_SF)
     step = int(F_SF)
-    chunks = [(t0, min(step, n - t0), F_SF, F_IF, TRUTH)
-              for t0 in range(0, n, step)]
+    chunks = []
+    for kind, seconds in (("slice", SECONDS), ("pos", POS_SECONDS)):
+        n = int(seconds * F_SF)
+        chunks += [(kind, t0, min(step, n - t0), F_SF, F_IF, TRUTH)
+                   for t0 in range(0, n, step)]
     t0 = time.time()
     ctx = mp.get_context("spawn")
-    with ctx.Pool(min(len(chunks), os.cpu_count() or 4)) as pool, \
-            open(path, "wb") as f:
-        for raw in pool.imap(_synth_chunk, chunks):
-            f.write(raw)
+    files = {k: open(p, "wb") for k, p in paths.items()}
+    try:
+        with ctx.Pool(min(len(chunks), os.cpu_count() or 4)) as pool:
+            for kind, raw in pool.imap(_synth_chunk, chunks):
+                files[kind].write(raw)
+    finally:
+        for f in files.values():
+            f.close()
     dt = time.time() - t0
-    log(f"[4] synthesized {SECONDS:.0f} s x {len(TRUTH)} PRNs at "
-        f"{F_SF/1e6:.3f} Msps in {dt:.1f} s -> {path}")
+    log(f"[4] synthesized {SECONDS:.0f} s x {len(TRUTH)} PRNs and "
+        f"{POS_SECONDS:.0f} s x {len(pos_geometry()[0])} PRNs at "
+        f"{F_SF/1e6:.3f} Msps in {dt:.1f} s -> {paths}")
     return dt
 
 
@@ -454,8 +565,13 @@ def _fast_vs_cpu(corr: str, nsteps: int, trks, blocks, snap, dev,
         raise AssertionError(f"FastTracker ({corr}) dcarr card vs CPU")
 
 
-def _write_ini(capture: str) -> str:
-    fend = os.path.join(WORK, "fend.ini")
+def _write_ini(capture: str, name: str = "rx", rcv: str = "",
+               output: str = "", prns=range(1, 33)) -> str:
+    """INI files (receiver + front end) for L1CA channels on ``prns`` (all
+    32 by default) on ``capture``, RINEX output under WORK/<name>/rinex;
+    ``rcv`` and ``output`` are extra lines of the [RCV] and [OUTPUT]
+    sections."""
+    fend = os.path.join(WORK, f"{name}_fend.ini")
     with open(fend, "w") as f:
         f.write(f"""[FEND]
 TYPE     =FILE
@@ -465,18 +581,19 @@ IF1      ={F_IF}
 DTYPE1   =1
 FILE1    ={capture}
 [TRACK]
-CORRN    =6
-CORRD    =3
-CORRP    =6
+CORRN    ={CORR[0]}
+CORRD    ={CORR[1]}
+CORRP    ={CORR[2]}
 """)
-    ini = os.path.join(WORK, "rx.ini")
-    prns = ",".join(str(p) for p in range(1, 33))
-    ones = ",".join("1" for _ in range(32))
+    ini = os.path.join(WORK, f"{name}.ini")
+    nch = len(prns)
+    ones = ",".join("1" for _ in prns)
+    prns = ",".join(str(p) for p in prns)
     with open(ini, "w") as f:
         f.write(f"""[RCV]
 FENDCONF ={fend}
-[CHANNEL]
-NCH      =32
+{rcv}[CHANNEL]
+NCH      ={nch}
 PRN      ={prns}
 SYS      ={ones}
 CTYPE    ={ones}
@@ -484,8 +601,8 @@ FTYPE    ={ones}
 [OUTPUT]
 OUTMS    =400
 RINEX    =1
-RINEXPATH={WORK}/rinex
-""")
+RINEXPATH={WORK}/{name}/rinex
+{output}""")
     return ini
 
 
@@ -500,7 +617,7 @@ def phase_slice(dev, capture: str) -> int:
     from gnsslib_tpu_torch.runtime.config import load_ini
     from gnsslib_tpu_torch.runtime.receiver import Receiver
 
-    shutil.rmtree(os.path.join(WORK, "rinex"), ignore_errors=True)
+    shutil.rmtree(os.path.join(WORK, "rx"), ignore_errors=True)
     cfg = load_ini(_write_ini(capture))
     fe = FileFrontend(cfg.files[0], cfg.fends[0])
     rx = Receiver(cfg, fe, device=dev, nsteps_per_block=400)
@@ -670,6 +787,212 @@ def phase_profiler(dev) -> dict:
     return launches
 
 
+def phase_kernel_profiler(dev) -> dict:
+    """K6's profiler: each variant per launch, then 100 chained launches
+    eager and replayed from one CUDA graph; returns its launch counts."""
+    from gnsslib_tpu_torch.ops import ablation_taps as ab
+    from gnsslib_tpu_torch.tools import profile_kernel as pk
+    for c in ab.COUNTS.values():
+        c.reset()
+    t0 = time.time()
+    res = pk.profile(dev, reps=20, scan_test=True,
+                     log=lambda m: log(f"[9] {m}"))
+    launches = {v: c.kernel for v, c in ab.COUNTS.items()}
+    plain = {v: c.plain for v, c in ab.COUNTS.items()}
+    log(f"[9] kernel profiler {time.time() - t0:.1f} s; launches "
+        f"{launches} (graph capture counted once, replays not), plain "
+        f"calls {plain}")
+    for v, rec in res.items():
+        t = [rec["ms"], rec["eager_ms_per_iter"], rec["graph_ms_per_iter"]]
+        if not all(x is not None and np.isfinite(x) and x > 0 for x in t):
+            raise AssertionError(f"kernel profiler {v}: times {t}")
+        log(f"[9] {v}: launch overhead per chained iteration "
+            f"{t[1] - t[2]:.4f} ms (eager {t[1]:.4f} - graph {t[2]:.4f})")
+    if min(launches.values()) <= 0 or max(plain.values()) != 0:
+        raise AssertionError(f"kernel profiler launches {launches}, plain "
+                             f"{plain}")
+    return dict(launches=sum(launches.values()), res=res)
+
+
+def _rinex_epochs(path: str) -> list:
+    """[(epoch header line, {prn: P})] of a RINEX 3 obs file."""
+    out = []
+    for ln in open(path).read().splitlines():
+        if ln.startswith(">"):
+            out.append((ln, {}))
+        elif out and ln[:1] == "G" and ln[1:3].isdigit():
+            out[-1][1][int(ln[1:3])] = float(ln[3:17])
+    return out
+
+
+def _rtcm_frames(buf: bytes) -> list:
+    """[(message type, frame)] of an RTCM3 byte stream; raises on a bad
+    preamble, a truncated frame or a CRC-24Q mismatch."""
+    from gnsslib_tpu_torch.nav.bits import crc24q
+    frames, pos = [], 0
+    while pos < len(buf):
+        if buf[pos] != 0xD3:
+            raise AssertionError(f"RTCM: no preamble at byte {pos}")
+        n = ((buf[pos + 1] & 0x03) << 8) | buf[pos + 2]
+        msg = buf[pos:pos + n + 6]
+        if len(msg) != n + 6 or crc24q(msg[:n + 3]) != int.from_bytes(
+                msg[n + 3:], "big"):
+            raise AssertionError(f"RTCM: bad frame at byte {pos}")
+        frames.append(((msg[3] << 4) | (msg[4] >> 4), msg))
+        pos += n + 6
+    return frames
+
+
+def phase_positioning(dev, capture: str, prns=range(1, 33)) -> int:
+    """The positioning receiver from INI files with channels on ``prns``
+    (all 32 GPS PRNs by default); returns its band_taps launches.  Then
+    the CLI's --checkpoint/--resume against an uninterrupted run."""
+    import shutil
+    import socket
+    from gnsslib_tpu_torch.io.frontend import FileFrontend
+    from gnsslib_tpu_torch.ops import band_taps as bt
+    from gnsslib_tpu_torch.runtime import cli
+    from gnsslib_tpu_torch.runtime.config import load_ini
+    from gnsslib_tpu_torch.runtime.receiver import Receiver
+
+    geo, _ = pos_geometry()
+    visible = sorted(g["prn"] for g in geo)
+    if len(visible) != 7 or POS_FADED not in visible:
+        raise AssertionError(f"positioning geometry: visible {visible}")
+    rcv = "RELOCK   =1\nACQCONFIRM=1\nHOTSTART =1\n"
+    out = ("SPP      =1\nRAIM     =10\nRTCM     =1\nRTCMPORT =0\nLOG      =1\n"
+           "LOGPATH  ={WORK}/{name}/log\n")
+    for name in ("pos", "ck1", "ck2", "full"):
+        shutil.rmtree(os.path.join(WORK, name), ignore_errors=True)
+    ini = _write_ini(capture, "pos", rcv, out.format(WORK=WORK, name="pos")
+                     + "SMOOTH   =20\n", prns)
+    cfg = load_ini(ini)
+    fe = FileFrontend(cfg.files[0], cfg.fends[0])
+    rx = Receiver(cfg, fe, device=dev, nsteps_per_block=400)
+    srv = rx.hub.rtcm_srv
+    client = socket.create_connection(("127.0.0.1", srv.port))
+    for _ in range(500):
+        if srv.nclients:
+            break
+        time.sleep(0.01)
+    if srv.nclients != 1:
+        raise AssertionError("RTCM client not accepted")
+    bt.COUNTS.reset()
+    t0 = time.time()
+    stats = rx.run_seconds()
+    rx.close()
+    fe.close()
+    launches, plain = bt.COUNTS.kernel, bt.COUNTS.plain
+    wall = time.time() - t0
+    client.settimeout(5.0)
+    buf = b""
+    while True:
+        chunk = client.recv(65536)
+        if not chunk:
+            break
+        buf += chunk
+    client.close()
+    frames = _rtcm_frames(buf)
+    types = {}
+    for t, _ in frames:
+        types[t] = types.get(t, 0) + 1
+    sw = stats["stage_wall"]
+    log(f"[10] positioning: {stats['seconds']:.1f} s of stream in "
+        f"{wall:.1f} s; wall by phase: acquire {sw['acquire']:.2f} s, "
+        f"pull-in {sw['pullin']:.2f} s, steady {sw['steady']:.2f} s; "
+        f"milestones " + ", ".join(f"{k} {v:.2f} s" for k, v in
+                                   rx.timeline.items() if k != "t0"))
+    log(f"[10] visible {visible}; locked {stats['locked']}, decoded "
+        f"{stats['decoded']}, {stats['epochs']} epochs, {stats['ephs']} eph "
+        f"records; band_taps launches {launches}, plain calls {plain}; "
+        f"RTCM frames by type {types} ({len(buf)} bytes)")
+    ev = rx.events
+    for e in ev:
+        if e[0] in ("acq", "hot", "lol") or (e[0] == "nav:bitsync"
+                                             and e[2] == POS_FADED):
+            log(f"[10]   event {e}")
+    for prn in visible:
+        if not any(e[0] == "acq" and e[2] == prn for e in ev):
+            raise AssertionError(f"PRN {prn} never acquired")
+        if not any(e[0] == "nav:decode" and e[2] == prn for e in ev):
+            raise AssertionError(f"PRN {prn} never decoded")
+    lol = [e for e in ev if e[0] == "lol" and e[2] == POS_FADED]
+    if not lol or not POS_FADE[0] <= lol[0][1] <= POS_FADE[1] + 1.5:
+        raise AssertionError(f"faded PRN {POS_FADED}: lol events {lol}")
+    back = [e for e in ev if e[0] in ("hot", "acq") and e[2] == POS_FADED
+            and e[1] >= lol[0][1]]
+    resync = [e for e in ev if e[0] == "nav:bitsync" and e[2] == POS_FADED
+              and back and e[1] > back[0][1]]
+    if not back or not resync:
+        raise AssertionError(f"faded PRN {POS_FADED}: restarts {back}, bit "
+                             f"syncs after it {resync}")
+    errs = [float(np.linalg.norm(p - np.asarray(POS_RCV)))
+            for _, _, p, _, _ in rx.hub.positions]
+    good = sum(e < 30.0 for e in errs)
+    if errs:
+        log(f"[10] SPP: {len(errs)} fixes ({good} within 30 m of the truth); "
+            f"error min {min(errs):.2f} m, median {np.median(errs):.2f} m, "
+            f"max {max(errs):.2f} m; satellites per fix "
+            f"{sorted({f[4] for f in rx.hub.positions})}")
+    if good < 3:
+        raise AssertionError(f"only {good} SPP fixes within 30 m: {errs}")
+    rinex = os.path.dirname(rx.obs_writer.path)
+    pos_file = rx.obs_writer.path[:-4] + ".pos"
+    rows = [ln for ln in open(pos_file) if not ln.startswith("%")]
+    if len(rows) != len(errs):
+        raise AssertionError(f".pos rows {len(rows)} != fixes {len(errs)}")
+    if types.get(1019, 0) < len(visible) or types.get(1077, 0) < 1:
+        raise AssertionError(f"RTCM frames by type {types}")
+    logs = sorted(os.listdir(os.path.join(WORK, "pos", "log")))
+    if len(logs) != len(prns) or any(os.path.getsize(os.path.join(
+            WORK, "pos", "log", f"logG{p:02d}.csv")) < 1000 for p in visible):
+        raise AssertionError(f"track logs {logs}")
+    if dev.type == "cuda" and (launches <= 0 or plain != 0):
+        raise AssertionError(f"band_taps launches {launches}, plain {plain}")
+    log(f"[10] .pos {len(rows)} rows, {len(logs)} track logs in {rinex}/..")
+
+    # checkpoint at 14 s and resume, on the CLI, against an uninterrupted
+    # run (no smoothing: the Hatch filter's state is not in a checkpoint)
+    ck = os.path.join(WORK, "pos.ckpt")
+    ckini = {name: _write_ini(capture, name, rcv,
+                              out.format(WORK=WORK, name=name), prns)
+             for name in ("ck1", "ck2", "full")}
+    walls = {}
+    for name, extra in (("ck1", ["--seconds", str(CKPT_SECONDS),
+                                 "--checkpoint", ck]),
+                        ("ck2", ["--resume", ck]), ("full", [])):
+        t0 = time.time()
+        rc = cli.main([ckini[name], "--device", dev.type, "--quiet"] + extra)
+        walls[name] = time.time() - t0
+        if rc != 0:
+            raise AssertionError(f"CLI {name} exit {rc}")
+    eps = {}
+    for name in ("ck1", "ck2", "full"):
+        d = os.path.join(WORK, name, "rinex")
+        obs = [f for f in os.listdir(d) if f.endswith(".obs")]
+        eps[name] = _rinex_epochs(os.path.join(d, obs[0]))
+    cut = len(eps["ck1"])
+    tail = eps["full"][cut:]
+    worst = 0.0
+    if cut < 1 or len(eps["ck2"]) < 10 or len(tail) != len(eps["ck2"]):
+        raise AssertionError(f"epochs: {cut} before the checkpoint, "
+                             f"{len(eps['ck2'])} resumed, {len(tail)} in the "
+                             f"uninterrupted run after it")
+    for (ha, pa), (hb, pb) in zip(tail, eps["ck2"]):
+        if ha != hb or sorted(pa) != sorted(pb):
+            raise AssertionError(f"resumed epoch {hb!r} {sorted(pb)} != "
+                                 f"{ha!r} {sorted(pa)}")
+        worst = max([worst] + [abs(pa[k] - pb[k]) for k in pa])
+    log(f"[10] checkpoint at {CKPT_SECONDS:.0f} s ({cut} epochs before it; "
+        f"CLI wall {walls['ck1']:.1f} s), resumed ({len(eps['ck2'])} epochs, "
+        f"{walls['ck2']:.1f} s) vs uninterrupted ({len(eps['full'])} epochs, "
+        f"{walls['full']:.1f} s): same epochs and satellites, pseudoranges "
+        f"within {worst:.4f} m")
+    if worst > 1.0:
+        raise AssertionError(f"resumed pseudoranges differ by {worst} m")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -700,11 +1023,18 @@ def main() -> int:
         for ln in cuda_build.build_info.get(name, (0.0, ""))[1].splitlines():
             if "Compiling entry function" in ln:
                 entry = ln
-            elif "ILi13E" in entry and re.search(r"registers|spill", ln):
+                continue
+            if not re.search(r"registers|spill", ln):
+                continue
+            var = re.search(r"ILi(\d)ELi13EE", entry)
+            if name == "ablation_taps" and var:
+                kind = ("full", "nosin", "onetap", "aligned")[int(var[1])]
+            elif name != "ablation_taps" and "ILi13E" in entry:
                 kind = ("iq" if "ILi13ELb1E" in entry else "real") + (
                     " bf16" if "bfloat16" in entry else "")
-                log(f"[2]   {name} {kind}: "
-                    f"{ln.split(':', 1)[-1].strip()}")
+            else:
+                continue
+            log(f"[2]   {name} {kind}: {ln.split(':', 1)[-1].strip()}")
 
     k = {"band_taps": [phase_kernel(dev, iq=False),
                        phase_kernel(dev, iq=True)]}
@@ -712,15 +1042,22 @@ def main() -> int:
         for name, r in phase_window_kernels(dev, iq).items():
             k.setdefault(name, []).append(r)
         k.setdefault("gram_taps", []).append(phase_gram_kernel(dev, iq))
+    ablation = phase_ablation_kernel(dev)
+    # the K6 row: the full variant (K4's body); max_abs_err over all four
+    k["ablation_taps"] = [dict(ablation["full"], err=max(
+        r["err"] for r in ablation.values()))]
 
     os.makedirs(WORK, exist_ok=True)
     capture = os.path.join(WORK, "capture_l1ca_int8.bin")
-    phase_synth(capture)
+    capture_pos = os.path.join(WORK, "capture_pos_int8.bin")
+    phase_synth({"slice": capture, "pos": capture_pos})
     phase_fast_vs_cpu(dev, capture)
     launches = {"band_taps": phase_slice(dev, capture)}
     phase_throughput(dev)
     prof = phase_profiler(dev)
     launches.update({n: prof[n] for n in prof if n != "band_taps"})
+    launches["ablation_taps"] = phase_kernel_profiler(dev)["launches"]
+    phase_positioning(dev, capture_pos)
     log(f"total {time.time() - t_all:.1f} s")
 
     log(card_line())
@@ -733,6 +1070,7 @@ def main() -> int:
                                "gnsslib_tpu/ops/pallas_corr.py:156"),
         "correlate_windows": ("window_taps.cu",
                               "gnsslib_tpu/ops/pallas_corr.py:66"),
+        "ablation_taps": ("ablation_taps.cu", "tools/profile_kernel.py:40"),
     }
     rows = []
     for name, (src, replaces) in where.items():

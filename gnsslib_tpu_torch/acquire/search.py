@@ -56,10 +56,12 @@ class Acquirer:
     (same f_sf / f_if / dtype / nsamp), with the reference's search
     settings: ±ACQHBAND Hz in ACQSTEP bins, ACQINTG_L1CA rounds, peak
     ratio > ACQTH (sdrinit.c:385-394, 623-653), and the JAX package's
-    automatic coarse grid (>= 4 cells per chip)."""
+    automatic coarse grid (>= 4 cells per chip).  ``confirm`` (ACQCONFIRM)
+    also requires the even- and odd-round halves to agree on the peak
+    (``confirm_impl``), the JAX package's false-lock guard."""
 
     def __init__(self, prns, ctypes, f_sf: float, f_if: float, dtype: int,
-                 foffsets=None, *, device):
+                 foffsets=None, *, device, confirm: bool = False):
         from ..constants import DType
         prns = list(prns)
         C = len(prns)
@@ -75,6 +77,7 @@ class Acquirer:
         self.ti = 1.0 / f_sf
         self.intg = ACQINTG_L1CA
         self.thresh = ACQTH
+        self.confirm = bool(confirm)
         self.nfreq = int(2 * (ACQHBAND / ACQSTEP) + 1)
 
         code0, crate0 = codes.gencode(prns[0], ctypes[0])
@@ -326,7 +329,10 @@ class Acquirer:
         acqfreq = self.freqs_abs[np.arange(self.C), freqi]
         dcarr = self.dopp_hz[freqi]
         peakr = np.asarray(peakr)
-        return AcqResult(acquired=peakr > self.thresh, codei=codei,
+        acquired = peakr > self.thresh
+        if self.confirm:
+            acquired = acquired & np.asarray(confirmed)
+        return AcqResult(acquired=acquired, codei=codei,
                          freqi=freqi, acqfreq=acqfreq, dcarr=dcarr,
                          cn0=np.asarray(cn0), peakr=peakr,
                          confirmed=np.asarray(confirmed))

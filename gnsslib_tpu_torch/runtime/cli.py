@@ -2,7 +2,8 @@
 
 Usage:
     python -m gnsslib_tpu_torch <config.ini> [--device {cuda,cpu}]
-        [--seconds N] [--nsteps N] [--quiet]
+        [--seconds N] [--nsteps N] [--quiet] [--spp]
+        [--checkpoint PATH] [--resume PATH]
 
 ``--device cuda`` (the default) requires a CUDA card and never falls back
 to the CPU.  Options of the JAX package's CLI that the port does not carry
@@ -11,17 +12,19 @@ yet raise ``NotImplementedError`` naming the option.
 from __future__ import annotations
 
 import argparse
+import math
 import sys
 
 import torch
 
 from ..io.frontend import FileFrontend
+from ..obs.spp import ecef2llh
 from .config import load_ini
 from .receiver import Receiver
 
 # flags of `python -m gnsslib_tpu` that the port does not carry yet
-UNPORTED_FLAGS = ("--devices", "--ftype", "--spp", "--spec", "--watch",
-                  "--watch-html", "--profile", "--checkpoint", "--resume")
+UNPORTED_FLAGS = ("--devices", "--ftype", "--spec", "--watch",
+                  "--watch-html", "--profile")
 
 
 def main(argv=None) -> int:
@@ -36,6 +39,14 @@ def main(argv=None) -> int:
     ap.add_argument("--nsteps", type=int, default=400,
                     help="code periods per device block")
     ap.add_argument("--quiet", action="store_true")
+    ap.add_argument("--spp", action="store_true",
+                    help="solve single-point positions per obs epoch "
+                         "(also [OUTPUT] SPP=1); writes a .pos file "
+                         "alongside RINEX")
+    ap.add_argument("--checkpoint", metavar="PATH", default=None,
+                    help="save a resumable receiver snapshot at the end")
+    ap.add_argument("--resume", metavar="PATH", default=None,
+                    help="load a snapshot saved with --checkpoint")
     for flag in UNPORTED_FLAGS:
         ap.add_argument(flag, nargs="?", const=True, default=None,
                         help=argparse.SUPPRESS)
@@ -51,6 +62,8 @@ def main(argv=None) -> int:
     device = torch.device(args.device)
 
     cfg = load_ini(args.config)
+    if args.spp:
+        cfg.spp = True
     if not cfg.fends:
         print("error: config has no front end ([FEND] missing?)",
               file=sys.stderr)
@@ -62,6 +75,8 @@ def main(argv=None) -> int:
         return 1
     fe = FileFrontend(path, cfg.fends[ftype - 1])
     rx = Receiver(cfg, fe, device=device, nsteps_per_block=args.nsteps)
+    if args.resume:
+        rx.load_checkpoint(args.resume)
     spec = fe.spec
     if not args.quiet:
         print(f"gnsslib_tpu_torch: {len(rx.channels)} channels on "
@@ -78,6 +93,8 @@ def main(argv=None) -> int:
 
     try:
         stats = rx.run_seconds(args.seconds, progress=progress)
+        if args.checkpoint:
+            rx.save_checkpoint(args.checkpoint)
     finally:
         rx.close()
         fe.close()
@@ -95,6 +112,13 @@ def main(argv=None) -> int:
         if rx.obs_writer:
             print(f"rinex obs: {rx.obs_writer.path}")
             print(f"rinex nav: {rx.nav_writer.path}")
+        if rx.hub.positions:
+            wk, tow, pos, clk, nsat = rx.hub.positions[-1]
+            lat, lon, h = ecef2llh(pos)
+            print(f"spp: {len(rx.hub.positions)} fixes; last "
+                  f"tow={tow:.1f} lat={math.degrees(lat):.7f} "
+                  f"lon={math.degrees(lon):.7f} h={h:.1f} m "
+                  f"({nsat} sats)")
     return 0
 
 

@@ -187,15 +187,10 @@ def load_ini(path: str) -> ReceiverConfig:
 
 def unported_options(cfg: ReceiverConfig) -> list[str]:
     """Configured options outside the port's receiver (one file-replay
-    front end, real-sampled GPS L1CA channels, RINEX output), by their
+    front end, real-sampled GPS L1CA channels; RINEX, RTCM, SPP and track
+    log output; relock, hot start and acquisition confirmation), by their
     INI names."""
-    default = ReceiverConfig(channels=[], fends=[], files=[])
-    flags = [("RELOCK", cfg.relock), ("HOTSTART", cfg.hotstart),
-             ("ACQCONFIRM", cfg.acqconfirm), ("SPP", cfg.spp),
-             ("RTCM", cfg.rtcm), ("SBAS", cfg.sbas), ("LOG", cfg.log),
-             ("SPEC", cfg.spec), ("SMOOTH", cfg.smooth != 0),
-             ("RAIM", cfg.raim != 0.0),
-             ("PULLINTMO", cfg.pullin_timeout != default.pullin_timeout)]
+    flags = [("SBAS", cfg.sbas), ("SPEC", cfg.spec)]
     out = [name for name, on in flags if on]
     if any(f.fend in LIVE_FENDS for f in cfg.fends):
         out.append("live front end (FEND TYPE)")

@@ -17,28 +17,46 @@ only after later blocks have been queued, so the copy and the host nav
 work overlap device compute.  A search's decision therefore starts a
 channel two blocks after its searched block, with the code phase
 propagated along the acquired code-Doppler trajectory.
+
+The positioning options follow the JAX receiver: single-point positions
+per epoch (SPP, with RAIM and a Hatch smoother before output), RTCM3 over
+TCP, loss-of-lock detection with reacquisition (RELOCK, PULLINTMO),
+position-aided hot start (HOTSTART), the even/odd acquisition
+confirmation (ACQCONFIRM), per-channel tracking logs (LOG) and
+checkpoints.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import functools
+import math
 import os
+import pickle
 import time
 
 import numpy as np
 
-from ..constants import ACQSLEEP, OBSINTERPN
+from ..constants import (ACQSLEEP, CLIGHT, CodeType, FREQ1, OBSINTERPN,
+                         SYS_GPS, SYS_QZS)
+from ..diag.tracklog import TrackLogger
+from ..gtime import gpst2time
 from ..nav import NavChannel
 from ..obs.epoch import ChannelObsInput, EpochAligner, SdrObs
 from ..obs.history import ObsHistory
 from ..obs.rinex import RinexNavWriter, RinexObsWriter
+from ..obs.rtcm import encode_1019, encode_1044, encode_msm7
+from ..obs.smooth import HatchSmoother
+from ..obs.spp import ecef2llh, predict_range, spp_solve
 from ..acquire.search import Acquirer, AcqResult
 from ..io.devcache import DeviceBlockCache
 from ..ops.nco import NSPAN
+from ..sat import satno, satno2id
 from ..track.fast import FastTracker
 from ..track.loop import Tracker
-from ..track.state import loop_interval
+from ..track.state import loop_interval, state_from_numpy, state_to_numpy
 from .config import ReceiverConfig, unported_options
+from .tcpout import TcpServer
 
 PIPELINE_DEPTH = 2        # blocks (and searches) in flight before collect
 
@@ -55,12 +73,17 @@ class ChannelRuntime:
     last_acq_attempt: float = -1e9
     acq_codei: int = -1      # code phase the search reported (searched block)
     acq_dcarr: float = 0.0   # its Doppler bin (Hz)
+    t_acq: float = -1e9      # stream time the current lock started
+    cn0: float = 0.0
+    peak_prompt: float = 0.0
 
 
 class OutputHub:
-    """RINEX obs/nav writers plus the common-epoch clock."""
+    """RINEX obs/nav writers, the RTCM3 server, SPP with its .pos file, and
+    the common-epoch clock."""
 
     def __init__(self, cfg: ReceiverConfig):
+        self.cfg = cfg
         self.aligner = EpochAligner(cfg.outms)
         self.outms_ms = int(cfg.outms)
         self._oldreftow = 0.0
@@ -76,8 +99,34 @@ class OutputHub:
                 os.path.join(cfg.rinexpath, f"sdr_{stamp}.obs"), date)
             self.nav_writer = RinexNavWriter(
                 os.path.join(cfg.rinexpath, f"sdr_{stamp}.nav"), date)
+        self.rtcm_srv = TcpServer(cfg.rtcmport) if cfg.rtcm else None
         self.epochs_written = 0
         self.ephs_written = 0
+        # single-point positioning: the receiver registers complete
+        # ephemerides in ``ephs``; each emitted epoch with >= 4 usable
+        # satellites is solved and appended to ``positions`` (week, tow,
+        # ecef, clk, nsat), ``solutions`` (week, tow, SppSolution) and the
+        # .pos file
+        self.spp = bool(cfg.spp)
+        self.smoother = (HatchSmoother(window=int(cfg.smooth)) if cfg.smooth
+                         else None)
+        self.ephs = {}
+        self.positions = []
+        self.solutions = []
+        self.pos_writer = None
+        self._last_pos = None
+        if self.spp and cfg.rinex:
+            os.makedirs(cfg.rinexpath, exist_ok=True)
+            stamp = time.strftime('%Y%m%d%H%M%S', time.gmtime())
+            if self.obs_writer is not None:
+                # share the RINEX files' timestamp
+                stamp = os.path.basename(self.obs_writer.path)[4:-4]
+            self.pos_writer = open(
+                os.path.join(cfg.rinexpath, f"sdr_{stamp}.pos"), "w")
+            self.pos_writer.write(
+                "% gnsslib_tpu single-point positions\n"
+                "% week tow  x(m) y(m) z(m)  clk(m)  nsat  "
+                "lat(deg) lon(deg) h(m)  speed(m/s) gdop\n")
 
     def emit_epochs(self, inputs: list[ChannelObsInput]
                     ) -> list[list[SdrObs]]:
@@ -93,16 +142,52 @@ class OutputHub:
             t = k * self.outms_ms / 1000.0
             obs = self.aligner._epoch_at(inputs, t)
             if obs:
+                if self.smoother is not None:
+                    self.smoother.smooth(
+                        obs, max_gap_s=2.5 * self.outms_ms / 1000.0)
                 epochs.append(obs)
                 if self.obs_writer:
                     self.obs_writer.write_epoch(obs)
+                if self.rtcm_srv:
+                    by_sys = {}
+                    for o in obs:
+                        by_sys.setdefault(o.sys, []).append(
+                            (o.prn, o.P, o.L, o.D, o.S, o.fcn))
+                    for sysid, lst in by_sys.items():
+                        self.rtcm_srv.send(encode_msm7(
+                            sysid, lst, obs[0].week, obs[0].tow))
+                if self.spp:
+                    self._solve_epoch(obs)
                 self.epochs_written += 1
             k += 1
         self._oldreftow = newest
         return epochs
 
+    def _solve_epoch(self, obs) -> None:
+        sol = spp_solve(obs, self.ephs, x0=self._last_pos,
+                        raim_thresh=float(self.cfg.raim))
+        if not sol.ok:
+            return
+        self._last_pos = sol.pos
+        self.positions.append((obs[0].week, obs[0].tow, sol.pos,
+                               sol.clk, sol.nsat))
+        self.solutions.append((obs[0].week, obs[0].tow, sol))
+        if self.pos_writer:
+            lat, lon, h = ecef2llh(sol.pos)
+            spd = (float(np.linalg.norm(sol.vel))
+                   if sol.vel is not None else 0.0)
+            gdop = sol.dop["gdop"] if sol.dop else 0.0
+            self.pos_writer.write(
+                f"{obs[0].week:5d} {obs[0].tow:11.3f} "
+                f"{sol.pos[0]:14.3f} {sol.pos[1]:14.3f} "
+                f"{sol.pos[2]:14.3f} {sol.clk:12.3f} {sol.nsat:3d} "
+                f"{math.degrees(lat):12.7f} {math.degrees(lon):12.7f} "
+                f"{h:9.3f} {spd:8.3f} {gdop:6.2f}\n")
+            self.pos_writer.flush()
+
     def emit_nav(self, channels: list[ChannelRuntime]) -> None:
-        """Nav records on ephemeris update (src/sdrsync.c:137-156)."""
+        """Nav records (RINEX, and RTCM 1019/1044) on ephemeris update
+        (src/sdrsync.c:137-156)."""
         for ch in channels:
             eph = ch.nav.eph
             if eph.update and eph.cnt >= eph.cntth:
@@ -112,18 +197,30 @@ class OutputHub:
                 if self.nav_writer:
                     self.nav_writer.write_eph(ch.cfg.sys, ch.cfg.prn,
                                               eph.eph)
+                if self.rtcm_srv:
+                    if ch.cfg.sys == SYS_QZS:
+                        self.rtcm_srv.send(encode_1044(ch.cfg.prn, eph.eph))
+                    elif ch.cfg.sys == SYS_GPS:
+                        self.rtcm_srv.send(encode_1019(ch.cfg.prn, eph.eph))
 
     def close(self) -> None:
+        if self.pos_writer is not None:
+            self.pos_writer.close()
+            self.pos_writer = None
         for w in (self.obs_writer, self.nav_writer):
             if w is not None and hasattr(w, "close"):
                 w.close()
+        if self.rtcm_srv is not None:
+            self.rtcm_srv.close()
+            self.rtcm_srv = None
 
 
 class Receiver:
     """The receiver for one front end replayed from a file
     (``frontend.read(start, n)`` + ``nsamples``), on ``device``: the
     channels of ``cfg`` (one RF path of real-sampled GPS L1CA channels;
-    anything else raises ``NotImplementedError``)."""
+    anything else, and SBAS or SPEC output, raises
+    ``NotImplementedError``)."""
 
     def __init__(self, cfg: ReceiverConfig, frontend, *, device,
                  nsteps_per_block: int = 400):
@@ -147,7 +244,8 @@ class Receiver:
         foffsets = [spec.foffset + c.foffset_fdma for c in chans]
 
         self.acq = Acquirer(prns, ctypes, spec.f_sf, spec.f_if, spec.dtype,
-                            foffsets=foffsets, device=device)
+                            foffsets=foffsets, device=device,
+                            confirm=cfg.acqconfirm)
         self.trk = Tracker(cfg.track, prns, ctypes, spec.f_sf, spec.f_if,
                            spec.dtype, foffsets=foffsets,
                            f_cfs=[c.f_cf for c in chans], device=device)
@@ -172,6 +270,15 @@ class Receiver:
             self.channels.append(ChannelRuntime(idx=i, cfg=c, nav=nav,
                                                 hist=hist))
         self.hub = OutputHub(cfg)
+        self.loggers = {}
+        if cfg.log:
+            os.makedirs(cfg.logpath, exist_ok=True)
+            for ch in self.channels:
+                sid = satno2id(satno(ch.cfg.sys, ch.cfg.prn)) or \
+                    f"C{ch.cfg.prn:02d}"
+                self.loggers[ch.idx] = TrackLogger(
+                    cfg.logpath, sid, cfg.track.corrn, cfg.track.corrd,
+                    float(self.trk.crate[ch.idx]), spec.f_if)
         # host shadow of state.cnt (+nsteps per block for channels active
         # at dispatch, 0 at start_channels): no device read per block
         self._cnt_host = np.zeros(len(self.channels), np.int64)
@@ -226,6 +333,9 @@ class Receiver:
                 t_stream - ch.last_acq_attempt >= ACQSLEEP / 1000.0 - 1e-9]
         if not pend:
             return
+        pend = self._try_hotstart(pend, t_stream)
+        if not pend:
+            return
         for ch in pend:
             ch.last_acq_attempt = t_stream
         idx = [ch.idx for ch in pend]
@@ -254,6 +364,8 @@ class Receiver:
                 tc_samp = self.trk._clens[i] / cfreq * self.spec.f_sf
                 codei = int(round((codei - delta) % tc_samp))
             ch.locked = True
+            ch.t_acq = self.base / self.spec.f_sf
+            ch.cn0 = float(res.cn0[i])
             self._mark("first_lock")
             self.state = self.trk.start_channels(
                 self.state, [i], [codei], [dcarr])
@@ -261,6 +373,66 @@ class Receiver:
             self._events.append(
                 ("acq", t_disp, ch.cfg.prn, float(res.cn0[i]),
                  float(res.peakr[i])))
+
+    def _try_hotstart(self, pend: list, t_stream: float) -> list:
+        """Position/ephemeris-aided handoff (HOTSTART=1): once fixes
+        exist, an unlocked satellite's code-boundary sample and Doppler are
+        predicted from the last fix, its broadcast orbit and a decoded
+        reference channel's transmit-time anchor, and the channel starts
+        straight in pull-in.  Returns the channels still needing the FFT
+        search."""
+        hub = self.hub
+        if not self.cfg.hotstart or not hub.solutions:
+            return pend
+        # the prediction anchors on the reference channel's newest history
+        # record: collect the in-flight blocks first, or the anchor is
+        # PIPELINE_DEPTH blocks stale
+        self.flush()
+        # the flush may have applied a search that locked some of these
+        pend = [ch for ch in pend if not ch.locked]
+        if not pend:
+            return pend
+        ref = next((c for c in self.channels if c.locked and c.nav.flagdec
+                    and c.cfg.ctype == CodeType.L1CA
+                    and c.hist.nrec > 0), None)
+        if ref is None:
+            return pend
+        eph_r = hub.ephs.get((ref.cfg.sys, ref.nav.prn))
+        if eph_r is None:
+            return pend
+        _, _, sol = hub.solutions[-1]
+        pos = sol.pos
+        week = ref.nav.eph.week_gpst
+        ti = self.trk.ti
+        # transmit-time anchor from the reference channel's newest record,
+        # advanced at the reference's transmit rate (1 - dtau/dt)
+        tow_r = float(ref.hist.tow[0])
+        s_r = float(ref.hist.codei[0]) - float(ref.hist.remc[0])
+        tau_r, rate_r = predict_range(eph_r, pos, gpst2time(week, tow_r))
+        T_r = tow_r + (self.base - s_r) * ti * (1.0 - rate_r)
+        t_rx = gpst2time(week, T_r + tau_r)      # GPS receive time at base
+        remaining = []
+        for ch in pend:
+            e = (hub.ephs.get((ch.cfg.sys, ch.cfg.prn))
+                 if ch.cfg.ctype == CodeType.L1CA else None)
+            if e is None:
+                remaining.append(ch)
+                continue
+            tau_t, rate = predict_range(e, pos, t_rx)
+            # sample of this satellite's next code-period boundary
+            T_tx_t = (T_r + tau_r) - tau_t
+            ctime = float(self.trk.ctime[ch.idx])
+            loc = int(round(((-T_tx_t) % ctime) / ti))
+            D = rate * FREQ1 + sol.clk_drift * FREQ1 / CLIGHT
+            self.state = self.trk.start_channels(
+                self.state, [ch.idx], [loc], [-D])
+            self._cnt_host[ch.idx] = 0
+            ch.locked = True
+            ch.t_acq = t_stream
+            ch.last_acq_attempt = t_stream
+            self._events.append(("hot", t_stream, ch.cfg.prn,
+                                 float(-D), loc))
+        return remaining
 
     # ------------------------------------------------------------------ #
     def _feed_nav_and_obs(self, out, cnt0: np.ndarray, base: int,
@@ -282,6 +454,13 @@ class Receiver:
                                                    ch.nav.sync_offset)
                 ch.synced = True
                 self._mark("first_sync")
+            if i in self.loggers:
+                self.loggers[i].log_block(out, i, ch.nav, ch.hist,
+                                          int(cnt0[i]))
+            if self.cfg.relock and ch.synced:
+                self._check_lock(ch, out, base)
+            elif self.cfg.relock and not ch.synced:
+                self._check_pullin(ch, base)
             if ch.nav.flagdec:
                 ch.hist.update(
                     cnts=was_started + np.arange(steps),
@@ -294,8 +473,69 @@ class Receiver:
                     firstsfcnt=ch.nav.firstsfcnt,
                     flagsyncf=ch.nav.flagsyncf, polarity=ch.nav.polarity)
 
+    def _check_lock(self, ch, out, base: int) -> None:
+        """Loss-of-lock test (RELOCK=1) on a bit-synced channel: the
+        outermost tap pair sits +-corrn*corrd samples from prompt, outside
+        the +-1-chip correlation triangle for the usual geometries, so it
+        measures the noise floor at the coherent length; lock is lost when
+        the block-median prompt magnitude falls below twice that floor.
+        Geometries whose outer taps lie inside the triangle (under ~1.05
+        chips) fall back to 0.15 of the remembered peak prompt."""
+        i = ch.idx
+        upd = out.flagloopfilter[:, i] == 2
+        if not np.any(upd):
+            return
+        mag = lambda t: (np.abs(out.sum_i[upd, i, t])
+                         + np.abs(out.sum_q[upd, i, t]))
+        p_med = float(np.median(mag(0)))
+        outer_chips = (self.cfg.track.corrn * self.cfg.track.corrd
+                       * float(self.trk.crate[i]) / self.spec.f_sf)
+        if outer_chips >= 1.05:
+            noise = float(np.median(np.concatenate([mag(-2), mag(-1)])))
+            lost = p_med < 2.0 * noise
+        else:
+            lost = p_med < 0.15 * max(ch.peak_prompt, 1e-9)
+        if lost:
+            self._reset_channel(ch, base / self.spec.f_sf)
+        else:
+            ch.peak_prompt = max(ch.peak_prompt, p_med)
+
+    def _reset_channel(self, ch, t_stream: float) -> None:
+        """Loss-of-lock teardown: drop the lock, clear nav and observable
+        state, make the channel eligible for the next search, and record a
+        ``lol`` event.  The peak prompt is forgotten, so a satellite that
+        returns weaker is not judged against the old lock's level."""
+        ch.locked = False
+        ch.synced = False
+        ch.nav = NavChannel(ch.cfg.ctype, ch.cfg.prn,
+                            ref_week=self.cfg.ref_week)
+        ch.hist.nrec = 0
+        ch.last_acq_attempt = -1e9
+        ch.peak_prompt = 0.0
+        self._events.append(("lol", t_stream, ch.cfg.prn))
+
+    def _check_pullin(self, ch, base: int) -> None:
+        """Pull-in watchdog (RELOCK=1, PULLINTMO): a channel with no bit
+        sync ``pullin_timeout`` seconds after its lock started is tracking
+        noise (a fade during pull-in, or a false lock) and is reset."""
+        t_stream = base / self.spec.f_sf
+        if t_stream - ch.t_acq > self.cfg.pullin_timeout:
+            self._reset_channel(ch, t_stream)
+
     def collect_obs_inputs(self) -> list[ChannelObsInput]:
-        """Aligner inputs for every channel with a full, decoded history."""
+        """Aligner inputs for every channel with a full, decoded history;
+        registers each channel's complete, consistent ephemeris (subframes
+        2 and 3 of one IODE) in the hub for SPP and the hot start."""
+        for ch in self.channels:
+            if not ch.nav.flagdec:
+                continue
+            e = ch.nav.eph.eph
+            if e.A > 0.0 and e.i0 != 0.0 and e.toe.time and \
+                    ch.nav.eph.iode_sf2 == ch.nav.eph.iode_sf3:
+                key = (ch.cfg.sys, ch.nav.prn)
+                old = self.hub.ephs.get(key)
+                if old is None or old.iode != e.iode:
+                    self.hub.ephs[key] = copy.deepcopy(e)
         ready = [ch for ch in self.channels
                  if ch.nav.flagdec and ch.nav.eph.week_gpst != 0
                  and ch.hist.full]
@@ -314,6 +554,41 @@ class Receiver:
         return epochs
 
     # ------------------------------------------------------------------ #
+    def _snapshot(self) -> dict:
+        return dict(
+            base=self.base, oldreftow=self.hub._oldreftow,
+            state=state_to_numpy(self.state),
+            channels=[(ch.locked, ch.synced, ch.last_acq_attempt,
+                       ch.cn0, ch.peak_prompt, ch.nav, ch.hist, ch.t_acq)
+                      for ch in self.channels],
+            epochs=self.epochs_written, ephs=self.ephs_written)
+
+    def _restore(self, d: dict) -> None:
+        self.base = d["base"]
+        self.hub._oldreftow = d["oldreftow"]
+        self.state = state_from_numpy(d["state"], self.trk.device)
+        self._cnt_host = np.asarray(d["state"]["cnt"], np.int64).copy()
+        for ch, rec in zip(self.channels, d["channels"]):
+            (ch.locked, ch.synced, ch.last_acq_attempt, ch.cn0,
+             ch.peak_prompt, ch.nav, ch.hist, ch.t_acq) = rec
+        self.hub.epochs_written = d["epochs"]
+        self.hub.ephs_written = d["ephs"]
+
+    def save_checkpoint(self, path: str) -> None:
+        """Snapshot the receiver after a flush: the absolute sample index,
+        the tracking state (as numpy arrays), each channel's lock flags,
+        nav and observable history, and the hub's counters."""
+        self.flush()
+        with open(path, "wb") as f:
+            pickle.dump(self._snapshot(), f)
+
+    def load_checkpoint(self, path: str) -> None:
+        """Restore a snapshot of :meth:`save_checkpoint` (same config) onto
+        this receiver's device.  The file is unpickled: load only
+        checkpoints this program wrote."""
+        with open(path, "rb") as f:
+            self._restore(pickle.load(f))
+
     def end_sample(self, seconds: float | None = None) -> int:
         end = self.frontend.nsamples
         if seconds is not None:
@@ -371,9 +646,12 @@ class Receiver:
             self._collect(*p)
 
     def close(self) -> None:
-        """Flush pending work and close output files."""
+        """Flush pending work and close output files and the RTCM server."""
         self.flush()
         self.hub.close()
+        for lg in self.loggers.values():
+            lg.close()
+        self.loggers = {}
 
     def _summary(self, t_start: float, nblocks: int) -> dict:
         wall = time.time() - t_start

@@ -11,9 +11,11 @@ import torch
 
 from gnsslib_tpu_torch import sim
 from gnsslib_tpu_torch.constants import CodeType, DType
+from gnsslib_tpu_torch.ops import ablation_taps as ab
 from gnsslib_tpu_torch.ops import band_taps as bt
 from gnsslib_tpu_torch.ops import gram_taps as gt
 from gnsslib_tpu_torch.ops import window_taps as wt
+from gnsslib_tpu_torch.tools import profile_kernel
 from gnsslib_tpu_torch.track import (FastTracker, TrackConfig, Tracker,
                                      state_from_numpy, state_to_numpy)
 
@@ -192,6 +194,47 @@ def test_fetch_backends_reject_bad_inputs(dev):
         gt.gram_taps(torch.zeros((8, 2, 128), dtype=torch.bfloat16,
                                  device=dev), None, rc, rem, ftot,
                      list(range(-13, 14)), 13)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ab.VARIANTS)
+def test_ablation_taps_kernel_matches_plain(dev, variant):
+    """K6's four variants against their plain versions on the card at the
+    profiler's shapes (B = 320, nwin = 16493, W = 18229, 13 taps): f32,
+    only summation order and sincosf rounding differ, 1e-5 of each
+    window's L1 norm."""
+    args = profile_kernel.inputs(dev)
+    ab.COUNTS[variant].reset()
+    zk = ab.ablation_taps(*args, profile_kernel.OFFSETS,
+                          profile_kernel.SMAX, variant)
+    zp = ab.PLAIN[variant](*args, profile_kernel.OFFSETS,
+                           profile_kernel.SMAX)
+    torch.cuda.synchronize()
+    assert ab.COUNTS[variant].kernel == 1 and ab.COUNTS[variant].plain == 0
+    l1 = args[0].abs().sum(dim=1)
+    err = (zk - zp).abs().max(dim=1).values
+    assert bool(torch.all(err <= 1e-5 * l1)), float(err.max())
+
+
+@pytest.mark.cuda
+def test_ablation_taps_in_cuda_graph(dev):
+    """The scan test's chained launches captured in one CUDA graph give
+    the eager chain's result; capture counts its launches once."""
+    args = profile_kernel.inputs(dev, B=64, nwin=4000)
+    c0 = torch.zeros((), device=dev)
+    eager = profile_kernel._scan_body(args, "full", 5, c0)
+    ab.COUNTS["full"].reset()
+    eager_ms, graph_ms = profile_kernel.scan(args, "full", dev, iters=5,
+                                             reps=2)
+    # eager (a warm-up and 2 timed chains), 2 side-stream warm-ups, capture
+    assert ab.COUNTS["full"].kernel == 5 * 3 + 2 + 5
+    assert eager_ms > 0 and graph_ms > 0
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        c_out = profile_kernel._scan_body(args, "full", 5, c0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert float(c_out) == pytest.approx(float(eager), rel=1e-6)
 
 
 @pytest.mark.cuda

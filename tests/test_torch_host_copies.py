@@ -1,8 +1,10 @@
 """The port's own copies of the JAX package's host-side modules (constants,
-codes, sim, nav, obs, io) against their originals on the same inputs: the
-two copies must give identical arrays, events and file bytes, so they
-cannot drift apart unnoticed."""
+codes, sim, nav, obs, io, the RTCM server, the track logger) against their
+originals on the same inputs: the two copies must give identical arrays,
+events, solutions and bytes, so they cannot drift apart unnoticed."""
 import dataclasses
+import socket
+import time
 
 import numpy as np
 import pytest
@@ -14,17 +16,28 @@ import gnsslib_tpu_torch.codes as t_codes
 import gnsslib_tpu_torch.constants as t_const
 import gnsslib_tpu_torch.sim as t_sim
 from gnsslib_tpu import gtime as j_gtime
+from gnsslib_tpu.diag import tracklog as j_tracklog
 from gnsslib_tpu.io import frontend as j_fe
 from gnsslib_tpu.nav import NavChannel as JNav
 from gnsslib_tpu.nav import eph as j_eph
 from gnsslib_tpu.obs import epoch as j_epoch
 from gnsslib_tpu.obs import rinex as j_rinex
+from gnsslib_tpu.obs import rtcm as j_rtcm
+from gnsslib_tpu.obs import smooth as j_smooth
+from gnsslib_tpu.obs import spp as j_spp
+from gnsslib_tpu.runtime import tcpout as j_tcpout
 from gnsslib_tpu_torch import gtime as t_gtime
+from gnsslib_tpu_torch.diag import tracklog as t_tracklog
 from gnsslib_tpu_torch.io import frontend as t_fe
 from gnsslib_tpu_torch.nav import NavChannel as TNav
 from gnsslib_tpu_torch.nav import eph as t_eph
 from gnsslib_tpu_torch.obs import epoch as t_epoch
 from gnsslib_tpu_torch.obs import rinex as t_rinex
+from gnsslib_tpu_torch.obs import rtcm as t_rtcm
+from gnsslib_tpu_torch.obs import smooth as t_smooth
+from gnsslib_tpu_torch.obs import spp as t_spp
+from gnsslib_tpu_torch.runtime import tcpout as t_tcpout
+from gnsslib_tpu_torch.track.loop import TrackOutputs
 
 
 def _constants(tmp_path):
@@ -143,8 +156,154 @@ def _frontend(tmp_path):
             np.testing.assert_array_equal(u, v, err_msg=str((fend, dt)))
 
 
+RCV = np.array([-3954844.0, 3354936.0, 3700264.0])
+
+
+def _constellation(mods):
+    """One epoch of ``mods``' observables for 7 satellites above 5
+    degrees, from the forward model (``predict_range``) plus a 3 km
+    receiver clock bias, with the ephemerides keyed for ``spp_solve``."""
+    simm, sppm, ep, gt = mods
+    cands, k = [], 0
+    for omg0 in (-0.9, -0.55, -0.2, 0.15, 0.5, 0.85):
+        for m0 in (-0.6, 0.0, 0.6):
+            k += 1
+            cands.append(simm.example_eph(prn=k, week=2200,
+                                          toe_tow=352800.0, m0=m0,
+                                          omg0=omg0))
+    geo = simm.geometry_scenario(cands, RCV, 352825.0, 352800.0,
+                                 min_elev_deg=5.0)[:7]
+    ephs = {(j_const.SYS_GPS, c.prn): c.eph for c in cands}
+    t_rx = gt.gpst2time(2200, 352825.0)
+    obs = []
+    for g in geo:
+        tau, rate = sppm.predict_range(ephs[(j_const.SYS_GPS, g["prn"])],
+                                       RCV, t_rx)
+        obs.append(ep.SdrObs(sys=j_const.SYS_GPS, prn=g["prn"], week=2200,
+                             tow=352825.0, P=tau * 299792458.0 + 3000.0,
+                             L=1e5 * g["prn"], D=-rate * 1.57542e9,
+                             S=45.0))
+    return geo, ephs, obs
+
+
+def _spp(tmp_path):
+    res = []
+    for mods in ((j_sim, j_spp, j_epoch, j_gtime),
+                 (t_sim, t_spp, t_epoch, t_gtime)):
+        geo, ephs, obs = _constellation(mods)
+        sppm = mods[1]
+        plain = sppm.spp_solve(obs, ephs)
+        obs[2].P += 80.0                          # one faulty range
+        raim = sppm.spp_solve(obs, ephs, raim_thresh=10.0)
+        pred = sppm.predict_range(ephs[(j_const.SYS_GPS, geo[0]["prn"])],
+                                  RCV + 5.0, mods[3].gpst2time(2200, 352826.0))
+        res.append((plain, raim, pred, sppm.ecef2llh(plain.pos),
+                    [g["prn"] for g in geo]))
+    (pj, rj, qj, lj, gj), (pt, rt, qt, lt, gt_) = res
+    assert gj == gt_ and len(gj) == 7
+    assert float(np.linalg.norm(pj.pos - RCV)) < 1.0
+    assert rj.nsat == 6 and float(np.linalg.norm(rj.pos - RCV)) < 1.0
+    for a, b in ((pj, pt), (rj, rt)):
+        for f in ("ok", "nsat", "iters", "clk", "clk_drift", "dop"):
+            assert getattr(a, f) == getattr(b, f), f
+        for f in ("pos", "resid", "vel"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+    assert qj == qt and lj == lt
+
+
+def _smooth(tmp_path):
+    out = []
+    for ep, sm in ((j_epoch, j_smooth), (t_epoch, t_smooth)):
+        h = sm.HatchSmoother(window=5)
+        r = np.random.default_rng(11)
+        got = []
+        for k in range(12):
+            tow = 352800.0 + 0.4 * k + (3.0 if k >= 8 else 0.0)   # a gap
+            obs = [ep.SdrObs(sys=j_const.SYS_GPS, prn=p, week=2200, tow=tow,
+                             P=2.1e7 + 100.0 * k + float(r.normal(0, 3)),
+                             L=100.0 * k / 0.190293672798365, D=0.0, S=45.0)
+                   for p in (4, 9)]
+            got.append([o.P for o in h.smooth(obs)])
+        out.append(got)
+    assert out[0] == out[1]
+
+
+def _rtcm(tmp_path):
+    msgs = []
+    for simm, rt, ephm, gt in ((j_sim, j_rtcm, j_eph, j_gtime),
+                               (t_sim, t_rtcm, t_eph, t_gtime)):
+        eph = simm.example_eph(prn=9, week=2200, toe_tow=352800.0).eph
+        eph.ttr = gt.gpst2time(2200, 352500.0)
+        geph = ephm.Geph(iode=40, frq=-3, svh=0, age=1,
+                         toe=gt.gpst2time(2200, 352800.0),
+                         tof=gt.gpst2time(2200, 352700.0),
+                         pos=[12e6, -15e6, 18e6],
+                         vel=[1000.0, -2000.0, 500.0],
+                         acc=[1e-6, -2e-6, 3e-6], taun=5e-7, gamn=1e-12,
+                         dtaun=1e-9)
+        gps = [(3, 21000000.123, 110e6 + 0.25, 1234.5, 45.0, 0),
+               (17, 23000000.5, 120e6 - 0.75, -2345.5, 40.0, 0)]
+        glo = [(5, 2.2e7, 1.1e8, -300.0, 42.0, -3)]
+        msgs.append((rt.encode_1019(9, eph), rt.encode_1044(193, eph),
+                     rt.encode_1020(5, geph),
+                     rt.encode_msm7(j_const.SYS_GPS, gps, 2200, 352825.4),
+                     rt.encode_msm7(j_const.SYS_GLO, glo, 2200, 352825.4)))
+    assert all(m[0] == 0xD3 for m in msgs[0])
+    assert msgs[0] == msgs[1]
+
+
+def _tcpout(tmp_path):
+    got = []
+    for mod in (j_tcpout, t_tcpout):
+        srv = mod.TcpServer(0, host="127.0.0.1")
+        cli = socket.create_connection(("127.0.0.1", srv.port))
+        for _ in range(500):
+            if srv.nclients:
+                break
+            time.sleep(0.01)
+        assert srv.nclients == 1
+        for k in range(3):
+            srv.send(bytes([0xD3, k]) * 50)
+        srv.close()
+        cli.settimeout(5.0)
+        buf = b""
+        while True:
+            chunk = cli.recv(4096)
+            if not chunk:
+                break
+            buf += chunk
+        cli.close()
+        got.append((buf, srv.nclients))
+    assert got[0] == got[1] and len(got[0][0]) == 300
+
+
+def _tracklog(tmp_path):
+    rng = np.random.default_rng(2)
+    steps, C, T = 30, 2, 9
+    arr = {f.name: rng.normal(0, 100, (steps, C, T) if f.name in
+                              ("sum_i", "sum_q") else (steps, C)
+                              ).astype(np.float32)
+           for f in dataclasses.fields(TrackOutputs)}
+    arr["flagloopfilter"] = np.tile(np.arange(steps)[:, None] % 10 == 9,
+                                    (1, C)).astype(np.int32) * 2
+    out = TrackOutputs(**arr)
+    texts = []
+    for tag, mod, nav in (("j", j_tracklog, JNav), ("t", t_tracklog, TNav)):
+        nc = nav(int(j_const.CodeType.L1CA), prn=9, ref_week=2200)
+        nc.flagtow, nc.firstsftow, nc.firstsfcnt = True, 352806.0, 4
+        lg = mod.TrackLogger(str(tmp_path / tag), "G09", 4, 2, 1.023e6,
+                             1.023e6)
+        lg.log_block(out, 1, nc, None, 120)
+        lg.log_block(out, 0, nc, None, 150)
+        lg.close()
+        texts.append((tmp_path / tag / "logG09.csv").read_bytes())
+    assert texts[0] and texts[0] == texts[1]
+
+
 CASES = {"constants": _constants, "codes": _codes, "sim": _sim,
-         "nav": _nav, "rinex": _rinex, "frontend": _frontend}
+         "nav": _nav, "rinex": _rinex, "frontend": _frontend, "spp": _spp,
+         "smooth": _smooth, "rtcm": _rtcm, "tcpout": _tcpout,
+         "tracklog": _tracklog}
 
 
 @pytest.mark.parametrize("case", list(CASES))

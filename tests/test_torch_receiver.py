@@ -1,7 +1,8 @@
 """The port's file-replay Receiver against the JAX Receiver on one
 synthesized capture (2 visible + 2 absent GPS L1CA PRNs, 16 s at
 4.092 Msps), both driven from the same INI files through their
-``load_ini`` + ``Receiver.run_seconds``; and the port's CLI."""
+``load_ini`` + ``Receiver.run_seconds``; checkpoint and resume; and the
+port's CLI."""
 import os
 import re
 
@@ -16,8 +17,9 @@ from gnsslib_tpu.constants import DType
 from gnsslib_tpu.io.frontend import FileFrontend
 from gnsslib_tpu.runtime.config import load_ini as jax_load_ini
 from gnsslib_tpu.runtime.receiver import Receiver as JaxReceiver
+from gnsslib_tpu_torch.runtime.cli import UNPORTED_FLAGS
 from gnsslib_tpu_torch.runtime.cli import main as torch_cli
-from gnsslib_tpu_torch.runtime.config import load_ini
+from gnsslib_tpu_torch.runtime.config import load_ini, unported_options
 from gnsslib_tpu_torch.runtime.receiver import Receiver
 
 torch.set_num_threads(2)
@@ -84,7 +86,8 @@ RINEXPATH={tmp}/out
     return tmp, ini
 
 
-def _run(rx):
+def _record(rx) -> list:
+    """The list that ``rx``'s hub appends its emitted epochs to."""
     epochs = []
     orig = rx.hub.emit_epochs
 
@@ -93,6 +96,11 @@ def _run(rx):
         epochs.extend(out)
         return out
     rx.hub.emit_epochs = record
+    return epochs
+
+
+def _run(rx):
+    epochs = _record(rx)
     rx.run_seconds()
     rx.close()
     return epochs
@@ -192,23 +200,95 @@ def test_cli_runs_on_cpu(capture, tmp_path):
     assert sorted(p[-3:] for p in os.listdir(out)) == ["nav", "obs"]
 
 
+def test_checkpoint_resume_matches_uninterrupted(both, capture, tmp_path):
+    """Stopped at 8 s with a checkpoint, resumed in a new receiver: the
+    epochs after the checkpoint are the uninterrupted run's (same TOWs and
+    satellites, pseudoranges within 1 m)."""
+    _, ini = capture
+    _, (_, full) = both
+
+    def mk():
+        cfg = load_ini(str(ini))
+        cfg.rinex = False
+        return Receiver(cfg, FileFrontend(cfg.files[0], cfg.fends[0]),
+                        device="cpu")
+    rx_a = mk()
+    before = _record(rx_a)
+    rx_a.run_seconds(8.0)
+    ck = str(tmp_path / "rx.ckpt")
+    rx_a.save_checkpoint(ck)
+    rx_a.close()
+    rx_b = mk()
+    rx_b.load_checkpoint(ck)
+    assert rx_b.base == rx_a.base and rx_b.epochs_written == \
+        rx_a.epochs_written == len(before)
+    resumed = _run(rx_b)
+    assert len(resumed) >= 3 and len(before) + len(resumed) == len(full)
+    for a, b in zip(full[len(before):], resumed):
+        assert b[0].tow == a[0].tow
+        assert [o.prn for o in b] == [o.prn for o in a]
+        for oa, ob in zip(a, b):
+            assert ob.P == pytest.approx(oa.P, abs=1.0)
+    assert rx_b.epochs_written == len(full)
+
+
 @pytest.mark.parametrize("key,value,name", [
     ("relock", True, "RELOCK"), ("hotstart", True, "HOTSTART"),
     ("acqconfirm", True, "ACQCONFIRM"), ("spp", True, "SPP"),
     ("rtcm", True, "RTCM"), ("sbas", True, "SBAS"), ("log", True, "LOG"),
     ("spec", True, "SPEC"), ("smooth", 5, "SMOOTH")])
-def test_unported_options_raise(capture, key, value, name):
+def test_unported_options_raise(capture, tmp_path, key, value, name):
+    """SBAS and SPEC output still raise; the options ported since build a
+    receiver that carries them."""
     _, ini = capture
     cfg = load_ini(str(ini))
+    cfg.rinex, cfg.logpath, cfg.rtcmport = False, str(tmp_path), 0
     setattr(cfg, key, value)
-    with pytest.raises(NotImplementedError, match=name):
-        Receiver(cfg, FileFrontend(cfg.files[0], cfg.fends[0]),
-                 device="cpu")
+    fe = FileFrontend(cfg.files[0], cfg.fends[0])
+    if name in ("SBAS", "SPEC"):
+        assert unported_options(cfg) == [name]
+        with pytest.raises(NotImplementedError, match=name):
+            Receiver(cfg, fe, device="cpu")
+        return
+    assert unported_options(cfg) == []
+    rx = Receiver(cfg, fe, device="cpu")
+    try:
+        carried = {"RELOCK": rx.cfg.relock, "HOTSTART": rx.cfg.hotstart,
+                   "ACQCONFIRM": rx.acq.confirm, "SPP": rx.hub.spp,
+                   "RTCM": rx.hub.rtcm_srv is not None,
+                   "LOG": len(rx.loggers) == len(PRNS),
+                   "SMOOTH": rx.hub.smoother is not None
+                   and rx.hub.smoother.N == 5}
+        assert carried[name]
+    finally:
+        rx.close()
+    if name == "LOG":
+        assert sorted(os.listdir(tmp_path)) == sorted(
+            f"logG{p:02d}.csv" for p in PRNS)
 
 
 @pytest.mark.parametrize("flag", ["--devices", "--checkpoint", "--watch",
                                   "--resume", "--spp"])
-def test_unported_cli_flags_raise(capture, flag):
+def test_unported_cli_flags_raise(capture, tmp_path, flag):
+    """Flags the port does not carry raise; ``--checkpoint``, ``--resume``
+    and ``--spp`` (ported since) run: a checkpoint written after 2 s
+    resumes to 3 s, and ``--spp`` opens the .pos file beside RINEX."""
     _, ini = capture
-    with pytest.raises(NotImplementedError, match=flag):
-        torch_cli([str(ini), "--device", "cpu", flag, "2"])
+    if flag in UNPORTED_FLAGS:
+        with pytest.raises(NotImplementedError, match=flag):
+            torch_cli([str(ini), "--device", "cpu", flag, "2"])
+        return
+    cli_ini = tmp_path / "cli.ini"
+    cli_ini.write_text(re.sub(r"RINEXPATH=.*", f"RINEXPATH={tmp_path}/out",
+                              ini.read_text()))
+    base = [str(cli_ini), "--device", "cpu", "--quiet"]
+    ck = str(tmp_path / "rx.ckpt")
+    if flag == "--spp":
+        assert torch_cli(base + ["--seconds", "2", "--spp"]) == 0
+        assert sorted(p[-3:] for p in os.listdir(tmp_path / "out")) == \
+            ["nav", "obs", "pos"]
+        return
+    assert torch_cli(base + ["--seconds", "2", "--checkpoint", ck]) == 0
+    assert os.path.getsize(ck) > 0
+    if flag == "--resume":
+        assert torch_cli(base + ["--seconds", "3", "--resume", ck]) == 0
