@@ -9,12 +9,18 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
 
 1. refuse to run without CUDA; print the card, torch and CUDA versions;
 2. build the correlator kernels (csrc/band_taps.cu, window_taps.cu,
-   gram_taps.cu, ablation_taps.cu), one nvcc each, all in parallel;
+   gram_taps.cu, ablation_taps.cu), one nvcc each, all in parallel, and
+   print ptxas's registers and spills of the 13-tap instantiations (and
+   K1's 25-tap ones);
 3. each kernel vs its plain PyTorch version at the main path's shapes (320
    windows of 16376 samples, 16412-sample replica rows, 13 taps; K2 on
    (320, 128, 128) bf16 rows; K6's four variants at the profiler's 320 x
    16493 windows and 18229-sample rows), real and I/Q input, with
-   CUDA-event times of both and the card's bound for the same work;
+   CUDA-event times of both and the card's bound for the same work.  K1
+   runs as the cluster kernel and as the PR 1 kernel (v1), each checked
+   for bit-identical repeat launches and timed warm and cold (beyond L2)
+   by launches replayed from a CUDA graph, with the cluster kernel's build
+   steps and cluster sizes timed cold;
 4. synthesize both captures in one process pool: the slice's (4 visible
    GPS L1CA PRNs with LNAV bit streams) and the positioning run's (7
    satellites above 15 degrees for a known receiver position, one dark
@@ -213,53 +219,77 @@ def union_len(starts, lens) -> int:
 
 # --------------------------------------------------------------------- #
 def phase_kernel(dev, iq: bool):
-    """Kernel vs plain at the 32-channel L1CA super-step's shapes."""
+    """K1 at the 32-channel L1CA super-step's shapes: the cluster kernel
+    (through the wrapper and by launch) and the PR 1 kernel against the
+    plain version, two launches bit-identical, warm and cold (beyond L2)
+    times of both, and cold times of the cluster kernel's build steps and
+    of other cluster sizes.  Importable: after
+    ``cuda_build.build_all(("band_taps",))`` it is the kernel-only loop."""
     import torch
-    from gnsslib_tpu_torch.constants import CodeType, DType
     from gnsslib_tpu_torch.ops import band_taps as bt
-    from gnsslib_tpu_torch.track import TrackConfig, Tracker
-    trk = Tracker(TrackConfig(6, 3, 6), [1], [CodeType.L1CA], F_SF, F_IF,
-                  DType.IQ if iq else DType.REAL, device=dev)
-    rng = np.random.default_rng(7 + iq)
-    C, L, nn = 32, 10, trk.n_nom
-    B = C * L
-    nblock = (L + 2) * nn + trk.next
-    block = rng.integers(-128, 128, (nblock, 2) if iq else nblock
-                         ).astype(np.float32)
-    wstart = (rng.integers(0, nn, C)[:, None] + 64
-              + np.arange(L)[None, :] * nn).reshape(B).astype(np.int32)
-    n = rng.integers(nn - 2, nn + 3, B).astype(np.int32)
-    rem = rng.uniform(0, 1, B).astype(np.float32)
-    ftot = (0.25 + rng.uniform(-4e-4, 4e-4, B)).astype(np.float32)
-    rc = rng.choice(np.asarray([-1, 1], np.int8), (B, trk.next))
-    act = np.repeat(rng.uniform(size=C) < 0.75, L)
-    args = [torch.from_numpy(a).to(dev) for a in (block, rc, wstart, n, rem,
-                                                  ftot, act)]
-    offsets = trk.offsets
-    zk, okk = bt.band_taps(*args, offsets, trk.smax)
-    zp, okp = bt.band_taps_plain(*args, offsets, trk.smax)
+    from gnsslib_tpu_torch.tools import profile_band as pb
+    trk, host, args = pb.inputs(dev, iq)
+    block, rc, wstart, n, rem, ftot, act = host
+    B = rc.shape[0]
+    offsets, smax = trk.offsets, trk.smax
+    kind = "iq" if iq else "real"
+    bt.COUNTS.reset()
+    zk, okk = bt.band_taps(*args, offsets, smax)
+    zp, okp = bt.band_taps_plain(*args, offsets, smax)
     torch.cuda.synchronize()
-    err = float((zk - zp).abs().max())
+    if (bt.COUNTS.kernel, bt.COUNTS.v1, bt.COUNTS.plain) != (1, 0, 0):
+        raise AssertionError(f"band_taps ({kind}) wrapper: launches "
+                             f"{bt.COUNTS.kernel}, v1 {bt.COUNTS.v1}, plain "
+                             f"{bt.COUNTS.plain}")
     # each tap sums n products bounded by |x_i| (|replica| <= 1): f32
     # rounding in either summation order stays below 1e-5 of that L1 norm
     l1 = max(float(np.abs(block[w:w + k]).sum()) for w, k in zip(wstart, n))
     tol = 1e-5 * l1
-    kind = "iq" if iq else "real"
-    if not (bool(okk) and bool(okp)) or not err <= tol:
-        raise AssertionError(f"band_taps kernel vs plain ({kind}): "
-                             f"max_abs_err {err} > {tol} or ok flags "
-                             f"{bool(okk)}/{bool(okp)}")
-    out = torch.empty_like(zk)
+    # the launches compared: the cluster kernel, the PR 1 kernel, the
+    # cluster kernel's build steps 1-2 and its other cluster sizes
+    runs = {"kernel": lambda *a: bt.launch(*a),
+            "v1": lambda *a: bt.launch_v1(*a)}
+    for step in bt.STEPS[:-1]:
+        runs[f"step {step}"] = (lambda st: lambda *a: bt.launch(
+            *a, step=st))(step)
+    for S in (1, 2, 4, 8):
+        if S != bt.CLUSTER:
+            runs[f"S={S}"] = (lambda c: lambda *a: bt.launch(
+                *a, cluster=c))(S)
+
+    def once(fn, inputs):
+        z = torch.empty_like(zp)
+        ok = torch.ones(1, dtype=torch.int32, device=dev)
+        fn(*inputs, offsets, smax, z, ok)
+        return z, ok
+
+    errs = {"wrapper": float((zk - zp).abs().max())}
+    bad = [] if bool(okk) and bool(okp) else ["ok flags"]
+    for name, fn in runs.items():
+        z, ok = once(fn, args)
+        torch.cuda.synchronize()
+        errs[name] = float((z - zp).abs().max())
+        if not bool(ok[0]):
+            bad.append(f"{name} ok flag")
+    bad += [f"{k} {e}" for k, e in errs.items() if not e <= tol]
+    # determinism: two launches of each kernel agree bit for bit
+    for name in ("kernel", "v1"):
+        z1, _ = once(runs[name], args)
+        z2, _ = once(runs[name], args)
+        if not torch.equal(z1.view(torch.int32), z2.view(torch.int32)):
+            bad.append(f"{name} repeat launches differ")
+    log(f"[3] band_taps {kind:4s} B={B} nwin={trk.nwin} next={trk.next} "
+        f"taps={len(offsets)}: max_abs_err "
+        + ", ".join(f"{k} {e:.4g}" for k, e in errs.items())
+        + f" (tol {tol:.4g}, max|taps| {float(zp.abs().max()):.4g}); "
+        f"repeat launches bit-identical: {'no' if bad else 'yes'}")
+    if bad:
+        raise AssertionError(f"band_taps ({kind}) vs plain: {bad}")
+
+    out = torch.empty_like(zp)
     ok = torch.ones(1, dtype=torch.int32, device=dev)
-    ms = cuda_ms(lambda: bt.launch(*args, offsets, trk.smax, out, ok), 50)
-    call_ms = cuda_ms(lambda: bt.band_taps(*args, offsets, trk.smax), 50)
-    plain_ms = cuda_ms(lambda: bt.band_taps_plain(*args, offsets,
-                                                  trk.smax), 5)
-    log(f"[3] band_taps {kind:4s} B={B} nwin={trk.nwin} "
-        f"next={trk.next} taps={len(trk.offsets)}: max_abs_err {err:.4g} "
-        f"(tol {tol:.4g}, max|taps| {float(zp.abs().max()):.4g}); kernel "
-        f"{ms:.4f} ms/launch, wrapper call {call_ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms (CUDA events over back-to-back calls)")
+    call_ms = cuda_ms(lambda: bt.band_taps(*args, offsets, smax), 50)
+    plain_ms = cuda_ms(lambda: bt.band_taps_plain(*args, offsets, smax), 5)
     # the bound: the block samples the active windows cover (their shared
     # band, read once), their replica rows, the scalars and the taps out
     T = len(offsets)
@@ -270,13 +300,41 @@ def phase_kernel(dev, iq: bool):
     flops = float(nv.sum()) * (4 * T + (6 if iq else 2))
     bms, by = bound(nbytes, flops)
     copies = [[a.clone() for a in args] for _ in range(copies_for(nbytes))]
-    cms = cold_ms(lambda k: bt.launch(*copies[k], offsets, trk.smax, out,
-                                      ok), len(copies))
-    log(f"[3] band_taps {kind:4s}: kernel {cms:.4f} ms/launch with inputs "
-        f"rotated over {len(copies)} copies (beyond L2); bound {bms:.4f} ms "
-        f"by {by} ({nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP)")
-    return dict(err=err, ms=cms, warm_ms=ms, plain_ms=plain_ms,
-                bound_ms=bms, bound_by=by)
+
+    def on_copy(fn):
+        return lambda c: fn(*copies[c], offsets, smax, out, ok)
+
+    # device time: launches replayed from a CUDA graph, so that the host's
+    # time per eager launch (Python and ctypes) cannot hide the kernel's
+    cold = {k: pb.graph_ms(on_copy(fn), len(copies))
+            for k, fn in runs.items()}
+    warm = {k: pb.graph_ms(lambda c, fn=runs[k]: fn(*args, offsets, smax,
+                                                     out, ok), 1)
+            for k in ("kernel", "v1")}
+    eager = {k: cold_ms(on_copy(runs[k]), len(copies))
+             for k in ("kernel", "v1")}
+    J = bt.samples_per_thread()
+    log(f"[3] band_taps {kind:4s}: {card_line()}; cluster kernel S="
+        f"{bt.CLUSTER} CTAs per window, J={J} samples per thread: cold "
+        f"{cold['kernel']:.4f} ms/launch, warm {warm['kernel']:.4f} ms; PR 1 "
+        f"kernel (v1) cold {cold['v1']:.4f} ms, warm {warm['v1']:.4f} ms "
+        f"(device time: launches replayed from one CUDA graph; "
+        f"cold: inputs rotated over {len(copies)} copies, beyond L2); eager "
+        f"back-to-back launches, cold: kernel {eager['kernel']:.4f} ms, v1 "
+        f"{eager['v1']:.4f} ms; wrapper call {call_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms; bound {bms:.4f} ms by {by} ({nbytes / 1e6:.2f} "
+        f"MB, {flops / 1e6:.1f} MFLOP)")
+    log(f"[3] band_taps {kind:4s} cold ms by build step (S={bt.CLUSTER}): "
+        f"v1 {cold['v1']:.4f}, step 1 (clusters) {cold['step 1']:.4f}, "
+        f"step 2 (+ register reuse) {cold['step 2']:.4f}, step 3 (+ "
+        f"asynchronous staging) {cold['kernel']:.4f}; by cluster size "
+        "(step 3): "
+        + ", ".join(f"S={S} {cold.get(f'S={S}', cold['kernel']):.4f}"
+                    for S in (1, 2, 4, 8)))
+    return dict(err=max(errs.values()), ms=cold["kernel"],
+                warm_ms=warm["kernel"], v1_ms=cold["v1"],
+                v1_warm_ms=warm["v1"], eager_ms=eager["kernel"],
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by, cold=cold)
 
 
 def _window_inputs(trk, B: int, iq: bool, seed: int):
@@ -626,7 +684,7 @@ def phase_slice(dev, capture: str) -> int:
     stats = rx.run_seconds()
     rx.close()
     fe.close()
-    launches, plain = bt.COUNTS.kernel, bt.COUNTS.plain
+    launches, v1, plain = bt.COUNTS.kernel, bt.COUNTS.v1, bt.COUNTS.plain
     wall = time.time() - t0
     sw = stats["stage_wall"]
     tl = rx.timeline
@@ -636,7 +694,7 @@ def phase_slice(dev, capture: str) -> int:
         + ", ".join(f"{k} {v:.2f} s" for k, v in tl.items() if k != "t0"))
     log(f"[6] locked {stats['locked']}, decoded {stats['decoded']}, "
         f"{stats['epochs']} epochs, {stats['ephs']} eph records; band_taps "
-        f"launches {launches}, plain calls {plain}")
+        f"launches {launches}, v1 launches {v1}, plain calls {plain}")
     for ev in rx.events:
         if ev[0] in ("acq", "nav:bitsync", "nav:decode"):
             log(f"[6]   event {ev}")
@@ -660,8 +718,9 @@ def phase_slice(dev, capture: str) -> int:
         raise AssertionError(f"absent PRNs acquired: {false}")
     if "steady" not in tl:
         raise AssertionError("the steady-state fast path never engaged")
-    if launches <= 0 or plain != 0:
-        raise AssertionError(f"band_taps launches {launches}, plain {plain}")
+    if launches <= 0 or v1 != 0 or plain != 0:
+        raise AssertionError(f"band_taps launches {launches}, v1 {v1}, "
+                             f"plain {plain}")
     if rx.ephs_written < len(TRUTH):
         raise AssertionError(f"only {rx.ephs_written} RINEX nav records")
 
@@ -882,7 +941,7 @@ def phase_positioning(dev, capture: str, prns=range(1, 33)) -> int:
     stats = rx.run_seconds()
     rx.close()
     fe.close()
-    launches, plain = bt.COUNTS.kernel, bt.COUNTS.plain
+    launches, v1, plain = bt.COUNTS.kernel, bt.COUNTS.v1, bt.COUNTS.plain
     wall = time.time() - t0
     client.settimeout(5.0)
     buf = b""
@@ -904,7 +963,8 @@ def phase_positioning(dev, capture: str, prns=range(1, 33)) -> int:
                                    rx.timeline.items() if k != "t0"))
     log(f"[10] visible {visible}; locked {stats['locked']}, decoded "
         f"{stats['decoded']}, {stats['epochs']} epochs, {stats['ephs']} eph "
-        f"records; band_taps launches {launches}, plain calls {plain}; "
+        f"records; band_taps launches {launches}, v1 launches {v1}, plain "
+        f"calls {plain}; "
         f"RTCM frames by type {types} ({len(buf)} bytes)")
     ev = rx.events
     for e in ev:
@@ -947,8 +1007,9 @@ def phase_positioning(dev, capture: str, prns=range(1, 33)) -> int:
     if len(logs) != len(prns) or any(os.path.getsize(os.path.join(
             WORK, "pos", "log", f"logG{p:02d}.csv")) < 1000 for p in visible):
         raise AssertionError(f"track logs {logs}")
-    if dev.type == "cuda" and (launches <= 0 or plain != 0):
-        raise AssertionError(f"band_taps launches {launches}, plain {plain}")
+    if dev.type == "cuda" and (launches <= 0 or v1 != 0 or plain != 0):
+        raise AssertionError(f"band_taps launches {launches}, v1 {v1}, "
+                             f"plain {plain}")
     log(f"[10] .pos {len(rows)} rows, {len(logs)} track logs in {rinex}/..")
 
     # checkpoint at 14 s and resume, on the CLI, against an uninterrupted
@@ -1027,7 +1088,14 @@ def main() -> int:
             if not re.search(r"registers|spill", ln):
                 continue
             var = re.search(r"ILi(\d)ELi13EE", entry)
-            if name == "ablation_taps" and var:
+            k1 = re.search(r"band_taps_(v1|cluster)_kernelILi(\d+)ELb(\d)E"
+                           r"(?:Li(\d)E)?", entry)
+            if k1 and (k1[2] == "13" or (k1[2] == "25" and k1[4] == "3")):
+                kind = (("v1" if k1[1] == "v1" else f"step {k1[4]}")
+                        + f" T={k1[2]} " + ("iq" if k1[3] == "1" else "real"))
+            elif name == "band_taps":
+                continue
+            elif name == "ablation_taps" and var:
                 kind = ("full", "nosin", "onetap", "aligned")[int(var[1])]
             elif name != "ablation_taps" and "ILi13E" in entry:
                 kind = ("iq" if "ILi13ELb1E" in entry else "real") + (
@@ -1084,6 +1152,8 @@ def main() -> int:
             "bound_ms": real["bound_ms"], "bound_by": real["bound_by"],
             # no single PyTorch call mixes, masks and sums the shifted taps
             "library_ms": None})
+        if name == "band_taps":            # the same run's PR 1 kernel
+            rows[-1]["v1_ms"] = real["v1_ms"]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,53 +1,109 @@
-// Band correlator of the steady-state tracker, for NVIDIA Hopper (sm_90a).
+// Band correlator of the steady-state tracker (K1), for NVIDIA Hopper
+// (sm_90a).
 //
 // Replaces the TPU kernel gnsslib_tpu/ops/pallas_gram.py
-// gram_usum_band_impl (body _kernel_band) together with the one-hot
-// diagonal extraction that follows it in gnsslib_tpu/track/fast.py
-// (_taps_band).  The TPU kernel formed a 128x128 Gram matrix per window
-// only to feed its matrix unit; this kernel computes what _taps_band
-// returns directly, in tap form:
+// gram_usum_band_impl (:192, pl.pallas_call at :256, body _kernel_band
+// :107) together with the one-hot diagonal extraction that follows it in
+// gnsslib_tpu/track/fast.py (_taps_band).  The TPU kernel formed a 128x128
+// Gram matrix per window only to feed its matrix unit; this kernel computes
+// what _taps_band returns directly, in tap form:
 //
 //   cos_t[b] = sum_{i < n_b} x[wstart_b + i] * cos(2*pi*ph_b(i)) * r_b[i + smax + o_t]
 //   sin_t[b] = sum_{i < n_b} x[wstart_b + i] * sin(2*pi*ph_b(i)) * r_b[i + smax + o_t]
 //   ph_b(i)  = frac(frac(ftot_b * i) + rem_b)
 //
 // with x the float32 sample block (real, or interleaved I/Q mixed as
-// (xr + j xi) * e^{+j 2 pi ph}) and r_b the window's int8 replica row.
+// (xr + j xi) * e^{+j 2 pi ph}), r_b the window's int8 replica row and
+// n_b = min(n_b, nwin).  Out-of-block windows: an active window whose
+// samples [wstart, wstart+n) leave [0, nblock) writes zeros and clears *ok
+// (the caller raises, as the TPU path raises on its out-of-band flag).
+// Inactive windows write zeros and never touch *ok.
 //
-// What bounds it on this card: float32 FMAs, int8->float conversions and
-// shared-memory replica reads — per super-step of the 32-channel L1CA
-// envelope about 5.2 M samples x 13 taps x 2 (cos, sin) FMAs plus one
-// sincospif per sample; the sample stream itself is only ~21 MB.  The
-// design keeps every operand on chip: one thread block per window stages
-// that window's 16 KB replica row in shared memory once, each thread
-// strides over the samples with 2*NT register accumulators (one sincospif
-// per sample, NT shared loads and 2*NT FMAs), and a warp-shuffle plus
-// shared-memory reduction writes the 2*NT sums.  Nothing but the (B, 2T)
-// result goes back to device memory.
+// What bounds it on this card: float32 issue.  At the main path's shapes
+// (320 windows of 16376 samples, ~240 active, ~3.9 M samples, 13 taps) a
+// launch does ~102 M FMAs, ~3.4 us on 132 SMs x 128 lanes at ~1.75 GHz;
+// with the carrier (one sincospif: argument reduction, two polynomials,
+// quadrant fix-ups, ~30 instructions), the mix, the loads and their
+// addresses, a sample costs ~85 instructions, ~10 us of issue.  Then the
+// reads of the samples (the 0.85 MB f32 block, which all 32 channels'
+// windows read, stays in L2; the windows read ~14 MB of it through L1).
 //
-// Out-of-block windows: an active window whose samples [wstart, wstart+n)
-// leave [0, nblock) writes zeros and clears *ok (the caller raises, as the
-// TPU path raises on its out-of-band flag).  Inactive windows write zeros
-// and never touch *ok.
+// The PR 1 kernel (band_taps_v1_kernel, below, unchanged) gives each
+// window one 256-thread block and pays, per sample and tap, one shared
+// byte load and one int8->f32 conversion for two FMAs, and copies its
+// replica row one byte per thread per iteration.  This kernel
+// (band_taps_cluster_kernel) is built in three steps, each a template
+// value of STEP so that each can be timed on its own (steps 1 and 2 exist
+// for 13 taps only):
+//
+// 1. Fill the card.  Each window is split into S segments of `seg`
+//    samples, one CTA each, and the S CTAs of a window run as one thread
+//    block cluster (cudaLaunchKernelEx with the cluster attribute).  Each
+//    CTA stages only its segment's replica bytes plus the 2*corrn*d halo
+//    and reduces its 2T sums in shared memory (a warp butterfly, then the
+//    warps in order); every rank writes them into rank 0's shared memory
+//    through distributed shared memory, and after one cluster barrier
+//    rank 0 adds them in rank order and writes the row and the flag.  One
+//    launch, no scratch buffer, no atomics: the output is bit-identical
+//    from launch to launch.  Whether a window is active and inside the
+//    block is decided per window, so every CTA of a cluster takes the same
+//    early return or reaches every cluster barrier.  S = 2
+//    (ops/band_taps.py CLUSTER) was the fastest of 1, 2, 4 and 8 on the
+//    card, I/Q input included.
+// 2. Convert each replica byte once and reuse it across the taps.  The
+//    receiver's offsets are tap_offsets(corrn, d): 0, -d, +d, ... -corrn*d,
+//    +corrn*d, so tap m (in lag order) of sample i reads r[i + base + m*d]
+//    with base = smax - corrn*d.  A thread takes a chain of samples
+//    s0 + j*d, j < kJ, and holds R[q] = r[s0 + base + q*d], q < kJ + 2*corrn,
+//    in registers: tap m of chain step j is R[j + m], so each replica byte
+//    is loaded and converted once per thread and feeds up to T taps x 2
+//    FMAs, (kJ + 2*corrn)/kJ = 1.36 byte loads and conversions per sample
+//    at 13 taps instead of 13.  Threads cover the d residues of tiles of
+//    kJ*d samples; with kJ = 33, (kJ - 1)*d is a multiple of 32, so chain
+//    starts are distinct mod 32 and a warp's stride-d reads hit 32 banks
+//    for any d.  Offsets that are not such a progression are never
+//    produced by the receiver; the wrapper sends them to the PR 1 kernel.
+// 3. More bytes in flight for the staging.  The segment's replica bytes
+//    are staged with 16-byte cp.async copies from the 16-byte boundary
+//    below their first byte (row b starts at b*next bytes, which is
+//    4-byte aligned only), all issued before one wait; a copy that
+//    reaches past the row data is cut to the bytes that lie in it (nothing
+//    is read past the last row).  The samples are read from the block, as
+//    in step 2: a warp's stride-d loads touch ~11 cache lines, which the
+//    chain's next steps hit in L1, and staging them in shared memory as
+//    well was slower on the card (it adds their transfer before the chain
+//    loop can start).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kJ = 33;            // samples per thread (stride d) in steps 2-3
+constexpr int kMaxCluster = 8;    // the portable cluster size
 
 __device__ __forceinline__ float frac_f(float x) { return x - floorf(x); }
 
+// ------------------------------------------------------------------------
+// The PR 1 kernel: one thread block per window, the whole replica row in
+// shared memory as int8, per sample one sincospif, NT shared byte loads and
+// 2*NT FMAs.  Takes any offsets check_offsets accepts.
+
 template <int NT, bool IQ>
 __global__ void __launch_bounds__(kThreads)
-band_taps_kernel(const float* __restrict__ block, long long nblock,
-                 const int8_t* __restrict__ rc, int next, int nwin,
-                 const int* __restrict__ wstart, const int* __restrict__ nvalid,
-                 const float* __restrict__ rem, const float* __restrict__ ftot,
-                 const uint8_t* __restrict__ active,
-                 const int* __restrict__ offsets, int smax,
-                 float* __restrict__ out, int* __restrict__ ok) {
+band_taps_v1_kernel(const float* __restrict__ block, long long nblock,
+                    const int8_t* __restrict__ rc, int next, int nwin,
+                    const int* __restrict__ wstart,
+                    const int* __restrict__ nvalid,
+                    const float* __restrict__ rem,
+                    const float* __restrict__ ftot,
+                    const uint8_t* __restrict__ active,
+                    const int* __restrict__ offsets, int smax,
+                    float* __restrict__ out, int* __restrict__ ok) {
   extern __shared__ int8_t rep[];            // this window's replica row
   __shared__ float part[kWarps][2 * NT];
   const int b = blockIdx.x;
@@ -129,13 +185,308 @@ band_taps_kernel(const float* __restrict__ block, long long nblock,
   }
 }
 
+// ------------------------------------------------------------------------
+// The cluster kernel (steps 1-3 above).
+
+struct ClusterArgs {
+  const float* block;
+  long long nblock;              // samples in the block
+  const int8_t* rc;
+  long long rc_len;              // bytes in rc (B * next)
+  int next, nwin;
+  const int* wstart;
+  const int* nvalid;
+  const float* rem;
+  const float* ftot;
+  const uint8_t* active;
+  int d;                         // the offsets' step
+  int base;                      // smax - corrn * d: the lag of tap m is base + m*d
+  int seg;                       // samples per CTA, a multiple of kJ * d
+  float* out;
+  int* ok;
+};
+
+// The output slot of the tap at lag index m (offset (m - c) * d) in
+// tap_offsets order [0, -d, +d, -2d, +2d, ...].
+__device__ __forceinline__ int slot_of(int m, int c) {
+  return m == c ? 0 : (m < c ? 2 * (c - m) - 1 : 2 * (m - c));
+}
+
+// The carrier of sample i (fi = i as a float): sincospif(2 ph) with
+// ph = frac(frac(ftot * i) + rem).  The outer frac is left to sincospif,
+// whose argument reduction removes the same even integer from 2 ph either
+// way, so the result is the same bit for bit (|2 ph| < 2^22).
+__device__ __forceinline__ void carrier(float f, float fi, float r0,
+                                        float* sn, float* cs) {
+  // __fmul_rn: ftot*i rounded before the floor, as the plain version
+  // computes it (no FMA contraction into the frac)
+  sincospif(2.f * (frac_f(__fmul_rn(f, fi)) + r0), sn, cs);
+}
+
+// Shared bytes that stage_async needs for `count` bytes at any head.
+__host__ __device__ constexpr int staged_bytes(int count) {
+  return (count + 30) / 16 * 16;
+}
+
+// 16 bytes global -> shared without a register round trip: the first
+// `bytes` (1..16) from src, zeros after them.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Steps 1-2: dst[t] = src[first + t] for t < count (0 outside [0, len)),
+// one byte per thread per iteration.
+__device__ __forceinline__ void stage_bytes(int8_t* dst, const int8_t* src,
+                                            long long len, long long first,
+                                            int count) {
+  for (int t = threadIdx.x; t < count; t += blockDim.x) {
+    const long long k = first + t;
+    dst[t] = k >= 0 && k < len ? src[k] : 0;
+  }
+}
+
+// Step 3: bytes [first, first + count) of src (len bytes) land at
+// dst + head, head = (src + first) mod 16, by 16-byte cp.async copies from
+// the 16-byte boundary at or below src + first, every one issued before
+// any wait.  A copy that reaches past first + count or len is cut to the
+// bytes in range (the rest of its 16 are zero); a vector that starts
+// before src is copied byte by byte.  dst is 16-byte aligned and holds
+// staged_bytes(count).  Returns head; the caller waits
+// (cp_async_wait_all) and synchronises.
+__device__ __forceinline__ int stage_async(unsigned char* dst,
+                                           const int8_t* src, long long len,
+                                           long long first, int count) {
+  const unsigned char* s = reinterpret_cast<const unsigned char*>(src);
+  const int head = static_cast<int>(
+      reinterpret_cast<uintptr_t>(s + first) & 15);
+  const long long end = min(len, first + count);
+  for (int v = threadIdx.x; v < (head + count + 15) >> 4; v += blockDim.x) {
+    const long long k0 = first - head + 16LL * v;   // the vector's first byte
+    unsigned char* out = dst + 16 * v;
+    if (k0 >= 0 && k0 < end) {
+      cp_async16(out, s + k0, static_cast<int>(min(16LL, end - k0)));
+    } else if (k0 >= end) {
+      *reinterpret_cast<uint4*>(out) = make_uint4(0u, 0u, 0u, 0u);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 16; ++e)
+        out[e] = k0 + e >= 0 && k0 + e < end ? s[k0 + e] : 0;
+    }
+  }
+  return head;
+}
+
+// One level of a warp butterfly over v[0, 2H): lanes that differ in bit H
+// swap halves, and each keeps the half its bit selects, summed with the
+// partner's: after fold<16>, lane l holds the warp's sum of v[l].  Shuffles
+// per level halve (31 in all, not 5 per value); the order is fixed.
+template <int H>
+__device__ __forceinline__ void fold(float (&v)[32], int lane) {
+  const bool up = (lane & H) != 0;
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float lo = v[i];
+    const float hi = v[i + H];
+    v[i] = (up ? hi : lo) + __shfl_xor_sync(0xffffffffu, up ? lo : hi, H);
+  }
+  if constexpr (H > 1) fold<H / 2>(v, lane);
+}
+
+// Steps 2-3: the taps of one chain, kJ samples d apart from the sample
+// at x in the block (F floats each; the first `left` count, the rest are
+// taken as zero).  The replica bytes from r, d apart, are loaded and
+// converted once into R, and tap m (lag order) of chain step j is
+// R[j + m].  fi0 is the first sample's window index.
 template <int NT, bool IQ>
-cudaError_t launch(const float* block, long long nblock, const int8_t* rc,
-                   int next, int nwin, const int* wstart, const int* nvalid,
-                   const float* rem, const float* ftot, const uint8_t* active,
-                   const int* offsets, int smax, int nwindows, float* out,
-                   int* ok, cudaStream_t stream) {
-  auto kernel = band_taps_kernel<NT, IQ>;
+__device__ __forceinline__ void chain_taps(float (&ac)[NT], float (&as)[NT],
+                                           const int8_t* r, const float* x,
+                                           int d, int left, float f,
+                                           float r0, float fi0) {
+  constexpr int C = (NT - 1) / 2;
+  float R[kJ + 2 * C];
+#pragma unroll
+  for (int q = 0; q < kJ + 2 * C; ++q) R[q] = (float)r[q * d];
+  const float fd = (float)d;
+#pragma unroll
+  for (int j = 0; j < kJ; ++j) {
+    const int s = j * d;
+    const bool valid = s < left;
+    float sn, cs;
+    // the window index fi0 + s, exact (integers below 2^24)
+    carrier(f, fmaf((float)j, fd, fi0), r0, &sn, &cs);
+    float wc, ws;
+    if (IQ) {
+      const float xr = valid ? x[2 * s] : 0.f;
+      const float xi = valid ? x[2 * s + 1] : 0.f;
+      wc = xr * cs - xi * sn;
+      ws = xr * sn + xi * cs;
+    } else {
+      const float xv = valid ? x[s] : 0.f;
+      wc = xv * cs;
+      ws = xv * sn;
+    }
+#pragma unroll
+    for (int m = 0; m < NT; ++m) {
+      ac[m] = fmaf(wc, R[j + m], ac[m]);
+      as[m] = fmaf(ws, R[j + m], as[m]);
+    }
+  }
+}
+
+// 64 registers up to 13 taps (4 CTAs of 256 threads per SM), 128 above
+template <int NT, bool IQ, int STEP>
+__global__ void __launch_bounds__(kThreads, NT <= 13 ? 4 : 2)
+band_taps_cluster_kernel(const ClusterArgs a) {
+  constexpr int C = (NT - 1) / 2;            // corrn
+  constexpr int F = IQ ? 2 : 1;              // floats per sample
+  constexpr int NV = 2 * NT;                 // sums per window
+  constexpr int NCH = (NV + 31) / 32;        // 32-sum chunks
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float part[kWarps][32 * NCH];
+  __shared__ float gather[kMaxCluster][NV];  // rank 0's: every rank's sums
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int b = blockIdx.x / S;
+  const int tid = threadIdx.x;
+  float* o = a.out + (size_t)b * NV;
+
+  const long long w0 = a.wstart[b];
+  const int n = min(a.nvalid[b], a.nwin);
+  const bool act = a.active[b] != 0;
+  const float f = a.ftot[b];
+  const float r0 = a.rem[b];
+  const bool inside = w0 >= 0 && w0 + (long long)max(n, 0) <= a.nblock;
+  if (!act || !inside) {        // the same in every CTA of the cluster
+    if (rank == 0) {
+      if (act && tid == 0) *a.ok = 0;
+      for (int t = tid; t < NV; t += blockDim.x) o[t] = 0.f;
+    }
+    return;
+  }
+  // arrive now, wait before writing to rank 0's shared memory: every CTA
+  // of the cluster has then started
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+
+  const int d = a.d;
+  const int seg = a.seg;
+  const int seg0 = rank * seg;                     // first window sample
+  const int lim = max(0, min(n - seg0, seg));      // valid samples here
+  const int nrep = seg + 2 * C * d;                // replica bytes read
+  const long long rfirst = (long long)b * a.next + seg0 + a.base;
+  const float* blk = a.block + F * (w0 + seg0);    // the segment's samples
+
+  float ac[NT], as[NT];                            // lag order m
+#pragma unroll
+  for (int m = 0; m < NT; ++m) {
+    ac[m] = 0.f;
+    as[m] = 0.f;
+  }
+
+  if constexpr (STEP == 1) {
+    // v1's sample loop on the segment: per sample and tap one shared byte
+    // load and one conversion
+    int8_t* rep = reinterpret_cast<int8_t*>(smem);
+    stage_bytes(rep, a.rc, a.rc_len, rfirst, nrep);
+    __syncthreads();
+    for (int s = tid; s < lim; s += blockDim.x) {
+      float sn, cs;
+      carrier(f, (float)(seg0 + s), r0, &sn, &cs);
+      float wc, ws;
+      if (IQ) {
+        const float xr = blk[2 * s];
+        const float xi = blk[2 * s + 1];
+        wc = xr * cs - xi * sn;
+        ws = xr * sn + xi * cs;
+      } else {
+        const float x = blk[s];
+        wc = x * cs;
+        ws = x * sn;
+      }
+#pragma unroll
+      for (int m = 0; m < NT; ++m) {
+        const float r = (float)rep[s + m * d];
+        ac[m] = fmaf(wc, r, ac[m]);
+        as[m] = fmaf(ws, r, as[m]);
+      }
+    }
+  } else {
+    const int8_t* rep = reinterpret_cast<const int8_t*>(smem);
+    if constexpr (STEP == 2) {
+      stage_bytes(reinterpret_cast<int8_t*>(smem), a.rc, a.rc_len, rfirst,
+                  nrep);
+    } else {
+      rep += stage_async(smem, a.rc, a.rc_len, rfirst, nrep);
+      cp_async_wait_all();
+    }
+    __syncthreads();
+    // chain u: tile k = u / d of kJ*d samples, residue u % d
+    const int tile = kJ * d;
+    for (int u = tid; u < seg / tile * d; u += blockDim.x) {
+      const int k = u / d;
+      const int s0 = k * tile + (u - k * d);
+      if (s0 < lim)
+        chain_taps<NT, IQ>(ac, as, rep + s0, blk + F * s0, d, lim - s0, f,
+                           r0, (float)(seg0 + s0));
+    }
+  }
+
+  // The CTA's sums, [cos_m, sin_m] in lag order: a butterfly over the
+  // warp (fold) leaves lane l with the warp's sum of value l of each
+  // 32-value chunk; then the warps' sums are added in warp order.
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  float v[NCH][32];
+#pragma unroll
+  for (int k = 0; k < 32 * NCH; ++k) v[k / 32][k % 32] = 0.f;
+#pragma unroll
+  for (int m = 0; m < NT; ++m) {
+    v[2 * m / 32][2 * m % 32] = ac[m];
+    v[(2 * m + 1) / 32][(2 * m + 1) % 32] = as[m];
+  }
+#pragma unroll
+  for (int ch = 0; ch < NCH; ++ch) {
+    fold<16>(v[ch], lane);
+    part[warp][32 * ch + lane] = v[ch][0];
+  }
+  __syncthreads();
+  // each rank writes its sums into rank 0's gather[rank]; after the
+  // cluster barrier rank 0 adds them in rank order
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  float* to = cluster.map_shared_rank(&gather[0][0], 0) + rank * NV;
+  for (int t = tid; t < NV; t += blockDim.x) {
+    float x = 0.f;
+    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) x += part[w][t];
+    to[t] = x;
+  }
+  cluster.sync();
+  if (rank == 0) {
+    for (int t = tid; t < NV; t += blockDim.x) {
+      float x = 0.f;
+      for (int r = 0; r < S; ++r) x += gather[r][t];
+      o[2 * slot_of(t >> 1, C) + (t & 1)] = x;
+    }
+  }
+}
+
+int ceil_div(int x, int y) { return (x + y - 1) / y; }
+
+template <int NT, bool IQ>
+cudaError_t launch_v1(const float* block, long long nblock, const int8_t* rc,
+                      int next, int nwin, const int* wstart,
+                      const int* nvalid, const float* rem, const float* ftot,
+                      const uint8_t* active, const int* offsets, int smax,
+                      int nwindows, float* out, int* ok,
+                      cudaStream_t stream) {
+  auto kernel = band_taps_v1_kernel<NT, IQ>;
   if (next > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, next);
@@ -147,26 +498,117 @@ cudaError_t launch(const float* block, long long nblock, const int8_t* rc,
   return cudaGetLastError();
 }
 
+template <int NT, bool IQ, int STEP>
+cudaError_t launch_cluster(ClusterArgs a, int S, int nwindows,
+                           cudaStream_t stream) {
+  constexpr int C = (NT - 1) / 2;
+  const int tile = kJ * a.d;
+  a.seg = ceil_div(ceil_div(a.nwin, S), tile) * tile;
+  const int nrep = a.seg + 2 * C * a.d;
+  // one chain of kJ samples per thread where the segment allows
+  const int want = ceil_div(a.seg / tile * a.d, 32) * 32;
+  const int threads = want < kThreads ? want : kThreads;
+  const size_t shm = STEP == 3 ? staged_bytes(nrep) : nrep;
+  auto kernel = band_taps_cluster_kernel<NT, IQ, STEP>;
+  // opt in only when a launch needs more than this instantiation already
+  // has, so that repeated launches (and graph capture) make no call
+  static size_t opted = 48 * 1024;
+  if (shm > opted) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
+    if (e != cudaSuccess) return e;
+    opted = shm;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(nwindows * S));
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = shm;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+template <int NT, bool IQ>
+cudaError_t dispatch_step(int step, const ClusterArgs& a, int S,
+                          int nwindows, cudaStream_t stream) {
+  if (step == 3) return launch_cluster<NT, IQ, 3>(a, S, nwindows, stream);
+  if constexpr (NT == 13) {
+    if (step == 2) return launch_cluster<NT, IQ, 2>(a, S, nwindows, stream);
+    if (step == 1) return launch_cluster<NT, IQ, 1>(a, S, nwindows, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-#define BAND_TAPS_CASE(NT)                                                   \
-  case NT:                                                                   \
-    return iq ? launch<NT, true>(x, nblock, r, next, nwin, ws, nv, rm, ft,   \
-                                 ac, of, smax, nwindows, y, okp, st)         \
-              : launch<NT, false>(x, nblock, r, next, nwin, ws, nv, rm, ft,  \
-                                  ac, of, smax, nwindows, y, okp, st);
+#define TAP_CASES(X) X(1) X(3) X(5) X(7) X(9) X(11) X(13) X(15) X(17) \
+                     X(19) X(21) X(23) X(25)
 
 // Plain C interface for ctypes.  Every pointer is a device pointer; the
-// stream is the caller's current CUDA stream.  Returns the cudaError_t of
-// the launch (0 on success); ntaps outside {1, 3, ..., 25} returns
+// stream is the caller's current CUDA stream.  Each returns the cudaError_t
+// of the launch (0 on success); arguments it does not take return
 // cudaErrorInvalidValue without launching.
+
+// The cluster kernel for offsets tap_offsets((ntaps - 1) / 2, d): cluster
+// CTAs per window (1..8), step 3 (the kernel the wrapper launches) for
+// ntaps in {1, 3, ..., 25}, steps 1-2 (its ablation) for 13 taps.
 extern "C" int band_taps_launch(const void* block, long long nblock, int iq,
                                 const void* rc, int next, int nwin,
                                 const void* wstart, const void* nvalid,
                                 const void* rem, const void* ftot,
-                                const void* active, const void* offsets,
-                                int ntaps, int smax, int nwindows, void* out,
-                                void* ok, void* stream) {
+                                const void* active, int ntaps, int smax,
+                                int d, int cluster, int step, int nwindows,
+                                void* out, void* ok, void* stream) {
+  if (nwindows <= 0) return (int)cudaSuccess;
+  const int base = smax - (ntaps - 1) / 2 * d;
+  if (d < 1 || base < 0 || cluster < 1 || cluster > kMaxCluster)
+    return (int)cudaErrorInvalidValue;
+  ClusterArgs a = {};
+  a.block = static_cast<const float*>(block);
+  a.nblock = nblock;
+  a.rc = static_cast<const int8_t*>(rc);
+  a.rc_len = (long long)nwindows * next;
+  a.next = next;
+  a.nwin = nwin;
+  a.wstart = static_cast<const int*>(wstart);
+  a.nvalid = static_cast<const int*>(nvalid);
+  a.rem = static_cast<const float*>(rem);
+  a.ftot = static_cast<const float*>(ftot);
+  a.active = static_cast<const uint8_t*>(active);
+  a.d = d;
+  a.base = base;
+  a.out = static_cast<float*>(out);
+  a.ok = static_cast<int*>(ok);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define CLUSTER_CASE(NT)                                             \
+  case NT:                                                           \
+    return iq ? dispatch_step<NT, true>(step, a, cluster, nwindows, st) \
+              : dispatch_step<NT, false>(step, a, cluster, nwindows, st);
+  switch (ntaps) {
+    TAP_CASES(CLUSTER_CASE)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef CLUSTER_CASE
+}
+
+// The PR 1 kernel, for any offsets (a device array of ntaps ints).
+extern "C" int band_taps_v1_launch(const void* block, long long nblock,
+                                   int iq, const void* rc, int next,
+                                   int nwin, const void* wstart,
+                                   const void* nvalid, const void* rem,
+                                   const void* ftot, const void* active,
+                                   const void* offsets, int ntaps, int smax,
+                                   int nwindows, void* out, void* ok,
+                                   void* stream) {
   if (nwindows <= 0) return (int)cudaSuccess;
   const float* x = static_cast<const float*>(block);
   const int8_t* r = static_cast<const int8_t*>(rc);
@@ -179,24 +621,22 @@ extern "C" int band_taps_launch(const void* block, long long nblock, int iq,
   float* y = static_cast<float*>(out);
   int* okp = static_cast<int*>(ok);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define V1_CASE(NT)                                                         \
+  case NT:                                                                  \
+    return iq ? launch_v1<NT, true>(x, nblock, r, next, nwin, ws, nv, rm,   \
+                                    ft, ac, of, smax, nwindows, y, okp, st) \
+              : launch_v1<NT, false>(x, nblock, r, next, nwin, ws, nv, rm,  \
+                                     ft, ac, of, smax, nwindows, y, okp, st);
   switch (ntaps) {
-    BAND_TAPS_CASE(1)
-    BAND_TAPS_CASE(3)
-    BAND_TAPS_CASE(5)
-    BAND_TAPS_CASE(7)
-    BAND_TAPS_CASE(9)
-    BAND_TAPS_CASE(11)
-    BAND_TAPS_CASE(13)
-    BAND_TAPS_CASE(15)
-    BAND_TAPS_CASE(17)
-    BAND_TAPS_CASE(19)
-    BAND_TAPS_CASE(21)
-    BAND_TAPS_CASE(23)
-    BAND_TAPS_CASE(25)
+    TAP_CASES(V1_CASE)
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef V1_CASE
 }
+
+// Samples per thread of steps 2-3 (for the caller's records).
+extern "C" int band_taps_samples_per_thread() { return kJ; }
 
 extern "C" const char* band_taps_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -13,10 +13,14 @@ returned as (B, 2T) float32 interleaved [cos_t, sin_t], plus an ``ok`` flag
 that is False when an ACTIVE window's samples [wstart, wstart + n) leave
 the block.  Inactive and out-of-block windows give zeros.
 
-:func:`band_taps` launches the hand-written CUDA kernel
-(``csrc/band_taps.cu``) for CUDA tensors and uses the plain PyTorch
-version, :func:`band_taps_plain`, only for tensors on the CPU.  There is
-no fallback from the kernel to the plain version.
+:func:`band_taps` launches a hand-written CUDA kernel of
+``csrc/band_taps.cu`` for CUDA tensors and uses the plain PyTorch version,
+:func:`band_taps_plain`, only for tensors on the CPU.  Offsets of the form
+``tap_offsets(corrn, d)`` (all the receiver makes) go to the cluster
+kernel (``COUNTS.kernel``), any other offsets to the PR 1 kernel
+(``COUNTS.v1``); the choice follows the offsets, never a failure.  There is
+no fallback from a kernel to the plain version or from one kernel to the
+other.
 """
 from __future__ import annotations
 
@@ -26,11 +30,45 @@ import functools
 import torch
 
 from .carrier import TWO_PI
+from .correlator import tap_offsets
 from .kernels import (LaunchCounts, bind, check_offsets, check_tensors,
                       device_offsets, raise_on, route, stream_of)
 from .nco import frac
 
-COUNTS = LaunchCounts()
+# CTAs per window of the cluster kernel (one thread-block cluster each):
+# the fastest of 1, 2, 4 and 8 in chip_smoke.py phase 3's scan (PERF.md)
+CLUSTER = 2
+# the cluster kernel's build steps (csrc/band_taps.cu): 1 clusters, 2 +
+# registers reuse each replica byte across the taps, 3 (the kernel) +
+# asynchronous 16-byte staging; steps 1-2 exist for 13 taps only
+STEPS = (1, 2, 3)
+
+
+class BandCounts(LaunchCounts):
+    """K1's counters: cluster-kernel launches (``kernel``), PR 1 kernel
+    launches (``v1``) and CPU calls of the plain version (``plain``)."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.v1 = 0
+
+    def reset(self) -> None:
+        super().reset()
+        self.v1 = 0
+
+
+COUNTS = BandCounts()
+
+
+@functools.lru_cache(maxsize=64)
+def progression(offsets: tuple):
+    """The step d when ``offsets`` is ``tap_offsets((T - 1) // 2, d)`` with
+    d >= 1 (d = 1 for the single tap ``(0,)``), else None."""
+    c = (len(offsets) - 1) // 2
+    d = offsets[2] if c else 1
+    if d >= 1 and offsets == tuple(int(o) for o in tap_offsets(c, d)):
+        return d
+    return None
 
 
 def band_taps_plain(block, rc, wstart, n, rem, ftot, active, offsets,
@@ -114,16 +152,43 @@ def band_taps(block, rc, wstart, n, rem, ftot, active, offsets, smax: int):
 
 
 def launch(block, rc, wstart, n, rem, ftot, active, offsets, smax: int,
-           out, ok) -> None:
-    """Launch the kernel on the current CUDA stream into ``out`` (B, 2T)
-    f32 and ``ok`` (1,) int32 (set to 1 beforehand), with no argument
-    checks: :func:`band_taps` checks, allocates and calls this.  Raises
-    if the launch is refused."""
+           out, ok, *, cluster: int = CLUSTER, step: int = 3) -> None:
+    """Launch K1 on the current CUDA stream into ``out`` (B, 2T) f32 and
+    ``ok`` (1,) int32 (set to 1 beforehand), with no argument checks:
+    :func:`band_taps` checks, allocates and calls this.  Offsets of the
+    form ``tap_offsets(corrn, d)`` launch the cluster kernel with
+    ``cluster`` CTAs per window (``step`` < 3: its ablation steps, 13 taps
+    only); any other offsets launch the PR 1 kernel.  Raises if the launch
+    is refused."""
+    offsets = tuple(int(o) for o in offsets)
+    d = progression(offsets)
+    if d is None:
+        launch_v1(block, rc, wstart, n, rem, ftot, active, offsets, smax,
+                  out, ok)
+        return
+    lib = _library()
+    B, nxt = rc.shape
+    with torch.cuda.device(block.device):
+        err = lib.band_taps_launch(
+            block.data_ptr(), block.shape[0], int(block.dim() == 2),
+            rc.data_ptr(), nxt, nxt - 2 * smax,
+            wstart.data_ptr(), n.data_ptr(), rem.data_ptr(),
+            ftot.data_ptr(), active.data_ptr(), len(offsets), int(smax), d,
+            int(cluster), int(step), B, out.data_ptr(), ok.data_ptr(),
+            stream_of(block.device))
+    raise_on(lib, "band_taps", err)
+    COUNTS.kernel += 1
+
+
+def launch_v1(block, rc, wstart, n, rem, ftot, active, offsets,
+              smax: int, out, ok) -> None:
+    """Launch the PR 1 kernel (``band_taps_v1_launch``: one block per
+    window, any offsets) as :func:`launch` does; counts ``COUNTS.v1``."""
     lib = _library()
     B, nxt = rc.shape
     offs = device_offsets(tuple(int(o) for o in offsets), block.device)
     with torch.cuda.device(block.device):
-        err = lib.band_taps_launch(
+        err = lib.band_taps_v1_launch(
             block.data_ptr(), block.shape[0], int(block.dim() == 2),
             rc.data_ptr(), nxt, nxt - 2 * smax,
             wstart.data_ptr(), n.data_ptr(), rem.data_ptr(),
@@ -131,16 +196,27 @@ def launch(block, rc, wstart, n, rem, ftot, active, offsets, smax: int,
             offs.shape[0], int(smax), B, out.data_ptr(), ok.data_ptr(),
             stream_of(block.device))
     raise_on(lib, "band_taps", err)
-    COUNTS.kernel += 1
+    COUNTS.v1 += 1
+
+
+def samples_per_thread() -> int:
+    """Samples each thread of the cluster kernel takes (its ``kJ``)."""
+    return int(_library().band_taps_samples_per_thread())
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     """Build (first use) and bind ``csrc/band_taps.cu``."""
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    return bind("band_taps", "band_taps_launch", [
+    lib = bind("band_taps", "band_taps_launch", [
+        vp, i64, i32, vp, i32, i32, vp, vp, vp, vp, vp,
+        i32, i32, i32, i32, i32, i32, vp, vp, vp])
+    lib.band_taps_v1_launch.argtypes = [
         vp, i64, i32, vp, i32, i32, vp, vp, vp, vp, vp, vp,
-        i32, i32, i32, vp, vp, vp])
+        i32, i32, i32, vp, vp, vp]
+    lib.band_taps_v1_launch.restype = i32
+    lib.band_taps_samples_per_thread.restype = i32
+    return lib
 
 
 def load_kernel() -> None:

@@ -15,6 +15,7 @@ from gnsslib_tpu_torch.ops import ablation_taps as ab
 from gnsslib_tpu_torch.ops import band_taps as bt
 from gnsslib_tpu_torch.ops import gram_taps as gt
 from gnsslib_tpu_torch.ops import window_taps as wt
+from gnsslib_tpu_torch.ops.correlator import tap_offsets
 from gnsslib_tpu_torch.tools import profile_kernel
 from gnsslib_tpu_torch.track import (FastTracker, TrackConfig, Tracker,
                                      state_from_numpy, state_to_numpy)
@@ -47,29 +48,159 @@ def _inputs(trk, B, iq, seed, dev):
     return host, [torch.from_numpy(a).to(dev) for a in host]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("iq,corrn", [(False, 6), (True, 6), (False, 1),
-                                      (False, 12)])
-def test_band_taps_kernel_matches_plain(dev, iq, corrn):
-    """Kernel vs band_taps_plain on the card (both f32; only summation
-    order and sincospif-vs-cos/sin rounding differ), at the main path's
-    window shapes and at the smallest and largest templated tap counts."""
-    trk = Tracker(TrackConfig(corrn, 3, 3), [1], [CodeType.L1CA], F_SF,
-                  F_IF, DType.IQ if iq else DType.REAL, device="cpu")
-    host, args = _inputs(trk, 320, iq, corrn + iq, dev)
-    offsets = trk.offsets
-    bt.COUNTS.reset()
-    zk, okk = bt.band_taps(*args, offsets, trk.smax)
-    zp, okp = bt.band_taps_plain(*args, offsets, trk.smax)
-    torch.cuda.synchronize()
-    assert bt.COUNTS.kernel == 1 and bt.COUNTS.plain == 0
-    assert bool(okk) and bool(okp)
+def _band_inputs(B, iq, seed, dev, smax, nn=16368, nwin=16376):
+    """Band-correlator inputs at the main path's window length: a block of
+    8-bit samples, +-1 replica rows of nwin + 2*smax bytes, windows inside
+    the block with n around nn, 80% active."""
+    rng = np.random.default_rng(seed)
+    nblock = 12 * nn + nwin + 2 * smax
+    block = rng.integers(-128, 128, (nblock, 2) if iq else nblock
+                         ).astype(np.float32)
+    wstart = rng.integers(0, 10 * nn, B).astype(np.int32)
+    n = rng.integers(nn - 2, nn + 3, B).astype(np.int32)
+    rem = rng.uniform(0, 1, B).astype(np.float32)
+    ftot = rng.uniform(-0.5, 0.5, B).astype(np.float32)
+    rc = rng.choice(np.asarray([-1, 1], np.int8), (B, nwin + 2 * smax))
+    act = rng.uniform(size=B) < 0.8
+    host = (block, rc, wstart, n, rem, ftot, act)
+    return host, [torch.from_numpy(a).to(dev) for a in host]
+
+
+def _band_tol(host, nwin=16376):
+    """1e-5 of the largest window L1 norm: each tap sums n products bounded
+    by |x_i| (|replica| <= 1), and f32 rounding in either summation order
+    (and sincospif vs cos/sin) stays below that."""
     block, _, wstart, n = host[:4]
-    # each tap sums n products bounded by |x_i| (|replica| <= 1): f32
-    # rounding in either order stays below 1e-5 of that L1 norm
-    l1 = max(float(np.abs(block[w:w + k]).sum()) for w, k in zip(wstart, n))
-    assert float((zk - zp).abs().max()) <= 1e-5 * l1
+    return 1e-5 * max([1.0] + [float(np.abs(block[w:w + k]).sum())
+                               for w, k in zip(wstart, np.clip(n, 0, nwin))])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("corrd", [1, 2, 3, 4])
+@pytest.mark.parametrize("iq,corrn", [(False, 6), (True, 6), (False, 0),
+                                      (True, 0), (False, 12), (True, 12)])
+def test_band_taps_kernel_matches_plain(dev, iq, corrn, corrd):
+    """The cluster kernel vs band_taps_plain on the card (both f32; only
+    summation order and sincospif-vs-cos/sin rounding differ), at the main
+    path's window length, at tap counts 1, 13 and 25 and tap spacings
+    1-4."""
+    smax = corrn * corrd
+    offsets = tap_offsets(corrn, corrd)
+    host, args = _band_inputs(320, iq, 10 * corrn + corrd + iq, dev, smax)
+    bt.COUNTS.reset()
+    zk, okk = bt.band_taps(*args, offsets, smax)
+    zp, okp = bt.band_taps_plain(*args, offsets, smax)
+    torch.cuda.synchronize()
+    assert (bt.COUNTS.kernel, bt.COUNTS.v1, bt.COUNTS.plain) == (1, 0, 0)
+    assert bool(okk) and bool(okp)
+    assert float((zk - zp).abs().max()) <= _band_tol(host)
     assert torch.all(zk[~args[6]] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iq", [False, True])
+def test_band_taps_kernel_short_and_ragged_windows(dev, iq):
+    """n below one segment, n = 0 and n < 0 on active windows, n that is
+    no multiple of S*J, n at a segment's edge, n beyond nwin, and windows
+    that end at the block's last sample."""
+    smax, nwin = 18, 16376
+    host, args = _band_inputs(64, iq, 31 + iq, dev, smax)
+    tile = bt.samples_per_thread() * 3              # kJ samples at d = 3
+    seg = -(-(-(-nwin // bt.CLUSTER)) // tile) * tile   # ceil, ceil
+    n = np.asarray([1, 2, 99, 100, seg - 1, seg, seg + 1, 0, -5, nwin,
+                    nwin + 40, 2 * seg + 17, 3 * seg - 1, 5000, 12345, 7],
+                   np.int32)
+    n = np.resize(n, 64)
+    act = np.ones(64, bool)
+    wstart = host[2].copy()
+    nblock = host[0].shape[0]
+    wstart[9] = nblock - nwin                      # ends at the last sample
+    wstart[12] = nblock - (3 * seg - 1)
+    args[2] = torch.from_numpy(wstart).to(dev)
+    args[3] = torch.from_numpy(n).to(dev)
+    args[6] = torch.from_numpy(act).to(dev)
+    offsets = tap_offsets(6, 3)
+    bt.COUNTS.reset()
+    zk, okk = bt.band_taps(*args, offsets, smax)
+    zp, okp = bt.band_taps_plain(*args, offsets, smax)
+    torch.cuda.synchronize()
+    assert bt.COUNTS.kernel == 1 and bt.COUNTS.v1 == 0
+    assert bool(okk) and bool(okp)
+    tol = _band_tol((host[0], None, wstart, n))
+    assert float((zk - zp).abs().max()) <= tol
+    assert torch.all(zk[torch.from_numpy(n <= 0).to(dev)] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offsets", [(0, -1, 2), (0, -2, 2, -4, 5), (3,),
+                                     (0, 3, -3)])
+def test_band_taps_non_progression_goes_to_v1(dev, offsets):
+    """Offsets that are not tap_offsets(corrn, d) launch the PR 1 kernel,
+    counted in COUNTS.v1, and match the plain version."""
+    smax = 6
+    host, args = _band_inputs(64, False, 41, dev, smax)
+    bt.COUNTS.reset()
+    zk, okk = bt.band_taps(*args, offsets, smax)
+    zp, _ = bt.band_taps_plain(*args, offsets, smax)
+    torch.cuda.synchronize()
+    assert (bt.COUNTS.kernel, bt.COUNTS.v1, bt.COUNTS.plain) == (0, 1, 0)
+    assert bool(okk)
+    assert float((zk - zp).abs().max()) <= _band_tol(host)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iq", [False, True])
+@pytest.mark.parametrize("variant", ["v1", "step 1", "step 2", "S=1", "S=4",
+                                     "S=8"])
+def test_band_taps_variants_match_plain(dev, iq, variant):
+    """The PR 1 kernel, the cluster kernel's build steps 1-2 and its other
+    cluster sizes, as chip_smoke.py times them, against the plain version
+    at the main path's shapes (13 taps)."""
+    smax = 18
+    offsets = tap_offsets(6, 3)
+    host, args = _band_inputs(320, iq, 51 + iq, dev, smax)
+    zp, _ = bt.band_taps_plain(*args, offsets, smax)
+    out = torch.empty_like(zp)
+    ok = torch.ones(1, dtype=torch.int32, device=dev)
+    if variant == "v1":
+        bt.launch_v1(*args, offsets, smax, out, ok)
+    elif variant.startswith("step"):
+        bt.launch(*args, offsets, smax, out, ok, step=int(variant[-1]))
+    else:
+        bt.launch(*args, offsets, smax, out, ok, cluster=int(variant[2:]))
+    torch.cuda.synchronize()
+    assert int(ok[0]) == 1
+    assert float((out - zp).abs().max()) <= _band_tol(host)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iq", [False, True])
+def test_band_taps_bit_identical_and_graph_replay(dev, iq):
+    """Two launches give bit-identical taps (no atomics, a fixed
+    reduction order), and a launch captured in a CUDA graph and replayed
+    gives the eager launch's bits."""
+    smax = 18
+    offsets = tap_offsets(6, 3)
+    _, args = _band_inputs(320, iq, 61 + iq, dev, smax)
+    z1, _ = bt.band_taps(*args, offsets, smax)
+    z2, _ = bt.band_taps(*args, offsets, smax)
+    torch.cuda.synchronize()
+    assert torch.equal(z1.view(torch.int32), z2.view(torch.int32))
+    out = torch.empty_like(z1)
+    ok = torch.ones(1, dtype=torch.int32, device=dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):              # warm-up before capture
+        bt.launch(*args, offsets, smax, out, ok)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        bt.launch(*args, offsets, smax, out, ok)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), z1.view(torch.int32))
+    assert int(ok[0]) == 1
 
 
 @pytest.mark.cuda
