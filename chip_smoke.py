@@ -17,10 +17,9 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    (320, 128, 128) bf16 rows; K6's four variants at the profiler's 320 x
    16493 windows and 18229-sample rows), real and I/Q input, with
    CUDA-event times of both and the card's bound for the same work.  K1
-   runs as the cluster kernel and as the PR 1 kernel (v1), each checked
+   runs as the cluster kernel and as the v1 kernel, each checked
    for bit-identical repeat launches and timed warm and cold (beyond L2)
-   by launches replayed from a CUDA graph, with the cluster kernel's build
-   steps and cluster sizes timed cold;
+   by launches replayed from a CUDA graph, and cold by eager launches;
 4. synthesize both captures in one process pool: the slice's (4 visible
    GPS L1CA PRNs with LNAV bit streams) and the positioning run's (7
    satellites above 15 degrees for a known receiver position, one dark
@@ -220,11 +219,12 @@ def union_len(starts, lens) -> int:
 # --------------------------------------------------------------------- #
 def phase_kernel(dev, iq: bool):
     """K1 at the 32-channel L1CA super-step's shapes: the cluster kernel
-    (through the wrapper and by launch) and the PR 1 kernel against the
-    plain version, two launches bit-identical, warm and cold (beyond L2)
-    times of both, and cold times of the cluster kernel's build steps and
-    of other cluster sizes.  Importable: after
-    ``cuda_build.build_all(("band_taps",))`` it is the kernel-only loop."""
+    (through the wrapper and by launch) and the v1 kernel against the
+    plain version, two launches bit-identical, and warm and cold (beyond
+    L2) times of both.  Importable: after
+    ``cuda_build.build_all(("band_taps",))`` it is the kernel-only loop;
+    ``python -m gnsslib_tpu_torch.tools.profile_band`` times the cluster
+    kernel's build steps and cluster sizes."""
     import torch
     from gnsslib_tpu_torch.ops import band_taps as bt
     from gnsslib_tpu_torch.tools import profile_band as pb
@@ -241,21 +241,9 @@ def phase_kernel(dev, iq: bool):
         raise AssertionError(f"band_taps ({kind}) wrapper: launches "
                              f"{bt.COUNTS.kernel}, v1 {bt.COUNTS.v1}, plain "
                              f"{bt.COUNTS.plain}")
-    # each tap sums n products bounded by |x_i| (|replica| <= 1): f32
-    # rounding in either summation order stays below 1e-5 of that L1 norm
-    l1 = max(float(np.abs(block[w:w + k]).sum()) for w, k in zip(wstart, n))
-    tol = 1e-5 * l1
-    # the launches compared: the cluster kernel, the PR 1 kernel, the
-    # cluster kernel's build steps 1-2 and its other cluster sizes
-    runs = {"kernel": lambda *a: bt.launch(*a),
-            "v1": lambda *a: bt.launch_v1(*a)}
-    for step in bt.STEPS[:-1]:
-        runs[f"step {step}"] = (lambda st: lambda *a: bt.launch(
-            *a, step=st))(step)
-    for S in (1, 2, 4, 8):
-        if S != bt.CLUSTER:
-            runs[f"S={S}"] = (lambda c: lambda *a: bt.launch(
-                *a, cluster=c))(S)
+    tol = pb.tolerance(host, trk.nwin)       # 1e-5 of the window L1 norm
+    # the launches compared: the cluster kernel and the v1 kernel
+    runs = {"kernel": bt.launch, "v1": bt.launch_v1}
 
     def once(fn, inputs):
         z = torch.empty_like(zp)
@@ -308,33 +296,26 @@ def phase_kernel(dev, iq: bool):
     # time per eager launch (Python and ctypes) cannot hide the kernel's
     cold = {k: pb.graph_ms(on_copy(fn), len(copies))
             for k, fn in runs.items()}
-    warm = {k: pb.graph_ms(lambda c, fn=runs[k]: fn(*args, offsets, smax,
-                                                     out, ok), 1)
-            for k in ("kernel", "v1")}
-    eager = {k: cold_ms(on_copy(runs[k]), len(copies))
-             for k in ("kernel", "v1")}
-    J = bt.samples_per_thread()
+    warm = {k: pb.graph_ms(lambda c, fn=fn: fn(*args, offsets, smax, out,
+                                                ok), 1)
+            for k, fn in runs.items()}
+    eager = {k: cold_ms(on_copy(fn), len(copies)) for k, fn in runs.items()}
     log(f"[3] band_taps {kind:4s}: {card_line()}; cluster kernel S="
-        f"{bt.CLUSTER} CTAs per window, J={J} samples per thread: cold "
-        f"{cold['kernel']:.4f} ms/launch, warm {warm['kernel']:.4f} ms; PR 1 "
-        f"kernel (v1) cold {cold['v1']:.4f} ms, warm {warm['v1']:.4f} ms "
+        f"{bt.ctas_per_window()} CTAs per window, J="
+        f"{bt.samples_per_thread()} samples per thread: cold "
+        f"{cold['kernel']:.4f} ms/launch, warm {warm['kernel']:.4f} ms; v1 kernel "
+        f"cold {cold['v1']:.4f} ms, warm {warm['v1']:.4f} ms "
         f"(device time: launches replayed from one CUDA graph; "
         f"cold: inputs rotated over {len(copies)} copies, beyond L2); eager "
         f"back-to-back launches, cold: kernel {eager['kernel']:.4f} ms, v1 "
         f"{eager['v1']:.4f} ms; wrapper call {call_ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms; bound {bms:.4f} ms by {by} ({nbytes / 1e6:.2f} "
         f"MB, {flops / 1e6:.1f} MFLOP)")
-    log(f"[3] band_taps {kind:4s} cold ms by build step (S={bt.CLUSTER}): "
-        f"v1 {cold['v1']:.4f}, step 1 (clusters) {cold['step 1']:.4f}, "
-        f"step 2 (+ register reuse) {cold['step 2']:.4f}, step 3 (+ "
-        f"asynchronous staging) {cold['kernel']:.4f}; by cluster size "
-        "(step 3): "
-        + ", ".join(f"S={S} {cold.get(f'S={S}', cold['kernel']):.4f}"
-                    for S in (1, 2, 4, 8)))
     return dict(err=max(errs.values()), ms=cold["kernel"],
                 warm_ms=warm["kernel"], v1_ms=cold["v1"],
                 v1_warm_ms=warm["v1"], eager_ms=eager["kernel"],
-                plain_ms=plain_ms, bound_ms=bms, bound_by=by, cold=cold)
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                timing="graph_replay")
 
 
 def _window_inputs(trk, B: int, iq: bool, seed: int):
@@ -1088,11 +1069,11 @@ def main() -> int:
             if not re.search(r"registers|spill", ln):
                 continue
             var = re.search(r"ILi(\d)ELi13EE", entry)
-            k1 = re.search(r"band_taps_(v1|cluster)_kernelILi(\d+)ELb(\d)E"
-                           r"(?:Li(\d)E)?", entry)
-            if k1 and (k1[2] == "13" or (k1[2] == "25" and k1[4] == "3")):
-                kind = (("v1" if k1[1] == "v1" else f"step {k1[4]}")
-                        + f" T={k1[2]} " + ("iq" if k1[3] == "1" else "real"))
+            k1 = re.search(r"band_taps_(v1|cluster)_kernelILi(\d+)ELb(\d)E",
+                           entry)
+            if k1 and (k1[2] == "13" or (k1[2], k1[1]) == ("25", "cluster")):
+                kind = f"{k1[1]} T={k1[2]} " + ("iq" if k1[3] == "1"
+                                                else "real")
             elif name == "band_taps":
                 continue
             elif name == "ablation_taps" and var:
@@ -1151,9 +1132,12 @@ def main() -> int:
             "ms": real["ms"], "plain_ms": real["plain_ms"],
             "bound_ms": real["bound_ms"], "bound_by": real["bound_by"],
             # no single PyTorch call mixes, masks and sums the shifted taps
-            "library_ms": None})
-        if name == "band_taps":            # the same run's PR 1 kernel
-            rows[-1]["v1_ms"] = real["v1_ms"]
+            "library_ms": None,
+            # how "ms" was timed: launches replayed from a CUDA graph, or
+            # eager back-to-back launches between CUDA events
+            "timing": real.get("timing", "eager")})
+        if name == "band_taps":   # its eager time, the same run's v1 kernel
+            rows[-1].update(eager_ms=real["eager_ms"], v1_ms=real["v1_ms"])
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

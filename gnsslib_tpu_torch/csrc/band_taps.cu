@@ -28,13 +28,13 @@
 // reads of the samples (the 0.85 MB f32 block, which all 32 channels'
 // windows read, stays in L2; the windows read ~14 MB of it through L1).
 //
-// The PR 1 kernel (band_taps_v1_kernel, below, unchanged) gives each
+// The v1 kernel (band_taps_v1_kernel, below, the port's first) gives each
 // window one 256-thread block and pays, per sample and tap, one shared
 // byte load and one int8->f32 conversion for two FMAs, and copies its
 // replica row one byte per thread per iteration.  This kernel
-// (band_taps_cluster_kernel) is built in three steps, each a template
-// value of STEP so that each can be timed on its own (steps 1 and 2 exist
-// for 13 taps only):
+// (band_taps_cluster_kernel) is built in three steps; tools/profile_band.py
+// builds steps 1-2 and the other cluster sizes as variants of this source
+// and times them:
 //
 // 1. Fill the card.  Each window is split into S segments of `seg`
 //    samples, one CTA each, and the S CTAs of a window run as one thread
@@ -47,9 +47,8 @@
 //    launch, no scratch buffer, no atomics: the output is bit-identical
 //    from launch to launch.  Whether a window is active and inside the
 //    block is decided per window, so every CTA of a cluster takes the same
-//    early return or reaches every cluster barrier.  S = 2
-//    (ops/band_taps.py CLUSTER) was the fastest of 1, 2, 4 and 8 on the
-//    card, I/Q input included.
+//    early return or reaches every cluster barrier.  S = kCluster = 2
+//    was the fastest of 1, 2, 4 and 8 on the card, I/Q input included.
 // 2. Convert each replica byte once and reuse it across the taps.  The
 //    receiver's offsets are tap_offsets(corrn, d): 0, -d, +d, ... -corrn*d,
 //    +corrn*d, so tap m (in lag order) of sample i reads r[i + base + m*d]
@@ -61,8 +60,11 @@
 //    at 13 taps instead of 13.  Threads cover the d residues of tiles of
 //    kJ*d samples; with kJ = 33, (kJ - 1)*d is a multiple of 32, so chain
 //    starts are distinct mod 32 and a warp's stride-d reads hit 32 banks
-//    for any d.  Offsets that are not such a progression are never
-//    produced by the receiver; the wrapper sends them to the PR 1 kernel.
+//    for any d.  Steps 1 and 2 stage the replica bytes one per thread per
+//    iteration; step 1 is step 2 with kJ = 1 (per sample and tap one byte
+//    load and one conversion).  Offsets that are not such a progression
+//    are never produced by the receiver; the wrapper sends them to the
+//    v1 kernel.
 // 3. More bytes in flight for the staging.  The segment's replica bytes
 //    are staged with 16-byte cp.async copies from the 16-byte boundary
 //    below their first byte (row b starts at b*next bytes, which is
@@ -83,13 +85,13 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kJ = 33;            // samples per thread (stride d) in steps 2-3
-constexpr int kMaxCluster = 8;    // the portable cluster size
+constexpr int kJ = 33;            // samples per thread (stride d)
+constexpr int kCluster = 2;       // CTAs per window: one thread block cluster
 
 __device__ __forceinline__ float frac_f(float x) { return x - floorf(x); }
 
 // ------------------------------------------------------------------------
-// The PR 1 kernel: one thread block per window, the whole replica row in
+// The v1 kernel: one thread block per window, the whole replica row in
 // shared memory as int8, per sample one sincospif, NT shared byte loads and
 // 2*NT FMAs.  Takes any offsets check_offsets accepts.
 
@@ -242,18 +244,7 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// Steps 1-2: dst[t] = src[first + t] for t < count (0 outside [0, len)),
-// one byte per thread per iteration.
-__device__ __forceinline__ void stage_bytes(int8_t* dst, const int8_t* src,
-                                            long long len, long long first,
-                                            int count) {
-  for (int t = threadIdx.x; t < count; t += blockDim.x) {
-    const long long k = first + t;
-    dst[t] = k >= 0 && k < len ? src[k] : 0;
-  }
-}
-
-// Step 3: bytes [first, first + count) of src (len bytes) land at
+// bytes [first, first + count) of src (len bytes) land at
 // dst + head, head = (src + first) mod 16, by 16-byte cp.async copies from
 // the 16-byte boundary at or below src + first, every one issued before
 // any wait.  A copy that reaches past first + count or len is cut to the
@@ -300,7 +291,7 @@ __device__ __forceinline__ void fold(float (&v)[32], int lane) {
   if constexpr (H > 1) fold<H / 2>(v, lane);
 }
 
-// Steps 2-3: the taps of one chain, kJ samples d apart from the sample
+// The taps of one chain, kJ samples d apart from the sample
 // at x in the block (F floats each; the first `left` count, the rest are
 // taken as zero).  The replica bytes from r, d apart, are loaded and
 // converted once into R, and tap m (lag order) of chain step j is
@@ -342,7 +333,7 @@ __device__ __forceinline__ void chain_taps(float (&ac)[NT], float (&as)[NT],
 }
 
 // 64 registers up to 13 taps (4 CTAs of 256 threads per SM), 128 above
-template <int NT, bool IQ, int STEP>
+template <int NT, bool IQ>
 __global__ void __launch_bounds__(kThreads, NT <= 13 ? 4 : 2)
 band_taps_cluster_kernel(const ClusterArgs a) {
   constexpr int C = (NT - 1) / 2;            // corrn
@@ -351,11 +342,10 @@ band_taps_cluster_kernel(const ClusterArgs a) {
   constexpr int NCH = (NV + 31) / 32;        // 32-sum chunks
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float part[kWarps][32 * NCH];
-  __shared__ float gather[kMaxCluster][NV];  // rank 0's: every rank's sums
+  __shared__ float gather[kCluster][NV];     // rank 0's: every rank's sums
   cg::cluster_group cluster = cg::this_cluster();
-  const int S = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
-  const int b = blockIdx.x / S;
+  const int b = blockIdx.x / kCluster;
   const int tid = threadIdx.x;
   float* o = a.out + (size_t)b * NV;
 
@@ -391,52 +381,18 @@ band_taps_cluster_kernel(const ClusterArgs a) {
     as[m] = 0.f;
   }
 
-  if constexpr (STEP == 1) {
-    // v1's sample loop on the segment: per sample and tap one shared byte
-    // load and one conversion
-    int8_t* rep = reinterpret_cast<int8_t*>(smem);
-    stage_bytes(rep, a.rc, a.rc_len, rfirst, nrep);
-    __syncthreads();
-    for (int s = tid; s < lim; s += blockDim.x) {
-      float sn, cs;
-      carrier(f, (float)(seg0 + s), r0, &sn, &cs);
-      float wc, ws;
-      if (IQ) {
-        const float xr = blk[2 * s];
-        const float xi = blk[2 * s + 1];
-        wc = xr * cs - xi * sn;
-        ws = xr * sn + xi * cs;
-      } else {
-        const float x = blk[s];
-        wc = x * cs;
-        ws = x * sn;
-      }
-#pragma unroll
-      for (int m = 0; m < NT; ++m) {
-        const float r = (float)rep[s + m * d];
-        ac[m] = fmaf(wc, r, ac[m]);
-        as[m] = fmaf(ws, r, as[m]);
-      }
-    }
-  } else {
-    const int8_t* rep = reinterpret_cast<const int8_t*>(smem);
-    if constexpr (STEP == 2) {
-      stage_bytes(reinterpret_cast<int8_t*>(smem), a.rc, a.rc_len, rfirst,
-                  nrep);
-    } else {
-      rep += stage_async(smem, a.rc, a.rc_len, rfirst, nrep);
-      cp_async_wait_all();
-    }
-    __syncthreads();
-    // chain u: tile k = u / d of kJ*d samples, residue u % d
-    const int tile = kJ * d;
-    for (int u = tid; u < seg / tile * d; u += blockDim.x) {
-      const int k = u / d;
-      const int s0 = k * tile + (u - k * d);
-      if (s0 < lim)
-        chain_taps<NT, IQ>(ac, as, rep + s0, blk + F * s0, d, lim - s0, f,
-                           r0, (float)(seg0 + s0));
-    }
+  const int8_t* rep = reinterpret_cast<const int8_t*>(smem);
+  rep += stage_async(smem, a.rc, a.rc_len, rfirst, nrep);
+  cp_async_wait_all();
+  __syncthreads();
+  // chain u: tile k = u / d of kJ*d samples, residue u % d
+  const int tile = kJ * d;
+  for (int u = tid; u < seg / tile * d; u += blockDim.x) {
+    const int k = u / d;
+    const int s0 = k * tile + (u - k * d);
+    if (s0 < lim)
+      chain_taps<NT, IQ>(ac, as, rep + s0, blk + F * s0, d, lim - s0, f, r0,
+                         (float)(seg0 + s0));
   }
 
   // The CTA's sums, [cos_m, sin_m] in lag order: a butterfly over the
@@ -471,7 +427,7 @@ band_taps_cluster_kernel(const ClusterArgs a) {
   if (rank == 0) {
     for (int t = tid; t < NV; t += blockDim.x) {
       float x = 0.f;
-      for (int r = 0; r < S; ++r) x += gather[r][t];
+      for (int r = 0; r < kCluster; ++r) x += gather[r][t];
       o[2 * slot_of(t >> 1, C) + (t & 1)] = x;
     }
   }
@@ -498,18 +454,17 @@ cudaError_t launch_v1(const float* block, long long nblock, const int8_t* rc,
   return cudaGetLastError();
 }
 
-template <int NT, bool IQ, int STEP>
-cudaError_t launch_cluster(ClusterArgs a, int S, int nwindows,
-                           cudaStream_t stream) {
+template <int NT, bool IQ>
+cudaError_t launch_cluster(ClusterArgs a, int nwindows, cudaStream_t stream) {
   constexpr int C = (NT - 1) / 2;
   const int tile = kJ * a.d;
-  a.seg = ceil_div(ceil_div(a.nwin, S), tile) * tile;
+  a.seg = ceil_div(ceil_div(a.nwin, kCluster), tile) * tile;
   const int nrep = a.seg + 2 * C * a.d;
   // one chain of kJ samples per thread where the segment allows
   const int want = ceil_div(a.seg / tile * a.d, 32) * 32;
   const int threads = want < kThreads ? want : kThreads;
-  const size_t shm = STEP == 3 ? staged_bytes(nrep) : nrep;
-  auto kernel = band_taps_cluster_kernel<NT, IQ, STEP>;
+  const size_t shm = staged_bytes(nrep);
+  auto kernel = band_taps_cluster_kernel<NT, IQ>;
   // opt in only when a launch needs more than this instantiation already
   // has, so that repeated launches (and graph capture) make no call
   static size_t opted = 48 * 1024;
@@ -520,13 +475,13 @@ cudaError_t launch_cluster(ClusterArgs a, int S, int nwindows,
     opted = shm;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(nwindows * S));
+  cfg.gridDim = dim3((unsigned)(nwindows * kCluster));
   cfg.blockDim = dim3((unsigned)threads);
   cfg.dynamicSmemBytes = shm;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)S;
+  attr[0].val.clusterDim.x = (unsigned)kCluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -534,17 +489,6 @@ cudaError_t launch_cluster(ClusterArgs a, int S, int nwindows,
   cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, a);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
-}
-
-template <int NT, bool IQ>
-cudaError_t dispatch_step(int step, const ClusterArgs& a, int S,
-                          int nwindows, cudaStream_t stream) {
-  if (step == 3) return launch_cluster<NT, IQ, 3>(a, S, nwindows, stream);
-  if constexpr (NT == 13) {
-    if (step == 2) return launch_cluster<NT, IQ, 2>(a, S, nwindows, stream);
-    if (step == 1) return launch_cluster<NT, IQ, 1>(a, S, nwindows, stream);
-  }
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -557,20 +501,18 @@ cudaError_t dispatch_step(int step, const ClusterArgs& a, int S,
 // of the launch (0 on success); arguments it does not take return
 // cudaErrorInvalidValue without launching.
 
-// The cluster kernel for offsets tap_offsets((ntaps - 1) / 2, d): cluster
-// CTAs per window (1..8), step 3 (the kernel the wrapper launches) for
-// ntaps in {1, 3, ..., 25}, steps 1-2 (its ablation) for 13 taps.
+// The cluster kernel for offsets tap_offsets((ntaps - 1) / 2, d), ntaps in
+// {1, 3, ..., 25}.
 extern "C" int band_taps_launch(const void* block, long long nblock, int iq,
                                 const void* rc, int next, int nwin,
                                 const void* wstart, const void* nvalid,
                                 const void* rem, const void* ftot,
                                 const void* active, int ntaps, int smax,
-                                int d, int cluster, int step, int nwindows,
-                                void* out, void* ok, void* stream) {
+                                int d, int nwindows, void* out, void* ok,
+                                void* stream) {
   if (nwindows <= 0) return (int)cudaSuccess;
   const int base = smax - (ntaps - 1) / 2 * d;
-  if (d < 1 || base < 0 || cluster < 1 || cluster > kMaxCluster)
-    return (int)cudaErrorInvalidValue;
+  if (d < 1 || base < 0) return (int)cudaErrorInvalidValue;
   ClusterArgs a = {};
   a.block = static_cast<const float*>(block);
   a.nblock = nblock;
@@ -588,10 +530,10 @@ extern "C" int band_taps_launch(const void* block, long long nblock, int iq,
   a.out = static_cast<float*>(out);
   a.ok = static_cast<int*>(ok);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define CLUSTER_CASE(NT)                                             \
-  case NT:                                                           \
-    return iq ? dispatch_step<NT, true>(step, a, cluster, nwindows, st) \
-              : dispatch_step<NT, false>(step, a, cluster, nwindows, st);
+#define CLUSTER_CASE(NT)                                         \
+  case NT:                                                       \
+    return iq ? launch_cluster<NT, true>(a, nwindows, st)        \
+              : launch_cluster<NT, false>(a, nwindows, st);
   switch (ntaps) {
     TAP_CASES(CLUSTER_CASE)
     default:
@@ -600,7 +542,7 @@ extern "C" int band_taps_launch(const void* block, long long nblock, int iq,
 #undef CLUSTER_CASE
 }
 
-// The PR 1 kernel, for any offsets (a device array of ntaps ints).
+// The v1 kernel, for any offsets (a device array of ntaps ints).
 extern "C" int band_taps_v1_launch(const void* block, long long nblock,
                                    int iq, const void* rc, int next,
                                    int nwin, const void* wstart,
@@ -635,8 +577,10 @@ extern "C" int band_taps_v1_launch(const void* block, long long nblock,
 #undef V1_CASE
 }
 
-// Samples per thread of steps 2-3 (for the caller's records).
+// Samples per thread and CTAs per window of the cluster kernel (for the
+// caller's records).
 extern "C" int band_taps_samples_per_thread() { return kJ; }
+extern "C" int band_taps_ctas_per_window() { return kCluster; }
 
 extern "C" const char* band_taps_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -17,7 +17,7 @@ the block.  Inactive and out-of-block windows give zeros.
 ``csrc/band_taps.cu`` for CUDA tensors and uses the plain PyTorch version,
 :func:`band_taps_plain`, only for tensors on the CPU.  Offsets of the form
 ``tap_offsets(corrn, d)`` (all the receiver makes) go to the cluster
-kernel (``COUNTS.kernel``), any other offsets to the PR 1 kernel
+kernel (``COUNTS.kernel``), any other offsets to the v1 kernel
 (``COUNTS.v1``); the choice follows the offsets, never a failure.  There is
 no fallback from a kernel to the plain version or from one kernel to the
 other.
@@ -35,17 +35,9 @@ from .kernels import (LaunchCounts, bind, check_offsets, check_tensors,
                       device_offsets, raise_on, route, stream_of)
 from .nco import frac
 
-# CTAs per window of the cluster kernel (one thread-block cluster each):
-# the fastest of 1, 2, 4 and 8 in chip_smoke.py phase 3's scan (PERF.md)
-CLUSTER = 2
-# the cluster kernel's build steps (csrc/band_taps.cu): 1 clusters, 2 +
-# registers reuse each replica byte across the taps, 3 (the kernel) +
-# asynchronous 16-byte staging; steps 1-2 exist for 13 taps only
-STEPS = (1, 2, 3)
-
 
 class BandCounts(LaunchCounts):
-    """K1's counters: cluster-kernel launches (``kernel``), PR 1 kernel
+    """K1's counters: cluster-kernel launches (``kernel``), v1 kernel
     launches (``v1``) and CPU calls of the plain version (``plain``)."""
 
     def __init__(self) -> None:
@@ -152,14 +144,12 @@ def band_taps(block, rc, wstart, n, rem, ftot, active, offsets, smax: int):
 
 
 def launch(block, rc, wstart, n, rem, ftot, active, offsets, smax: int,
-           out, ok, *, cluster: int = CLUSTER, step: int = 3) -> None:
+           out, ok) -> None:
     """Launch K1 on the current CUDA stream into ``out`` (B, 2T) f32 and
     ``ok`` (1,) int32 (set to 1 beforehand), with no argument checks:
     :func:`band_taps` checks, allocates and calls this.  Offsets of the
-    form ``tap_offsets(corrn, d)`` launch the cluster kernel with
-    ``cluster`` CTAs per window (``step`` < 3: its ablation steps, 13 taps
-    only); any other offsets launch the PR 1 kernel.  Raises if the launch
-    is refused."""
+    form ``tap_offsets(corrn, d)`` launch the cluster kernel; any other
+    offsets launch the v1 kernel.  Raises if the launch is refused."""
     offsets = tuple(int(o) for o in offsets)
     d = progression(offsets)
     if d is None:
@@ -174,15 +164,14 @@ def launch(block, rc, wstart, n, rem, ftot, active, offsets, smax: int,
             rc.data_ptr(), nxt, nxt - 2 * smax,
             wstart.data_ptr(), n.data_ptr(), rem.data_ptr(),
             ftot.data_ptr(), active.data_ptr(), len(offsets), int(smax), d,
-            int(cluster), int(step), B, out.data_ptr(), ok.data_ptr(),
-            stream_of(block.device))
+            B, out.data_ptr(), ok.data_ptr(), stream_of(block.device))
     raise_on(lib, "band_taps", err)
     COUNTS.kernel += 1
 
 
 def launch_v1(block, rc, wstart, n, rem, ftot, active, offsets,
               smax: int, out, ok) -> None:
-    """Launch the PR 1 kernel (``band_taps_v1_launch``: one block per
+    """Launch the v1 kernel (``band_taps_v1_launch``: one block per
     window, any offsets) as :func:`launch` does; counts ``COUNTS.v1``."""
     lib = _library()
     B, nxt = rc.shape
@@ -204,18 +193,29 @@ def samples_per_thread() -> int:
     return int(_library().band_taps_samples_per_thread())
 
 
+def ctas_per_window() -> int:
+    """CTAs, one thread-block cluster, per window of the cluster kernel
+    (its ``kCluster``: the fastest of 1, 2, 4 and 8 on the card, PERF.md)."""
+    return int(_library().band_taps_ctas_per_window())
+
+
+_VP, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# the arguments of csrc/band_taps.cu's band_taps_launch (the cluster
+# kernel) and band_taps_v1_launch (the v1 kernel)
+LAUNCH_ARGTYPES = [_VP, _I64, _I32, _VP, _I32, _I32, _VP, _VP, _VP, _VP, _VP,
+                   _I32, _I32, _I32, _I32, _VP, _VP, _VP]
+V1_ARGTYPES = [_VP, _I64, _I32, _VP, _I32, _I32, _VP, _VP, _VP, _VP, _VP, _VP,
+               _I32, _I32, _I32, _VP, _VP, _VP]
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     """Build (first use) and bind ``csrc/band_taps.cu``."""
-    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib = bind("band_taps", "band_taps_launch", [
-        vp, i64, i32, vp, i32, i32, vp, vp, vp, vp, vp,
-        i32, i32, i32, i32, i32, i32, vp, vp, vp])
-    lib.band_taps_v1_launch.argtypes = [
-        vp, i64, i32, vp, i32, i32, vp, vp, vp, vp, vp, vp,
-        i32, i32, i32, vp, vp, vp]
-    lib.band_taps_v1_launch.restype = i32
-    lib.band_taps_samples_per_thread.restype = i32
+    lib = bind("band_taps", "band_taps_launch", LAUNCH_ARGTYPES)
+    lib.band_taps_v1_launch.argtypes = V1_ARGTYPES
+    lib.band_taps_v1_launch.restype = _I32
+    lib.band_taps_samples_per_thread.restype = _I32
+    lib.band_taps_ctas_per_window.restype = _I32
     return lib
 
 

@@ -1,5 +1,6 @@
 """Time the band correlator (K1) on the card against variants of its
-source that each take one cost away, at the receiver's shapes.
+source: its build steps and cluster sizes, and variants that each take one
+cost away, at the receiver's shapes.
 
     python -m gnsslib_tpu_torch.tools.profile_band [--iq] [--rounds N]
 
@@ -13,7 +14,14 @@ in parallel) into ``build/gnsslib_tpu_torch/profile_band/``, and timed by
 :func:`graph_ms`: launches replayed from one CUDA graph, inputs rotated
 over copies beyond the L2 cache, so the time is the kernel's own:
 
-    kernel     the cluster kernel as the receiver launches it
+    kernel     the cluster kernel as the receiver launches it (step 3)
+    step1      build step 1: clusters of S CTAs per window, the replica
+               bytes staged one per thread, one sample per thread (kJ = 1:
+               per sample and tap one byte load and one conversion)
+    step2      step 1 + each replica byte converted once per thread and
+               reused across the taps (kJ = 33), still staged one byte per
+               thread (step 3 adds the 16-byte asynchronous staging)
+    S1 S4 S8   the kernel with 1, 4 or 8 CTAs per window (it has 2)
     nocarrier  the carrier's sincospif replaced by two multiply-adds
     nostage    no staging copies (the chain loop reads whatever shared
                memory holds for the replica)
@@ -22,8 +30,11 @@ over copies beyond the L2 cache, so the time is the kernel's own:
                cluster barriers and the row written
     launch     returns at once: the launch and CTA scheduling floor
 
-Differences between lines say what each part costs; the parts overlap in
-time, so they need not add up.  The tool needs the card and nvcc.
+The variants of SAME compute K1's function and are held against
+``band_taps_plain`` (1e-5 of the largest window L1 norm) before they are
+timed.  Differences between lines say what each step or part costs; the
+parts overlap in time, so they need not add up.  The tool needs the card
+and nvcc.
 """
 from __future__ import annotations
 
@@ -49,12 +60,24 @@ OUT = cuda_build.BUILD_DIR / "profile_band"
 
 _CARRIER = "  sincospif(2.f * (frac_f(__fmul_rn(f, fi)) + r0), sn, cs);\n"
 _STAGE = "  for (int v = threadIdx.x; v < (head + count + 15) >> 4; v += blockDim.x) {"
-_CHAIN = "      if (s0 < lim)\n        chain_taps<"
+_CHAIN = "    if (s0 < lim)\n      chain_taps<"
 _ENTRY = "  float* o = a.out + (size_t)b * NV;\n"
+_ASYNC = ("  rep += stage_async(smem, a.rc, a.rc_len, rfirst, nrep);\n"
+          "  cp_async_wait_all();\n")
+_BYTES = [(_ASYNC, "  for (int t = threadIdx.x; t < nrep; t += blockDim.x) {\n"
+                   "    const long long k = rfirst + t;\n"
+                   "    smem[t] = k >= 0 && k < a.rc_len ? a.rc[k] : 0;\n"
+                   "  }\n")]
+_KJ = "constexpr int kJ = 33;"
+_CLUSTER = "constexpr int kCluster = 2;"
 _NOSTAGE = [(_STAGE, _STAGE.replace("v < (head", "v < 0 * (head"))]
 _NOCHAIN = [(_CHAIN, _CHAIN.replace("s0 < lim", "s0 < 0"))]
 VARIANTS = {
     "kernel": [],
+    "step1": _BYTES + [(_KJ, "constexpr int kJ = 1;")],
+    "step2": _BYTES,
+    **{f"S{c}": [(_CLUSTER, f"constexpr int kCluster = {c};")]
+       for c in (1, 4, 8)},
     "nocarrier": [(_CARRIER, "  *sn = fmaf(f, fi, r0);\n"
                              "  *cs = fmaf(r0, fi, f);\n")],
     "nostage": _NOSTAGE,
@@ -62,6 +85,8 @@ VARIANTS = {
     "empty": _NOSTAGE + _NOCHAIN,
     "launch": [(_ENTRY, _ENTRY + "  if (a.d > 0) return;\n")],
 }
+# the variants that compute K1's function (the others take work away)
+SAME = ("kernel", "step1", "step2", "S1", "S4", "S8")
 _TAPS = ("#define TAP_CASES(X) X(1) X(3) X(5) X(7) X(9) X(11) X(13) X(15) "
          "X(17) \\\n                     X(19) X(21) X(23) X(25)")
 
@@ -133,37 +158,38 @@ def variant_source(name: str) -> str:
     return src
 
 
+_LIBS = {}          # variant -> its loaded library, built once per process
+
+
 def build(names) -> dict:
-    """Build every variant of ``names`` (one nvcc each, in parallel) and
-    load it: {name: ctypes library}."""
+    """Build every variant of ``names`` not built yet (one nvcc each, in
+    parallel) and load it: {name: ctypes library}."""
     OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in names:
+    for name in (n for n in names if n not in _LIBS):
         (OUT / f"{name}.cu").write_text(variant_source(name))
         procs[name] = subprocess.Popen(
             [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o",
              str(OUT / f"lib{name}.so"), str(OUT / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    libs = {}
     for name, proc in procs.items():
         _, err = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"profile_band: nvcc failed for {name}:\n"
                                f"{err[-4000:]}")
         lib = ctypes.CDLL(str(OUT / f"lib{name}.so"))
-        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.band_taps_launch.argtypes = [
-            vp, i64, i32, vp, i32, i32, vp, vp, vp, vp, vp,
-            i32, i32, i32, i32, i32, i32, vp, vp, vp]
-        lib.band_taps_launch.restype = i32
-        libs[name] = lib
-    return libs
+        lib.band_taps_launch.argtypes = bt.LAUNCH_ARGTYPES
+        lib.band_taps_launch.restype = ctypes.c_int
+        lib.band_taps_ctas_per_window.restype = ctypes.c_int
+        _LIBS[name] = lib
+    return {name: _LIBS[name] for name in names}
 
 
-def launcher(lib, trk, out, ok):
-    """``fn(args)``: launch ``lib``'s cluster kernel on ``args`` as
+def launcher(lib, offsets, smax: int, out, ok):
+    """``fn(args)``: launch ``lib``'s cluster kernel on ``args`` (block,
+    rc, wstart, n, rem, ftot, active) into ``out`` and ``ok`` as
     :func:`gnsslib_tpu_torch.ops.band_taps.launch` does."""
-    offsets = tuple(int(o) for o in trk.offsets)
+    offsets = tuple(int(o) for o in offsets)
     d = bt.progression(offsets)
     dev = out.device
 
@@ -171,14 +197,23 @@ def launcher(lib, trk, out, ok):
         block, rc, wstart, n, rem, ftot, act = a
         err = lib.band_taps_launch(
             block.data_ptr(), block.shape[0], int(block.dim() == 2),
-            rc.data_ptr(), rc.shape[1], rc.shape[1] - 2 * trk.smax,
+            rc.data_ptr(), rc.shape[1], rc.shape[1] - 2 * smax,
             wstart.data_ptr(), n.data_ptr(), rem.data_ptr(), ftot.data_ptr(),
-            act.data_ptr(), len(offsets), trk.smax, d, bt.CLUSTER, 3,
-            rc.shape[0], out.data_ptr(), ok.data_ptr(), stream_of(dev))
+            act.data_ptr(), len(offsets), smax, d, rc.shape[0],
+            out.data_ptr(), ok.data_ptr(), stream_of(dev))
         if err:
             raise RuntimeError(f"profile_band: launch failed (cudaError "
                                f"{err})")
     return fn
+
+
+def tolerance(host, nwin: int) -> float:
+    """1e-5 of the largest window L1 norm of ``host``'s (block, rc,
+    wstart, n): each tap sums n products bounded by |x_i| (|replica| <= 1),
+    and f32 rounding in either summation order stays below that."""
+    block, _, wstart, n = host[:4]
+    return 1e-5 * max([1.0] + [float(np.abs(block[w:w + k]).sum())
+                               for w, k in zip(wstart, np.clip(n, 0, nwin))])
 
 
 def profile(iq: bool = False, rounds: int = 5, log=print) -> dict:
@@ -189,16 +224,26 @@ def profile(iq: bool = False, rounds: int = 5, log=print) -> dict:
     trk, host, args = inputs(dev, iq)
     nbytes = sum(a.numel() * a.element_size() for a in args)
     copies = [[a.clone() for a in args] for _ in range(copies_for(nbytes))]
-    out = torch.empty((args[1].shape[0], 2 * len(trk.offsets)),
-                      dtype=torch.float32, device=dev)
+    zp, _ = bt.band_taps_plain(*args, trk.offsets, trk.smax)
+    out = torch.empty_like(zp)
     ok = torch.ones(1, dtype=torch.int32, device=dev)
+    tol = tolerance(host, trk.nwin)
+    for name in SAME:
+        launcher(libs[name], trk.offsets, trk.smax, out, ok)(args)
+        err = float((out - zp).abs().max())
+        if not (err <= tol and int(ok[0]) == 1):
+            raise AssertionError(f"profile_band: variant {name} vs plain: "
+                                 f"max_abs_err {err} > {tol} or ok flag "
+                                 f"{int(ok[0])}")
     log(f"# {torch.cuda.get_device_name(dev)}: K1 variants built in "
         f"{time.time() - t0:.1f} s; {'iq' if iq else 'real'} input, "
         f"{int(host[6].sum())} of {len(host[6])} windows active, S="
-        f"{bt.CLUSTER}; device ms per launch (CUDA graph, inputs beyond L2)")
+        f"{libs['kernel'].band_taps_ctas_per_window()}; {', '.join(SAME)} "
+        f"match the plain version (tol {tol:.4g}); device ms per launch "
+        f"(CUDA graph, inputs beyond L2)")
     res = {}
     for name, lib in libs.items():
-        fn = launcher(lib, trk, out, ok)
+        fn = launcher(lib, trk.offsets, trk.smax, out, ok)
         res[name] = graph_ms(lambda k: fn(copies[k]), len(copies),
                              rounds=rounds)
         log(f"{name:10s} {res[name]:8.4f} ms  ({res[name] - res['kernel']:+.4f}"

@@ -16,7 +16,7 @@ from gnsslib_tpu_torch.ops import band_taps as bt
 from gnsslib_tpu_torch.ops import gram_taps as gt
 from gnsslib_tpu_torch.ops import window_taps as wt
 from gnsslib_tpu_torch.ops.correlator import tap_offsets
-from gnsslib_tpu_torch.tools import profile_kernel
+from gnsslib_tpu_torch.tools import profile_band, profile_kernel
 from gnsslib_tpu_torch.track import (FastTracker, TrackConfig, Tracker,
                                      state_from_numpy, state_to_numpy)
 
@@ -66,23 +66,15 @@ def _band_inputs(B, iq, seed, dev, smax, nn=16368, nwin=16376):
     return host, [torch.from_numpy(a).to(dev) for a in host]
 
 
-def _band_tol(host, nwin=16376):
-    """1e-5 of the largest window L1 norm: each tap sums n products bounded
-    by |x_i| (|replica| <= 1), and f32 rounding in either summation order
-    (and sincospif vs cos/sin) stays below that."""
-    block, _, wstart, n = host[:4]
-    return 1e-5 * max([1.0] + [float(np.abs(block[w:w + k]).sum())
-                               for w, k in zip(wstart, np.clip(n, 0, nwin))])
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("corrd", [1, 2, 3, 4])
-@pytest.mark.parametrize("iq,corrn", [(False, 6), (True, 6), (False, 0),
-                                      (True, 0), (False, 12), (True, 12)])
+@pytest.mark.parametrize("iq,corrn", [(False, 6), (True, 6), (False, 1),
+                                      (False, 0), (True, 0), (False, 12),
+                                      (True, 12)])
 def test_band_taps_kernel_matches_plain(dev, iq, corrn, corrd):
     """The cluster kernel vs band_taps_plain on the card (both f32; only
     summation order and sincospif-vs-cos/sin rounding differ), at the main
-    path's window length, at tap counts 1, 13 and 25 and tap spacings
+    path's window length, at tap counts 1, 3, 13 and 25 and tap spacings
     1-4."""
     smax = corrn * corrd
     offsets = tap_offsets(corrn, corrd)
@@ -93,7 +85,8 @@ def test_band_taps_kernel_matches_plain(dev, iq, corrn, corrd):
     torch.cuda.synchronize()
     assert (bt.COUNTS.kernel, bt.COUNTS.v1, bt.COUNTS.plain) == (1, 0, 0)
     assert bool(okk) and bool(okp)
-    assert float((zk - zp).abs().max()) <= _band_tol(host)
+    tol = profile_band.tolerance(host, 16376)
+    assert float((zk - zp).abs().max()) <= tol
     assert torch.all(zk[~args[6]] == 0)
 
 
@@ -106,7 +99,7 @@ def test_band_taps_kernel_short_and_ragged_windows(dev, iq):
     smax, nwin = 18, 16376
     host, args = _band_inputs(64, iq, 31 + iq, dev, smax)
     tile = bt.samples_per_thread() * 3              # kJ samples at d = 3
-    seg = -(-(-(-nwin // bt.CLUSTER)) // tile) * tile   # ceil, ceil
+    seg = -(-(-(-nwin // bt.ctas_per_window())) // tile) * tile  # ceils
     n = np.asarray([1, 2, 99, 100, seg - 1, seg, seg + 1, 0, -5, nwin,
                     nwin + 40, 2 * seg + 17, 3 * seg - 1, 5000, 12345, 7],
                    np.int32)
@@ -126,7 +119,7 @@ def test_band_taps_kernel_short_and_ragged_windows(dev, iq):
     torch.cuda.synchronize()
     assert bt.COUNTS.kernel == 1 and bt.COUNTS.v1 == 0
     assert bool(okk) and bool(okp)
-    tol = _band_tol((host[0], None, wstart, n))
+    tol = profile_band.tolerance((host[0], None, wstart, n), nwin)
     assert float((zk - zp).abs().max()) <= tol
     assert torch.all(zk[torch.from_numpy(n <= 0).to(dev)] == 0)
 
@@ -135,7 +128,7 @@ def test_band_taps_kernel_short_and_ragged_windows(dev, iq):
 @pytest.mark.parametrize("offsets", [(0, -1, 2), (0, -2, 2, -4, 5), (3,),
                                      (0, 3, -3)])
 def test_band_taps_non_progression_goes_to_v1(dev, offsets):
-    """Offsets that are not tap_offsets(corrn, d) launch the PR 1 kernel,
+    """Offsets that are not tap_offsets(corrn, d) launch the v1 kernel,
     counted in COUNTS.v1, and match the plain version."""
     smax = 6
     host, args = _band_inputs(64, False, 41, dev, smax)
@@ -145,17 +138,17 @@ def test_band_taps_non_progression_goes_to_v1(dev, offsets):
     torch.cuda.synchronize()
     assert (bt.COUNTS.kernel, bt.COUNTS.v1, bt.COUNTS.plain) == (0, 1, 0)
     assert bool(okk)
-    assert float((zk - zp).abs().max()) <= _band_tol(host)
+    tol = profile_band.tolerance(host, 16376)
+    assert float((zk - zp).abs().max()) <= tol
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("iq", [False, True])
-@pytest.mark.parametrize("variant", ["v1", "step 1", "step 2", "S=1", "S=4",
-                                     "S=8"])
+@pytest.mark.parametrize("variant", ["v1", *profile_band.SAME[1:]])
 def test_band_taps_variants_match_plain(dev, iq, variant):
-    """The PR 1 kernel, the cluster kernel's build steps 1-2 and its other
-    cluster sizes, as chip_smoke.py times them, against the plain version
-    at the main path's shapes (13 taps)."""
+    """The v1 kernel, and the cluster kernel's build steps 1-2 and other
+    cluster sizes as tools/profile_band.py builds and times them, against
+    the plain version at the main path's shapes (13 taps)."""
     smax = 18
     offsets = tap_offsets(6, 3)
     host, args = _band_inputs(320, iq, 51 + iq, dev, smax)
@@ -164,13 +157,13 @@ def test_band_taps_variants_match_plain(dev, iq, variant):
     ok = torch.ones(1, dtype=torch.int32, device=dev)
     if variant == "v1":
         bt.launch_v1(*args, offsets, smax, out, ok)
-    elif variant.startswith("step"):
-        bt.launch(*args, offsets, smax, out, ok, step=int(variant[-1]))
-    else:
-        bt.launch(*args, offsets, smax, out, ok, cluster=int(variant[2:]))
+    else:      # one nvcc per variant, all in parallel on the first call
+        lib = profile_band.build(profile_band.SAME)[variant]
+        profile_band.launcher(lib, offsets, smax, out, ok)(args)
     torch.cuda.synchronize()
     assert int(ok[0]) == 1
-    assert float((out - zp).abs().max()) <= _band_tol(host)
+    tol = profile_band.tolerance(host, 16376)
+    assert float((out - zp).abs().max()) <= tol
 
 
 @pytest.mark.cuda
