@@ -20,20 +20,27 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    runs as the cluster kernel and as the v1 kernel, each checked
    for bit-identical repeat launches and timed warm and cold (beyond L2)
    by launches replayed from a CUDA graph, and cold by eager launches;
+   K2-K5 are timed cold by graph replay and by eager launches;
 4. synthesize both captures in one process pool: the slice's (4 visible
    GPS L1CA PRNs with LNAV bit streams) and the positioning run's (7
    satellites above 15 degrees for a known receiver position, one dark
    in [26, 28) s), 16.368 Msps real int8 at a 4.092 MHz IF;
-5. FastTracker.run_block on the card vs on the CPU from one state, with
-   the band, pallas (K3) and fused (K2) correlator backends;
+5. the block programs (CUDA graphs of a tracking block) replayed against
+   the eager loop, bit for bit, for pull-in and the band, pallas, fused
+   and xla backends; FastTracker.run_block on the card vs on the CPU from
+   one state, with the band, pallas (K3) and fused (K2) backends;
 6. the slice: ``Receiver.run_seconds`` from INI files with 32 L1CA
-   channels, checked for acquisition, bit sync, TOW decode, the steady
-   state through the band kernel, and RINEX pseudoranges against the
-   truth;
-7. steady-state throughput at bench.py's workload (a record, not a
-   benchmark);
+   channels, its pull-in and steady blocks replayed from the graphs
+   captured when the receiver was built, checked for acquisition, bit
+   sync, TOW decode, the steady state through the band kernel (every K1
+   launch counted through the replays), and RINEX pseudoranges against
+   the truth;
+7. steady-state throughput at bench.py's workload, replayed and eager in
+   turns (a record, not a benchmark);
 8. the correlator profiler (``gnsslib_tpu_torch.tools.profile_fast``) at
-   full width: every backend and probe, launching K1-K5;
+   full width: every backend eager and replayed (as one block graph and as
+   a one-super-step graph) and every probe, launching K1-K5, then a short
+   duel of the same rows;
 9. the kernel profiler (``gnsslib_tpu_torch.tools.profile_kernel``): K6's
    four variants per launch, and 100 chained launches eager and replayed
    from one CUDA graph;
@@ -44,8 +51,11 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    client, track logs; then ``--checkpoint`` at 14 s and ``--resume`` on
    the CLI against an uninterrupted run.
 
-The last two lines are a JSON object describing the kernels and the
-``{"ok": true, "device": {...}}`` line.  This script imports no JAX.
+Phases 5-10 each print the graph captures they made (count, seconds
+recording and instantiating, pool memory), and a line before the kernels
+line totals them.  The last two lines are a JSON object describing the
+kernels and the ``{"ok": true, "device": {...}}`` line.  This script
+imports no JAX.
 """
 import json
 import os
@@ -340,6 +350,7 @@ def phase_window_kernels(dev, iq: bool) -> dict:
     import torch
     from gnsslib_tpu_torch.constants import CodeType, DType
     from gnsslib_tpu_torch.ops import window_taps as wt
+    from gnsslib_tpu_torch.tools.profile_band import graph_ms
     from gnsslib_tpu_torch.track import TrackConfig, Tracker
     trk = Tracker(TrackConfig(6, 3, 6), [1], [CodeType.L1CA], F_SF, F_IF,
                   DType.IQ if iq else DType.REAL, device=dev)
@@ -379,19 +390,24 @@ def phase_window_kernels(dev, iq: bool) -> dict:
         bms, by = bound(nbytes, flops)
         copies = [[a.clone() for a in args]
                   for _ in range(copies_for(nbytes))]
-        ms = cold_ms(lambda c: wt.launch(k, *copies[c], trk.offsets, smax,
-                                         out), len(copies))
+
+        def on_copy(c):
+            wt.launch(k, *copies[c], trk.offsets, smax, out)
+        ms = graph_ms(on_copy, len(copies))
+        eager_ms = cold_ms(on_copy, len(copies))
         call_ms = cuda_ms(lambda: fn(*args, trk.offsets, smax), 50)
         plain_ms = cuda_ms(lambda: wt.window_taps_plain(
             *args, trk.offsets, smax), 5)
         log(f"[3] {name} {kind:4s} B={B} nwin={trk.nwin} next={trk.next} "
             f"taps={T}: max_abs_err {err:.4g} (tol {tol:.4g}, max|taps| "
-            f"{float(zp.abs().max()):.4g}); kernel {ms:.4f} ms/launch "
-            f"(inputs rotated over {len(copies)} copies), wrapper call "
-            f"{call_ms:.4f} ms, plain {plain_ms:.4f} ms; bound {bms:.4f} ms "
-            f"by {by} ({nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP)")
-        res[name] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                         bound_by=by)
+            f"{float(zp.abs().max()):.4g}); kernel {ms:.4f} ms/launch by "
+            f"graph replay, eager {eager_ms:.4f} ms (inputs rotated over "
+            f"{len(copies)} copies), wrapper call {call_ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms; bound {bms:.4f} ms by {by} "
+            f"({nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP)")
+        res[name] = dict(err=err, ms=ms, eager_ms=eager_ms,
+                         plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                         timing="graph_replay")
     return res
 
 
@@ -401,6 +417,7 @@ def phase_gram_kernel(dev, iq: bool) -> dict:
     import torch
     from gnsslib_tpu_torch.constants import CodeType, DType
     from gnsslib_tpu_torch.ops import gram_taps as gt
+    from gnsslib_tpu_torch.tools.profile_band import graph_ms
     from gnsslib_tpu_torch.track import FastTracker, TrackConfig, Tracker
     trk = Tracker(TrackConfig(6, 3, 6), [1], [CodeType.L1CA], F_SF, F_IF,
                   DType.IQ if iq else DType.REAL, device=dev)
@@ -432,18 +449,23 @@ def phase_gram_kernel(dev, iq: bool) -> dict:
     bms, by = bound(nbytes, flops)
     copies = [[None if a is None else a.clone() for a in args]
               for _ in range(copies_for(nbytes))]
-    ms = cold_ms(lambda c: gt.launch(*copies[c], trk.offsets, smax, out),
-                 len(copies))
+
+    def on_copy(c):
+        gt.launch(*copies[c], trk.offsets, smax, out)
+    ms = graph_ms(on_copy, len(copies))
+    eager_ms = cold_ms(on_copy, len(copies))
     call_ms = cuda_ms(lambda: gt.gram_taps(*args, trk.offsets, smax), 50)
     plain_ms = cuda_ms(lambda: gt.gram_taps_plain(*args, trk.offsets, smax),
                        5)
     log(f"[3] gram_taps {kind:4s} B={B} rows={K}x128 next={trk.next} "
         f"taps={T}: max_abs_err {err:.4g} (tol {tol:.4g}, max|taps| "
-        f"{float(zp.abs().max()):.4g}); kernel {ms:.4f} ms/launch (inputs "
-        f"rotated over {len(copies)} copies), wrapper call {call_ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms; bound {bms:.4f} ms by {by} "
+        f"{float(zp.abs().max()):.4g}); kernel {ms:.4f} ms/launch by graph "
+        f"replay, eager {eager_ms:.4f} ms (inputs rotated over "
+        f"{len(copies)} copies), wrapper call {call_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms; bound {bms:.4f} ms by {by} "
         f"({nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP)")
-    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+    return dict(err=err, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, timing="graph_replay")
 
 
 def phase_ablation_kernel(dev) -> dict:
@@ -524,9 +546,50 @@ def phase_synth(paths: dict) -> float:
     return dt
 
 
+def _bit_identical(a, b) -> bool:
+    """Two (state, (packf, packi)) blocks equal bit for bit."""
+    import torch
+
+    def same(x, y):
+        if x.dtype.is_floating_point:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        return torch.equal(x, y)
+    (sa, ha), (sb, hb) = a, b
+    return (all(same(getattr(sa, k), getattr(sb, k))
+                for k in sa.__dataclass_fields__)
+            and all(same(x, y) for x, y in zip(ha, hb)))
+
+
+def _replay_vs_eager(tag: str, eng, st, block, nsteps: int) -> None:
+    """One block of ``eng`` replayed from its program's graph against the
+    eager loop from the same state: bit-identical, or raise."""
+    import torch
+    prog = eng.program(nsteps, block.shape)
+    if prog.graph is None and block.device.type == "cuda":
+        raise AssertionError(f"{tag}: no CUDA graph captured on the card")
+    sync = torch.cuda.synchronize if block.is_cuda else (lambda: None)
+    t0 = time.time()
+    got = eng.run_block_start(st, block, nsteps)
+    sync()
+    t1 = time.time()
+    ref = eng.run_block_eager(st, block, nsteps)
+    sync()
+    t2 = time.time()
+    same = _bit_identical(got, ref)
+    log(f"[5] {tag} {nsteps} steps: replayed {t1 - t0:.3f} s, eager "
+        f"{t2 - t1:.3f} s wall; captured in {prog.capture_s:.3f} s + "
+        f"instantiated in {prog.instantiate_s:.3f} s, pool "
+        f"{prog.pool_bytes / 1e6:.1f} MB; replay vs eager bit-identical: "
+        f"{'yes' if same else 'NO'}")
+    if not same:
+        raise AssertionError(f"{tag}: replay differs from the eager loop")
+
+
 def phase_fast_vs_cpu(dev, path: str):
-    """FastTracker on the card vs on the CPU (plain correlator) from one
-    state: 4 locked + 4 idle channels after a 1000-period pull-in."""
+    """The block programs replayed against the eager loop on the card (pull-
+    in, and every backend from a synced state), then FastTracker on the
+    card vs on the CPU (plain correlator) from one state: 4 locked + 4
+    idle channels after a 1000-period pull-in."""
     import torch
     from gnsslib_tpu_torch.constants import CodeType, DType
     from gnsslib_tpu_torch.track import (FastTracker, TrackConfig, Tracker,
@@ -543,9 +606,14 @@ def phase_fast_vs_cpu(dev, path: str):
     st = t.start_channels(t.init_state(), [0, 1, 2, 3],
                           [TRUTH[p][0] for p in TRUTH],
                           [-TRUTH[p][1] for p in TRUTH])
-    st, _ = t.run_block(st, blocks[dev], 1000)
+    _replay_vs_eager("pull-in", t, st, blocks[dev], 200)
+    st, _ = t.run_block_eager(st, blocks[dev], 1000)
     for c in range(4):
         st = t.set_bit_sync(st, c, 0)
+    for corr in ("band", "pallas", "fused", "xla"):
+        f = FastTracker(t)
+        f.corr = corr
+        _replay_vs_eager(corr, f, st, blocks[dev], 300)
     snap = state_to_numpy(st)
     # the fetch backends run half as many steps: their CPU side costs
     # ~15-18 s per 600 steps of the script's time
@@ -645,6 +713,28 @@ RINEXPATH={WORK}/{name}/rinex
     return ini
 
 
+def _receiver_programs(tag: str, rx, launches: int) -> None:
+    """Check that ``rx``'s blocks ran as replays of the graphs it captured
+    when it was built: one program per engine, both replayed, no capture
+    during the run, and every K1 launch counted through the replays."""
+    progs = {"pull-in": list(rx.trk.programs.values()),
+             "steady": list(rx.fast.programs.values())}
+    if any(len(p) != 1 or p[0].graph is None for p in progs.values()):
+        raise AssertionError(f"{tag}: block programs {progs}")
+    counted = sum(p.replays * p.launches.get("band_taps", {}).get(
+        "kernel", 0) for ps in progs.values() for p in ps)
+    log(f"[{tag}] block programs: " + "; ".join(
+        f"{k} {p[0].count} steps, captured in {p[0].capture_s:.3f} s + "
+        f"instantiated in {p[0].instantiate_s:.3f} s, pool "
+        f"{p[0].pool_bytes / 1e6:.1f} MB, {p[0].replays} replays of "
+        f"{p[0].launches or 'no kernel launches'}"
+        for k, p in progs.items())
+        + f"; band_taps launches counted through the replays {counted}")
+    if min(p[0].replays for p in progs.values()) <= 0 or counted != launches:
+        raise AssertionError(f"{tag}: replays or launches: counted "
+                             f"{counted}, COUNTS {launches}")
+
+
 def phase_slice(dev, capture: str) -> int:
     """The receiver's main path from an INI file; returns the kernel's
     launch count during the run."""
@@ -655,11 +745,16 @@ def phase_slice(dev, capture: str) -> int:
     from gnsslib_tpu_torch.ops import band_taps as bt
     from gnsslib_tpu_torch.runtime.config import load_ini
     from gnsslib_tpu_torch.runtime.receiver import Receiver
+    from gnsslib_tpu_torch.track.program import CAPTURES
 
     shutil.rmtree(os.path.join(WORK, "rx"), ignore_errors=True)
     cfg = load_ini(_write_ini(capture))
     fe = FileFrontend(cfg.files[0], cfg.fends[0])
+    t0 = time.time()
     rx = Receiver(cfg, fe, device=dev, nsteps_per_block=400)
+    log(f"[6] receiver built in {time.time() - t0:.2f} s (with its block "
+        f"programs' warm-ups and captures)")
+    captures = CAPTURES.captures
     bt.COUNTS.reset()
     t0 = time.time()
     stats = rx.run_seconds()
@@ -667,6 +762,11 @@ def phase_slice(dev, capture: str) -> int:
     fe.close()
     launches, v1, plain = bt.COUNTS.kernel, bt.COUNTS.v1, bt.COUNTS.plain
     wall = time.time() - t0
+    if dev.type == "cuda":
+        _receiver_programs("6", rx, launches)
+    if CAPTURES.captures != captures:
+        raise AssertionError(f"{CAPTURES.captures - captures} captures "
+                             "during the run")
     sw = stats["stage_wall"]
     tl = rx.timeline
     log(f"[6] slice: {stats['seconds']:.1f} s of stream in {wall:.1f} s; "
@@ -732,9 +832,12 @@ def phase_slice(dev, capture: str) -> int:
     return launches
 
 
-def phase_throughput(dev) -> float:
+def phase_throughput(dev) -> dict:
     """bench.py's workload on the port: 32 channels, 2000-step blocks,
-    noise block, a pending-subset search each block, depth-2 pipelining."""
+    noise block, a pending-subset search each block, depth-2 pipelining;
+    the blocks replayed from the steady program's graph and, in turns in
+    the same run, through the eager loop.  Returns the best Msamples/s of
+    each."""
     import torch
     from collections import deque
     from gnsslib_tpu_torch.constants import CodeType, DType
@@ -763,42 +866,57 @@ def phase_throughput(dev) -> float:
             st = trk.set_bit_sync(st, c, c % 10)
         return st
 
-    st = start()
-    st, _ = fast.run_block(st, block, nsteps)              # warm-up
+    t0 = time.time()
+    prog = fast.program(nsteps, block.shape)
+    log(f"[7] steady program of {prog.count} super-steps built in "
+        f"{time.time() - t0:.2f} s (capture {prog.capture_s:.3f} s, "
+        f"instantiate {prog.instantiate_s:.3f} s, pool "
+        f"{prog.pool_bytes / 1e6:.1f} MB)")
+    runs = {"replayed": fast.run_block_start, "eager": fast.run_block_eager}
+    for run in runs.values():                                # warm-up
+        run(start(), block, nsteps)
     acq.search_dev(block, idx=pending)
-    best = None
-    for _ in range(passes):
-        st = start()
-        torch.cuda.synchronize()
-        t0 = time.time()
-        pend = deque()
-        for _b in range(blocks):
-            ah = acq.search_dev_start(block, idx=pending)
-            st, h = fast.run_block_start(st, block, nsteps)
-            pend.append((h, ah))
-            if len(pend) > 2:
+    best = {}
+    for p in range(passes):
+        for mode in (("replayed", "eager") if p % 2 == 0
+                     else ("eager", "replayed")):
+            run = runs[mode]
+            st = start()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            pend = deque()
+            for _b in range(blocks):
+                ah = acq.search_dev_start(block, idx=pending)
+                st, h = run(st, block, nsteps)
+                pend.append((h, ah))
+                if len(pend) > 2:
+                    h, a = pend.popleft()
+                    fast.run_block_collect(h)
+                    acq.search_dev_collect(a)
+            while pend:
                 h, a = pend.popleft()
                 fast.run_block_collect(h)
                 acq.search_dev_collect(a)
-        while pend:
-            h, a = pend.popleft()
-            fast.run_block_collect(h)
-            acq.search_dev_collect(a)
-        wall = (time.time() - t0) / blocks
-        msps = nsteps * nsamp / 1e6 / wall
-        best = msps if best is None else max(best, msps)
-        log(f"[7] pass: {wall * 1e3:.1f} ms per 2000-step block -> "
-            f"{msps:.1f} Msamples/s")
+            wall = (time.time() - t0) / blocks
+            msps = nsteps * nsamp / 1e6 / wall
+            best[mode] = max(best.get(mode, 0.0), msps)
+            log(f"[7] pass {p + 1} {mode:8s}: {wall * 1e3:.1f} ms per "
+                f"2000-step block -> {msps:.1f} Msamples/s")
     log(f"[7] steady-state throughput, bench.py workload (32 ch, 2000-step "
-        f"blocks, subset search per block, depth 2): best {best:.1f} "
-        f"Msamples/s = {best / (F_SF / 1e6):.2f}x real time")
+        f"blocks, subset search per block, depth 2), best of {passes} "
+        f"passes: replayed {best['replayed']:.1f} Msamples/s = "
+        f"{best['replayed'] / (F_SF / 1e6):.2f}x real time, eager "
+        f"{best['eager']:.1f} Msamples/s = "
+        f"{best['eager'] / (F_SF / 1e6):.2f}x ({card_line()})")
     return best
 
 
 def phase_profiler(dev) -> dict:
     """The correlator profiler at full width (32 channels, 50 super-steps
-    per run): every backend and probe, so K1-K5 all launch; returns each
-    kernel's launch count over the run."""
+    per run): every backend eager and replayed and every probe, so K1-K5
+    all launch, then 3 rounds of its duel (each backend eager, as a block
+    graph and as a one-super-step graph, in turns); returns each kernel's
+    launch count over the run."""
     from gnsslib_tpu_torch.ops import band_taps, gram_taps, window_taps
     from gnsslib_tpu_torch.tools import profile_fast
     counts = {"band_taps": band_taps.COUNTS, "gram_taps": gram_taps.COUNTS,
@@ -810,10 +928,13 @@ def phase_profiler(dev) -> dict:
     t0 = time.time()
     res = profile_fast.profile(dev, steps=50, channels=32,
                                log=lambda m: log(f"[8] {m}"))
+    t1 = time.time()
+    profile_fast.duel(dev, rounds=3, steps=50, channels=32,
+                      log=lambda m: log(f"[8] {m}"))
     launches = {k: c.kernel for k, c in counts.items()}
     plain = {k: c.plain for k, c in counts.items()}
-    log(f"[8] profiler {time.time() - t0:.1f} s; launches {launches}, "
-        f"plain calls {plain}")
+    log(f"[8] profiler {t1 - t0:.1f} s, duel {time.time() - t1:.1f} s "
+        f"({card_line()}); launches {launches}, plain calls {plain}")
     for tag, rec in res.items():
         t = [rec["wall_ms"], rec["event_ms"]]
         if not all(np.isfinite(v) and v > 0 for v in t):
@@ -894,6 +1015,7 @@ def phase_positioning(dev, capture: str, prns=range(1, 33)) -> int:
     from gnsslib_tpu_torch.runtime import cli
     from gnsslib_tpu_torch.runtime.config import load_ini
     from gnsslib_tpu_torch.runtime.receiver import Receiver
+    from gnsslib_tpu_torch.track.program import CAPTURES
 
     geo, _ = pos_geometry()
     visible = sorted(g["prn"] for g in geo)
@@ -917,6 +1039,7 @@ def phase_positioning(dev, capture: str, prns=range(1, 33)) -> int:
         time.sleep(0.01)
     if srv.nclients != 1:
         raise AssertionError("RTCM client not accepted")
+    captures = CAPTURES.captures
     bt.COUNTS.reset()
     t0 = time.time()
     stats = rx.run_seconds()
@@ -924,6 +1047,11 @@ def phase_positioning(dev, capture: str, prns=range(1, 33)) -> int:
     fe.close()
     launches, v1, plain = bt.COUNTS.kernel, bt.COUNTS.v1, bt.COUNTS.plain
     wall = time.time() - t0
+    if dev.type == "cuda":
+        _receiver_programs("10", rx, launches)
+        if CAPTURES.captures != captures:
+            raise AssertionError(f"{CAPTURES.captures - captures} captures "
+                                 "during the run")
     client.settimeout(5.0)
     buf = b""
     while True:
@@ -1035,6 +1163,19 @@ def phase_positioning(dev, capture: str, prns=range(1, 33)) -> int:
     return launches
 
 
+def with_graphs(tag: str, phase, *args):
+    """Run ``phase(*args)`` and log the block-program captures it made."""
+    from gnsslib_tpu_torch.track.program import CAPTURES
+    n, rec, inst, pool = (CAPTURES.captures, CAPTURES.capture_s,
+                          CAPTURES.instantiate_s, CAPTURES.pool_bytes)
+    out = phase(*args)
+    log(f"[{tag}] graphs: {CAPTURES.captures - n} block-program captures, "
+        f"{CAPTURES.capture_s - rec:.2f} s recording, "
+        f"{CAPTURES.instantiate_s - inst:.2f} s instantiating, pools "
+        f"{(CAPTURES.pool_bytes - pool) / 1e6:.1f} MB")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1044,6 +1185,7 @@ def main() -> int:
     import gnsslib_tpu_torch  # noqa: F401  (fails outside a checkout)
     from gnsslib_tpu_torch import cuda_build
     from gnsslib_tpu_torch.ops import band_taps as bt
+    from gnsslib_tpu_torch.track.program import CAPTURES
 
     t_all = time.time()
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 products stay f32
@@ -1100,13 +1242,19 @@ def main() -> int:
     capture = os.path.join(WORK, "capture_l1ca_int8.bin")
     capture_pos = os.path.join(WORK, "capture_pos_int8.bin")
     phase_synth({"slice": capture, "pos": capture_pos})
-    phase_fast_vs_cpu(dev, capture)
-    launches = {"band_taps": phase_slice(dev, capture)}
-    phase_throughput(dev)
-    prof = phase_profiler(dev)
+    CAPTURES.reset()
+    with_graphs("5", phase_fast_vs_cpu, dev, capture)
+    launches = {"band_taps": with_graphs("6", phase_slice, dev, capture)}
+    with_graphs("7", phase_throughput, dev)
+    prof = with_graphs("8", phase_profiler, dev)
     launches.update({n: prof[n] for n in prof if n != "band_taps"})
     launches["ablation_taps"] = phase_kernel_profiler(dev)["launches"]
-    phase_positioning(dev, capture_pos)
+    with_graphs("10", phase_positioning, dev, capture_pos)
+    log(f"[graphs] phases 5-10: {CAPTURES.captures} block-program captures "
+        f"(the CLI runs' included), {CAPTURES.capture_s:.2f} s recording, "
+        f"{CAPTURES.instantiate_s:.2f} s instantiating, pools "
+        f"{CAPTURES.pool_bytes / 1e6:.1f} MB reserved in all; device memory "
+        f"peak {torch.cuda.max_memory_reserved() / 1e9:.2f} GB reserved")
     log(f"total {time.time() - t_all:.1f} s")
 
     log(card_line())
@@ -1136,8 +1284,10 @@ def main() -> int:
             # how "ms" was timed: launches replayed from a CUDA graph, or
             # eager back-to-back launches between CUDA events
             "timing": real.get("timing", "eager")})
-        if name == "band_taps":   # its eager time, the same run's v1 kernel
-            rows[-1].update(eager_ms=real["eager_ms"], v1_ms=real["v1_ms"])
+        if "eager_ms" in real:    # the same launches' eager time
+            rows[-1]["eager_ms"] = real["eager_ms"]
+        if name == "band_taps":   # the same run's v1 kernel
+            rows[-1]["v1_ms"] = real["v1_ms"]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,9 @@ package so each counterpart is easy to find:
                  ``ops.gram_taps``; sources in ``csrc/``).
 * ``track``    — per-period ``Tracker`` (pull-in) and the steady-state
                  ``FastTracker`` (L periods per super-step, correlator
-                 backend chosen by ``FastTracker.corr``).
+                 backend chosen by ``FastTracker.corr``); each block runs
+                 as one ``track.program.BlockProgram``, a CUDA graph
+                 replayed per block on a card.
 * ``acquire``  — batched FFT acquisition search.
 * ``io``       — the file front end and the device-resident sample cache.
 * ``runtime``  — configuration, the file-replay ``Receiver`` and the CLI.

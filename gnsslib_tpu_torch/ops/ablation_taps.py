@@ -34,7 +34,7 @@ from .kernels import (LaunchCounts, bind, check_offsets, check_tensors,
 from .nco import frac
 
 VARIANTS = ("full", "nosin", "onetap", "aligned")   # kernel variant codes 0-3
-COUNTS = {v: LaunchCounts() for v in VARIANTS}
+COUNTS = {v: LaunchCounts(f"ablation_taps[{v}]") for v in VARIANTS}
 ALIGN = 128                     # the aligned variant's tap stride (samples)
 
 

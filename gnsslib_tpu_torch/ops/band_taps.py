@@ -40,16 +40,12 @@ class BandCounts(LaunchCounts):
     """K1's counters: cluster-kernel launches (``kernel``), v1 kernel
     launches (``v1``) and CPU calls of the plain version (``plain``)."""
 
-    def __init__(self) -> None:
-        super().__init__()
-        self.v1 = 0
-
     def reset(self) -> None:
         super().reset()
         self.v1 = 0
 
 
-COUNTS = BandCounts()
+COUNTS = BandCounts("band_taps")
 
 
 @functools.lru_cache(maxsize=64)

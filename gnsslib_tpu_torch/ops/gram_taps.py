@@ -33,7 +33,7 @@ from .kernels import (LaunchCounts, bind, check_offsets, check_tensors,
                       device_offsets, raise_on, route, stream_of)
 from .nco import frac
 
-COUNTS = LaunchCounts()
+COUNTS = LaunchCounts("gram_taps")
 LANES = 128                  # samples per window row
 
 

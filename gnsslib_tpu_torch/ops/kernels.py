@@ -17,15 +17,60 @@ MAX_TAPS = 25      # templated tap counts 1, 3, ..., 25 in every csrc/*.cu
 
 class LaunchCounts:
     """Plain-int counters of one wrapper: kernel launches it made, and the
-    CPU tensors it handed to the plain version."""
+    CPU tensors it handed to the plain version.  Every instance is listed
+    in :data:`REGISTRY` under its ``name``, so that a program captured in
+    a CUDA graph can count each replay's launches (:func:`snapshot`,
+    :func:`restore`, :func:`add`)."""
 
-    def __init__(self) -> None:
-        self.kernel = 0
-        self.plain = 0
+    def __init__(self, name: str) -> None:
+        if name in REGISTRY:
+            raise ValueError(f"launch counter {name!r} exists")
+        self.name = name
+        self.reset()
+        REGISTRY[name] = self
 
     def reset(self) -> None:
         self.kernel = 0
         self.plain = 0
+
+    def values(self) -> dict:
+        """The counters by attribute (``kernel``, ``plain``, ...)."""
+        return {k: v for k, v in vars(self).items() if k != "name"}
+
+
+REGISTRY: dict[str, LaunchCounts] = {}
+
+
+def snapshot() -> dict:
+    """Every wrapper's counters: {name: {attribute: count}}."""
+    return {name: c.values() for name, c in REGISTRY.items()}
+
+
+def since(before: dict) -> dict:
+    """The counts added since ``before`` (a :func:`snapshot`), nonzero
+    ones only: {name: {attribute: added}}."""
+    out = {}
+    for name, now in snapshot().items():
+        d = {k: v - before.get(name, {}).get(k, 0) for k, v in now.items()}
+        d = {k: v for k, v in d.items() if v}
+        if d:
+            out[name] = d
+    return out
+
+
+def restore(before: dict) -> None:
+    """Set every counter back to a :func:`snapshot`."""
+    for name, vals in before.items():
+        for k, v in vals.items():
+            setattr(REGISTRY[name], k, v)
+
+
+def add(added: dict) -> None:
+    """Add counts of the form :func:`since` returns."""
+    for name, vals in added.items():
+        c = REGISTRY[name]
+        for k, v in vals.items():
+            setattr(c, k, getattr(c, k) + v)
 
 
 def check_offsets(op: str, offsets, smax: int) -> tuple:

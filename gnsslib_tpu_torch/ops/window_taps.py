@@ -32,9 +32,9 @@ from .kernels import (LaunchCounts, bind, check_offsets, check_tensors,
                       device_offsets, raise_on, route, stream_of)
 from .nco import frac
 
-COUNTS5 = LaunchCounts()      # correlate_windows (K5)
-COUNTS8 = LaunchCounts()      # correlate_windows8 (K4)
-COUNTS16 = LaunchCounts()     # correlate_windows16 (K3)
+COUNTS5 = LaunchCounts("correlate_windows")        # K5
+COUNTS8 = LaunchCounts("correlate_windows8")       # K4
+COUNTS16 = LaunchCounts("correlate_windows16")     # K3
 
 _F32, _BF16 = 0, 1            # the kernel kinds of window_taps_launch
 

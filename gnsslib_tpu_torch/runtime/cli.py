@@ -6,14 +6,19 @@ Usage:
         [--checkpoint PATH] [--resume PATH]
 
 ``--device cuda`` (the default) requires a CUDA card and never falls back
-to the CPU.  Options of the JAX package's CLI that the port does not carry
+to the CPU.  SIGINT, SIGTERM and 'q' on a terminal stop the run at the
+next block boundary: the blocks in flight are collected, RINEX closes
+complete and ``--checkpoint`` is still written; a second signal forces the
+exit.  Options of the JAX package's CLI that the port does not carry
 yet raise ``NotImplementedError`` naming the option.
 """
 from __future__ import annotations
 
 import argparse
 import math
+import signal
 import sys
+import threading
 
 import torch
 
@@ -25,6 +30,66 @@ from .receiver import Receiver
 # flags of `python -m gnsslib_tpu` that the port does not carry yet
 UNPORTED_FLAGS = ("--devices", "--ftype", "--spec", "--watch",
                   "--watch-html", "--profile")
+
+
+def _install_stop_handlers(rx, quiet: bool):
+    """Graceful interruption (the reference's keythread 'q' -> stopflag
+    -> quitsdr teardown, src/sdrmain.c:59-80,190-218): SIGINT/SIGTERM —
+    and 'q' on a tty — ask ``rx`` to stop at the next block boundary, so
+    the blocks in flight flush and the RINEX/pos writers close complete.
+    A second signal raises ``KeyboardInterrupt`` (a forced exit).  Returns
+    a function that puts back the previous handlers and terminal mode."""
+    seen = []
+
+    def _handler(signum, frame):
+        if seen:
+            raise KeyboardInterrupt
+        seen.append(signum)
+        if not quiet:
+            print("\nstopping: flushing the blocks in flight and closing "
+                  "outputs (signal again to force quit)", file=sys.stderr)
+        rx.request_stop()
+
+    previous = {}
+    for s in (signal.SIGINT, signal.SIGTERM):
+        try:
+            previous[s] = signal.signal(s, _handler)
+        except ValueError:                 # not the main thread
+            break
+    term = None                            # (fd, saved tty attributes)
+    if previous and sys.stdin is not None and sys.stdin.isatty():
+        # cbreak delivers 'q' at once (a canonical-mode tty would buffer it
+        # until Enter); set and restored from the main thread, since the
+        # reader may stay blocked in read() after the run
+        import termios
+        import tty
+        fd = sys.stdin.fileno()
+        try:
+            term = (fd, termios.tcgetattr(fd))
+            tty.setcbreak(fd)
+        except termios.error:
+            pass
+
+        def _keys():
+            while not rx.stop_requested:
+                try:
+                    c = sys.stdin.read(1)
+                except (OSError, ValueError):
+                    return
+                if not c:
+                    return                  # stdin EOF
+                if c.lower() == "q":
+                    rx.request_stop()
+                    return
+        threading.Thread(target=_keys, daemon=True).start()
+
+    def restore():
+        if term is not None:
+            import termios
+            termios.tcsetattr(term[0], termios.TCSADRAIN, term[1])
+        for s, h in previous.items():
+            signal.signal(s, h)
+    return restore
 
 
 def main(argv=None) -> int:
@@ -78,11 +143,6 @@ def main(argv=None) -> int:
     if args.resume:
         rx.load_checkpoint(args.resume)
     spec = fe.spec
-    if not args.quiet:
-        print(f"gnsslib_tpu_torch: {len(rx.channels)} channels on "
-              f"{device}, f_sf={spec.f_sf/1e6:.3f} MHz, "
-              f"f_if={spec.f_if/1e6:.3f} MHz, "
-              f"{fe.nsamples/spec.f_sf:.1f} s of IF data")
 
     def progress(t):
         if not args.quiet:
@@ -91,11 +151,18 @@ def main(argv=None) -> int:
             print(f"\r  t={t:7.1f}s locked={locked} decoded={dec} "
                   f"epochs={rx.epochs_written}", end="", flush=True)
 
+    restore = _install_stop_handlers(rx, args.quiet)
     try:
+        if not args.quiet:
+            print(f"gnsslib_tpu_torch: {len(rx.channels)} channels on "
+                  f"{device}, f_sf={spec.f_sf/1e6:.3f} MHz, "
+                  f"f_if={spec.f_if/1e6:.3f} MHz, "
+                  f"{fe.nsamples/spec.f_sf:.1f} s of IF data", flush=True)
         stats = rx.run_seconds(args.seconds, progress=progress)
         if args.checkpoint:
             rx.save_checkpoint(args.checkpoint)
     finally:
+        restore()
         rx.close()
         fe.close()
     if not args.quiet:

@@ -10,11 +10,14 @@ For each block of IF samples:
     nav framers         (host, per channel)
     observable history + epoch alignment + RINEX output
 
-Tracking blocks and searches are queued on the device ``PIPELINE_DEPTH``
-blocks deep (the JAX receiver's defaults: pipelined acquisition, pull-in
-and steady state); a block's telemetry is copied to the host (``.cpu()``)
-only after later blocks have been queued, so the copy and the host nav
-work overlap device compute.  A search's decision therefore starts a
+Each tracking block is one program (:mod:`..track.program`): on a card a
+CUDA graph of the pull-in or steady-state loop, captured when the receiver
+is built (the counterpart of the JAX receiver's ``_precompile``) and
+replayed per block.  Tracking blocks and searches are queued on the
+device ``PIPELINE_DEPTH`` blocks deep (the JAX receiver's defaults:
+pipelined acquisition, pull-in and steady state); a block's telemetry is
+copied to the host (``.cpu()``) only after later blocks have been queued,
+so the copy and the host nav work overlap device compute.  A search's decision therefore starts a
 channel two blocks after its searched block, with the code phase
 propagated along the acquired code-Doppler trajectory.
 
@@ -289,6 +292,20 @@ class Receiver:
         # locked), "pullin" (per-period scan), "steady" (FastTracker)
         self.timeline = {"t0": time.time()}
         self.stage_wall = {"acquire": 0.0, "pullin": 0.0, "steady": 0.0}
+        # cooperative stop (the reference's keythread 'q' -> stopflag,
+        # src/sdrmain.c:59-80): run_seconds ends at the next block boundary
+        self.stop_requested = False
+        self._precompile()
+
+    def _precompile(self) -> None:
+        """Build the pull-in block program and, when ``nsteps`` is a
+        multiple of the steady loop interval, the steady one, at this
+        receiver's block length: on a card one eager warm-up and one CUDA
+        graph capture each, here and never per block."""
+        shape = (self.block_len,)
+        self.trk.program(self.nsteps, shape)
+        if self.nsteps % self.fast.L == 0:
+            self.fast.program(self.nsteps, shape)
 
     def _mark(self, name: str) -> None:
         if name not in self.timeline:
@@ -665,14 +682,20 @@ class Receiver:
             stage_wall=dict(self.stage_wall),
         )
 
+    def request_stop(self) -> None:
+        """Ask the run loop to stop at the next block boundary (signal /
+        'q'-key safe: just sets a flag)."""
+        self.stop_requested = True
+
     def run_seconds(self, seconds: float | None = None,
                     progress=None) -> dict:
-        """Process the stream (whole file by default); returns summary
-        statistics.  ``progress``: optional callable(t_stream_seconds)."""
+        """Process the stream (whole file by default) until its end or a
+        :meth:`request_stop`; returns summary statistics.  ``progress``:
+        optional callable(t_stream_seconds)."""
         t_start = time.time()
         end_sample = self.end_sample(seconds)
         nblocks = 0
-        while self.can_step(end_sample):
+        while not self.stop_requested and self.can_step(end_sample):
             self.step_block()
             nblocks += 1
             if progress:

@@ -11,6 +11,13 @@ default) on 16.368 Msps real int8 IF at a 4.092 MHz IF,
 S super-steps (50 by default) per timed run.  Per super-step it prints:
 
   band, pallas, fused, xla  ``run_steps`` through that correlator backend
+                            (the eager loop)
+  band:graph, ...           the same S super-steps as one replayed block
+                            program (``FastTracker.program``: a CUDA graph
+                            of the whole block, what the receiver runs)
+  band:step, ...            a program of one super-step, its carry kept in
+                            place, replayed S times (the other way to
+                            capture a block, measured against it)
   nocorr   geometry + loop filter, taps zeroed (the loop's floor)
   gather   geometry + replica rows + window fetch, strided sums
   mater    the same, consumed by full sums
@@ -21,11 +28,12 @@ S super-steps (50 by default) per timed run.  Per super-step it prints:
 
 each as host wall time and as the CUDA-event span on the stream (the
 device time between the first and last launch, idle gaps included), and
-for the backends the kernel launches per super-step.  ``--duel N``
-instead interleaves the four backends round-robin for N rounds and prints
-each one's median, min, max and interquartile range.  The tool runs on the
-card unless ``--device cpu`` is given; it fails when the card is asked
-for and absent.
+for the backends the kernel launches per super-step.  A program is built
+(on the card: warmed up and captured) before its row is timed.  ``--duel
+N`` instead interleaves the backends' eager, graph and step rows
+round-robin for N rounds and prints each one's median, min, max and
+interquartile range.  The tool runs on the card unless ``--device cpu``
+is given; it fails when the card is asked for and absent.
 """
 from __future__ import annotations
 
@@ -45,6 +53,7 @@ from ..track import FastTracker, TrackConfig, Tracker
 
 F_SF, F_IF = 16.368e6, 4.092e6
 BACKENDS = ("band", "pallas", "fused", "xla")
+REPLAYED = tuple(f"{c}:{u}" for c in BACKENDS for u in ("graph", "step"))
 PROBES = ("nocorr", "gather", "mater", "kconst", "kconst1", "realwin",
           "realrc")
 REPS = 3
@@ -80,6 +89,7 @@ class Workload:
                                 [0] * channels, [0.0] * channels)
         for c in range(channels):
             st = trk.set_bit_sync(st, c, c % 10)
+        self.state = st
         self.carry = trk.state_to_carry(st)
         B = fast.C * L
         rng = np.random.default_rng(0)
@@ -93,6 +103,28 @@ class Workload:
         def run():
             self.fast.corr = corr
             return self.fast.run_steps(self.carry, self.block, self.S)
+        return run
+
+    def replayed(self, tag: str):
+        """A ``REPLAYED`` row: ``<backend>:graph`` starts the S super-steps
+        as one block program; ``<backend>:step`` loads a one-super-step
+        program and replays it S times (its carry stays in the program's
+        buffers), taking each step's telemetry.  The program is built
+        here, before any timing."""
+        corr, unit = tag.split(":")
+        fast = self.fast
+        fast.corr = corr
+        prog = fast.program(self.nsteps if unit == "graph" else fast.L,
+                            self.block.shape)
+
+        def run():
+            fast.corr = corr          # the CPU body reads the backend
+            if unit == "graph":
+                return prog.start(self.state, self.block)
+            prog.load(self.state, self.block)
+            for _ in range(self.S):
+                prog.replay()
+                prog.outputs()
         return run
 
     def _scan(self, taps):
@@ -206,14 +238,15 @@ def profile(device, steps: int = 50, channels: int = 32,
         f"({time.time() - t0:.1f} s set-up)")
     out = {}
     samples = w.nsteps * w.trk.n_nom
-    for tag in BACKENDS + PROBES:
-        fn = w.backend(tag) if tag in BACKENDS else w.probe(tag)
-        counts = BACKEND_COUNTS.get(tag)
+    for tag in BACKENDS + REPLAYED + PROBES:
+        fn = (w.backend(tag) if tag in BACKENDS else w.replayed(tag)
+              if tag in REPLAYED else w.probe(tag))
+        counts = BACKEND_COUNTS.get(tag.split(":")[0])
         before = (counts.kernel, counts.plain) if counts else None
         wall, ev = time_run(fn, device)
         rec = {"wall_ms": wall / steps * 1e3,
                "event_ms": None if ev is None else ev / steps}
-        line = (f"{tag:8s} {rec['wall_ms']:8.3f} ms/step wall  "
+        line = (f"{tag:12s} {rec['wall_ms']:8.3f} ms/step wall  "
                 f"({samples / wall / 1e6:7.1f} Msps)")
         if ev is not None:
             line += f"  {rec['event_ms']:8.3f} ms/step events"
@@ -231,26 +264,28 @@ def profile(device, steps: int = 50, channels: int = 32,
 
 def duel(device, rounds: int, steps: int = 50, channels: int = 32,
          log=print) -> dict:
-    """The four backends interleaved round-robin for ``rounds`` rounds,
-    so every round samples the same host and card load; returns {tag:
-    [wall ms/step per round]}."""
+    """The four backends, eager and replayed (``REPLAYED``), interleaved
+    round-robin for ``rounds`` rounds, so every round samples the same
+    host and card load; returns {tag: [wall ms/step per round]}."""
     device = torch.device(device)
     w = Workload(device, steps, channels)
-    runs = {tag: w.backend(tag) for tag in BACKENDS}
+    tags = [t for c in BACKENDS for t in (c, f"{c}:graph", f"{c}:step")]
+    runs = {tag: w.replayed(tag) if ":" in tag else w.backend(tag)
+            for tag in tags}
     for fn in runs.values():
         fn()
     T = collections.defaultdict(list)
     for _ in range(rounds):
-        for tag in BACKENDS:
+        for tag in tags:
             wall, _ = time_run(runs[tag], device, reps=2)
             T[tag].append(wall / steps * 1e3)
     samples = w.nsteps * w.trk.n_nom
     log(f"per-backend over {rounds} interleaved rounds (wall ms/super-step):")
-    for tag in BACKENDS:
+    for tag in tags:
         v = np.asarray(T[tag])
         med = float(np.median(v))
         iqr = float(np.percentile(v, 75) - np.percentile(v, 25))
-        log(f"  {tag:6s} med {med:7.3f}  min {v.min():7.3f}  max "
+        log(f"  {tag:12s} med {med:7.3f}  min {v.min():7.3f}  max "
             f"{v.max():7.3f}  iqr {iqr:7.3f}  -> "
             f"{samples / (med * 1e-3 * steps) / 1e6:7.1f} Msps")
     w.fast.corr = "band"

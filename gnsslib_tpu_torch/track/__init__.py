@@ -2,7 +2,8 @@
 
 ``Tracker`` advances every channel one code period at a time (pull-in);
 ``FastTracker`` runs L periods per super-step once all channels are
-bit-synced, through the correlator backend its ``corr`` names.
+bit-synced, through the correlator backend its ``corr`` names.  Both run
+a block as one ``program.BlockProgram`` (a CUDA graph on a card).
 """
 from .state import (LoopParams, TrackConfig, TrackState,  # noqa: F401
                     state_from_numpy, state_to_numpy)

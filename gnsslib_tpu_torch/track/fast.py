@@ -24,10 +24,13 @@ span is closed form:
   (``_filter``), with the same discriminators and NCO equations as the
   per-period path.
 
-The super-step scan of the JAX package is a Python loop here; per-period
-outputs come back in the per-period layout, so the Receiver treats this
-as a drop-in Tracker for the steady state.  Requirements: all channels
-bit-synced and sharing one ``loop`` interval.
+The super-step scan of the JAX package is a Python loop here
+(:meth:`FastTracker.run_steps`); on a card a block's loop is captured once
+per backend in a CUDA graph and replayed per block (:mod:`.program`, the
+counterpart of the jitted ``FastTracker._run``).  Per-period outputs come
+back in the per-period layout, so the Receiver treats this as a drop-in
+Tracker for the steady state.  Requirements: all channels bit-synced and
+sharing one ``loop`` interval.
 """
 from __future__ import annotations
 
@@ -39,14 +42,15 @@ from ..ops.carrier import TWO_PI
 from ..ops.gram_taps import gram_taps
 from ..ops.nco import frac
 from ..ops.window_taps import correlate_windows16
-from .loop import F32, I32, Tracker, TrackOutputs, as_block, discriminators
-from .state import TrackState, loop_interval
+from .loop import F32, I32, Tracker, TrackOutputs, discriminators
+from .program import BlockRunner
+from .state import loop_interval
 
 BACKENDS = ("band", "pallas", "fused", "xla")
 UNPORTED_BACKENDS = ("diag", "diag2")
 
 
-class FastTracker:
+class FastTracker(BlockRunner):
     """Wraps a :class:`Tracker` for the post-bit-sync steady state.
 
     ``use_pallas`` keeps the JAX package's meaning: ``None`` selects the
@@ -96,6 +100,9 @@ class FastTracker:
         self._fetch_i = torch.arange(self._fetch_k * 128, device=dev)
         self.corr = ("band" if use_pallas is None
                      else "pallas" if use_pallas else "xla")
+        self.state_to_carry = tracker.state_to_carry
+        self.carry_to_state = tracker.carry_to_state
+        self.programs = {}   # block programs by (corr, nsuper, block shape)
 
     @property
     def corr(self) -> str:
@@ -410,22 +417,15 @@ class FastTracker:
         sl["bandok"] = packi[..., L + 2]
         return sl
 
-    def run_block(self, state: TrackState, block, nsteps: int
-                  ) -> tuple[TrackState, TrackOutputs]:
-        """Drop-in run_block: ``nsteps`` must be a multiple of L; outputs
-        come back in per-period (steps, C, ...) layout."""
-        new_state, handle = self.run_block_start(state, block, nsteps)
-        return new_state, self.run_block_collect(handle)
-
-    def run_block_start(self, state: TrackState, block, nsteps: int):
-        """Queue ``nsteps`` periods on the device; returns (new_state,
-        handle) for :meth:`run_block_collect`."""
+    def _count(self, nsteps: int) -> int:
+        """Super-steps of ``nsteps`` periods (a multiple of L); blocks
+        come back in the per-period (steps, C, ...) layout."""
         if nsteps % self.L:
             raise ValueError(f"nsteps must be a multiple of L={self.L}")
-        block = as_block(block, self.device)
-        carry, packf, packi = self.run_steps(
-            self.trk.state_to_carry(state), block, nsteps // self.L)
-        return self.trk.carry_to_state(carry, state), (packf, packi)
+        return nsteps // self.L
+
+    def _key(self) -> tuple:
+        return (self._corr,)
 
     def run_block_collect(self, handle) -> TrackOutputs:
         """Copy a run_block_start handle to the host and rebuild the

@@ -3,9 +3,11 @@
 
 The JAX package runs one ``lax.scan`` over code periods with channels
 ``vmap``-ed; here every channel advances at once along a written-out
-channel axis, and the scan is a Python loop over periods.  The state and
-constants live on the tracker's device; nothing in the loop reads back to
-the host, so a block's periods queue on the device without a sync.
+channel axis, and the scan is a Python loop over periods
+(:meth:`Tracker.run_steps`).  The state and constants live on the
+tracker's device; nothing in the loop reads back to the host, so on a card
+a block's loop is captured once in a CUDA graph and replayed per block
+(:mod:`.program`, the counterpart of the jitted ``Tracker._run``).
 
 The reference maps the cos-mixed channel to trk.QQ and the sin-mixed
 channel to trk.II (argument swap at sdrtrk.c:40-43): IP = corr.imag,
@@ -23,6 +25,7 @@ from ..constants import PI
 from ..ops import correlator as corr_ops
 from ..ops.carrier import TWO_PI
 from ..ops.nco import NSPAN, frac
+from .program import CARRY_FIELDS, BlockRunner
 from .state import TrackConfig, TrackState, loop_interval
 
 F32 = torch.float32
@@ -58,18 +61,12 @@ def resolve_device(device) -> torch.device:
     return d
 
 
-def as_block(block: torch.Tensor, device: torch.device) -> torch.Tensor:
-    """Check a sample block — float32 (n,) real or (n, 2) stacked I/Q on
-    the tracker's device — and return it contiguous."""
-    if block.device != device:
-        raise ValueError(f"block is on {block.device}, tracker on {device}")
-    if block.dtype != F32:
-        raise TypeError(f"block must be float32, got {block.dtype}")
-    return block.contiguous()
-
-
-class Tracker:
-    """Tracking program for a group of channels sharing one front end."""
+class Tracker(BlockRunner):
+    """Tracking program for a group of channels sharing one front end.
+    A block runs as a :class:`~.program.BlockProgram` (a CUDA graph on a
+    card) through ``run_block``/``run_block_start``; :meth:`run_steps` is
+    the eager loop it replays.  The caller guarantees max(loc) +
+    nsteps*(n_nom+NSPAN) + nwin <= len(block)."""
 
     def __init__(self, cfg: TrackConfig, prns, ctypes, f_sf: float,
                  f_if: float, dtype: int, foffsets=None, f_cfs=None, *,
@@ -182,6 +179,7 @@ class Tracker:
         self._prm = torch.tensor(
             [[p.pllaw, p.pllw2, p.fllw, p.dllaw, p.dllw2]
              for p in (cfg.prm1, cfg.prm2)], dtype=F32, device=dev)
+        self.programs = {}       # block programs by (steps, block shape)
 
     # ------------------------------------------------------------------ #
     def init_state(self) -> TrackState:
@@ -238,10 +236,7 @@ class Tracker:
 
     @staticmethod
     def carry_to_state(c: dict, template: TrackState) -> TrackState:
-        return template.replace(**{k: c[k] for k in (
-            "loc", "cnt", "remcode", "remcarr", "carr_nco", "carr_err",
-            "freq_err", "code_nco", "code_err", "sum_i", "sum_q",
-            "oldsum_i", "oldsum_q", "prev_i", "prev_q")})
+        return template.replace(**{k: c[k] for k in CARRY_FIELDS})
 
     def _replica(self, remcode: torch.Tensor) -> torch.Tensor:
         """(C,) code phase -> (C, next) float32 replica over [-smax,
@@ -383,23 +378,6 @@ class Tracker:
         o["loc"], o["n"], o["flagloopfilter"] = (
             packi[..., 0], packi[..., 1], packi[..., 2])
         return o
-
-    def run_block(self, state: TrackState, block, nsteps: int
-                  ) -> tuple[TrackState, TrackOutputs]:
-        """Advance every active channel ``nsteps`` code periods through
-        ``block``.  The caller guarantees max(loc) + nsteps*(n_nom+NSPAN)
-        + nwin <= len(block)."""
-        new_state, handle = self.run_block_start(state, block, nsteps)
-        return new_state, self.run_block_collect(handle)
-
-    def run_block_start(self, state: TrackState, block, nsteps: int):
-        """Queue a block on the device without reading telemetry back:
-        returns (new_state, handle) for :meth:`run_block_collect`, so the
-        receiver can queue later blocks before collecting this one."""
-        block = as_block(block, self.device)
-        carry, packf, packi = self.run_steps(self.state_to_carry(state),
-                                             block, nsteps)
-        return self.carry_to_state(carry, state), (packf, packi)
 
     def run_block_collect(self, handle) -> TrackOutputs:
         """Copy a run_block_start handle to the host and unpack it."""

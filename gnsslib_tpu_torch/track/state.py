@@ -92,6 +92,7 @@ _FIELDS = {
     "flagsync": (torch.bool, None), "sync_offset": (torch.int32, None),
     "active": (torch.bool, None),
 }
+STATE_FIELDS = tuple(_FIELDS)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -399,3 +399,129 @@ def test_fast_tracker_card_matches_cpu(dev, corr):
         assert int(np.sum(d > 5e-3 * scale)) <= 3
         assert np.median(d) < 1e-3 * scale
     np.testing.assert_allclose(a.dcarr[:, :2], b.dcarr[:, :2], atol=0.5)
+
+
+# --- block programs: CUDA graphs of the trackers' blocks --------------- #
+GRAPH_SIGNAL = {3: (800, 900.0), 9: (2100, -1500.0)}   # delay, Doppler
+# the counter each engine's captured program launches (xla and pull-in
+# launch no kernel of the port)
+GRAPH_COUNTS = {"band": ("band_taps", bt.COUNTS), "pallas":
+                ("correlate_windows16", wt.COUNTS16),
+                "fused": ("gram_taps", gt.COUNTS)}
+
+
+def _graph_scene(dev):
+    """test_torch_program.py's scene on the card: two satellites at 4.092
+    Msps, three channels, the visible two pulled in (eager) and synced."""
+    f_sf, f_if = 4.092e6, 1.023e6
+    ch = [sim.SimChannel(prn=p, doppler=dop, code_phase=-d * 1.023e6 / f_sf)
+          for p, (d, dop) in GRAPH_SIGNAL.items()]
+    noise = sim.noise_std_for_cn0(1.0, 45.0, f_sf, DType.REAL)
+    x = np.asarray(sim.synthesize(ch, f_sf, f_if, DType.REAL,
+                                  int(0.6 * f_sf), noise_std=noise, seed=4),
+                   np.float32)
+    trk = Tracker(TrackConfig(4, 2, 2), [3, 9, 14], [CodeType.L1CA] * 3,
+                  f_sf, f_if, DType.REAL, device=dev)
+    st = trk.start_channels(trk.init_state(), [0, 1],
+                            [d for d, _ in GRAPH_SIGNAL.values()],
+                            [-dop for _, dop in GRAPH_SIGNAL.values()])
+    block = torch.from_numpy(x).to(dev)
+    st, _ = trk.run_block_eager(st, block, 100)
+    for c in range(2):
+        st = trk.set_bit_sync(st, c, 0)
+    return trk, st, block
+
+
+def _graph_engine(trk, name):
+    if name == "pullin":
+        return trk
+    fast = FastTracker(trk)
+    fast.corr = name
+    return fast
+
+
+def _bits_equal(a, b) -> bool:
+    if a.dtype.is_floating_point:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def _same_state(a, b) -> bool:
+    return all(_bits_equal(getattr(a, k), getattr(b, k))
+               for k in a.__dataclass_fields__)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["pullin", "band", "pallas", "fused",
+                                  "xla"])
+def test_block_program_replay_matches_eager(dev, name):
+    """A block replayed from the captured graph gives the eager loop's
+    state and telemetry bit for bit; a replay adds the captured launches
+    to the wrapper's counter (COUNTS = replays x captured launches, the
+    capture itself counted as none); blocks reuse the one capture."""
+    trk, st, block = _graph_scene(dev)
+    eng = _graph_engine(trk, name)
+    nsteps = 40
+    prog = eng.program(nsteps, block.shape)
+    assert prog.graph is not None and prog.capture_s > 0
+    label, counts = GRAPH_COUNTS.get(name, (None, None))
+    if counts is None:
+        assert prog.launches == {}
+    else:
+        assert prog.launches == {label: {"kernel": nsteps // eng.L}}
+        counts.reset()
+    n0 = len(eng.programs)
+    for _ in range(3):
+        got = eng.run_block_start(st, block, nsteps)
+    torch.cuda.synchronize()
+    ref = eng.run_block_eager(st, block, nsteps)
+    torch.cuda.synchronize()
+    assert _same_state(got[0], ref[0])
+    assert _bits_equal(got[1][0], ref[1][0])
+    assert _bits_equal(got[1][1], ref[1][1])
+    assert len(eng.programs) == n0 and prog.replays == 3
+    if counts is not None:
+        # three replays, then the eager reference's own launches
+        assert counts.kernel == 4 * prog.launches[label]["kernel"]
+        assert counts.plain == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["pullin", "band"])
+def test_block_program_pipelined_edits_match_eager(dev, name):
+    """Four blocks queued two deep through the graph, with a channel
+    started, bit-synced and restarted and the window rebased between
+    them, give the eager loop's blocks run one at a time, bit for bit."""
+    trk, st, block = _graph_scene(dev)
+    eng = _graph_engine(trk, name)
+    nsteps, adv = 20, 20 * trk.n_nom
+    base = 100 * trk.n_nom
+    st0 = trk.rebase(st, base)
+
+    def edits(st, k):
+        st = trk.rebase(st, adv)
+        if k == 0:
+            st = trk.start_channels(st, [2], [500], [250.0])
+        if k == 1:
+            st = trk.set_bit_sync(st, 2, 0)
+        if k == 2:
+            st = trk.start_channels(st, [0], [900], [-900.0])
+        return st
+
+    def run(start):
+        st, handles = st0, []
+        for k in range(4):
+            st, h = start(st, block[base + k * adv:base + (k + 6) * adv],
+                          nsteps)
+            handles.append(h)
+            st = edits(st, k)
+        return st, handles
+
+    st_g, replayed = run(eng.run_block_start)
+    st_e, eager = run(eng.run_block_eager)
+    torch.cuda.synchronize()
+    assert _same_state(st_g, st_e)
+    for hg, he in zip(replayed, eager):
+        assert _bits_equal(hg[0], he[0]) and _bits_equal(hg[1], he[1])
+    progs = list(eng.programs.values())
+    assert len(progs) == 1 and progs[0].replays == 4

@@ -8,17 +8,21 @@ torch.set_num_threads(2)
 
 
 def test_profile_fast_cpu_narrow(capsys):
-    """Every backend and probe timed over 2 super-steps of 2 channels; the
-    kernel backends went through their plain versions once per step."""
+    """Every backend (eager, and replayed as a block program and as a
+    one-super-step program) and every probe timed over 2 super-steps of 2
+    channels; the kernel backends went through their plain versions once
+    per step."""
+    tags = profile_fast.BACKENDS + profile_fast.REPLAYED + profile_fast.PROBES
     assert profile_fast.main(["--device", "cpu", "--steps", "2",
                               "--channels", "2"]) == 0
     out = capsys.readouterr().out
-    for tag in profile_fast.BACKENDS + profile_fast.PROBES:
+    for tag in tags:
         assert f"\n{tag} " in out, tag
     res = profile_fast.profile("cpu", steps=2, channels=2, log=lambda m: 0)
-    assert set(res) == set(profile_fast.BACKENDS + profile_fast.PROBES)
-    for tag in profile_fast.BACKEND_COUNTS:
-        assert res[tag]["launches"] == 0 and res[tag]["plain"] == 1
+    assert set(res) == set(tags)
+    for corr in profile_fast.BACKEND_COUNTS:
+        for tag in (corr, f"{corr}:graph", f"{corr}:step"):
+            assert res[tag]["launches"] == 0 and res[tag]["plain"] == 1
     assert all(r["wall_ms"] > 0 and r["event_ms"] is None
                for r in res.values())
 
@@ -28,7 +32,7 @@ def test_profile_fast_duel_cpu(capsys):
                               "--channels", "2", "--duel", "2"]) == 0
     out = capsys.readouterr().out
     assert "interleaved rounds" in out
-    for tag in profile_fast.BACKENDS:
+    for tag in profile_fast.BACKENDS + profile_fast.REPLAYED:
         assert f"  {tag} " in out
 
 

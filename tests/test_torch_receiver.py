@@ -1,10 +1,16 @@
 """The port's file-replay Receiver against the JAX Receiver on one
 synthesized capture (2 visible + 2 absent GPS L1CA PRNs, 16 s at
 4.092 Msps), both driven from the same INI files through their
-``load_ini`` + ``Receiver.run_seconds``; checkpoint and resume; and the
-port's CLI."""
+``load_ini`` + ``Receiver.run_seconds``; checkpoint and resume; the
+port's CLI; and the cooperative stop (``Receiver.request_stop``, and
+SIGINT/SIGTERM on the CLI)."""
 import os
+import pickle
 import re
+import signal
+import subprocess
+import sys
+import time
 
 import numpy as np
 import pytest
@@ -292,3 +298,132 @@ def test_unported_cli_flags_raise(capture, tmp_path, flag):
     assert os.path.getsize(ck) > 0
     if flag == "--resume":
         assert torch_cli(base + ["--seconds", "3", "--resume", ck]) == 0
+
+
+def _mk(ini):
+    """A port receiver on the CPU from ``ini``, without RINEX output."""
+    cfg = load_ini(str(ini))
+    cfg.rinex = False
+    return Receiver(cfg, FileFrontend(cfg.files[0], cfg.fends[0]),
+                    device="cpu")
+
+
+@pytest.fixture(scope="module")
+def stopped(capture, tmp_path_factory):
+    """A run stopped through ``request_stop`` once 12 s of stream are done
+    (from its progress callback, as the CLI's signal handler does), and
+    its checkpoint: (epochs before the stop, checkpoint path).  The first
+    epoch comes ~1.6 s of stream later, so a run resumed from it writes
+    one within a few blocks."""
+    _, ini = capture
+    rx = _mk(ini)
+    epochs = _record(rx)
+    keys = (list(rx.trk.programs), list(rx.fast.programs))
+
+    def progress(t):
+        if t >= 12.0:
+            rx.request_stop()
+    stats = rx.run_seconds(progress=progress)
+    assert rx.stop_requested and 12.0 <= stats["seconds"] < 13.0
+    # one program per engine, built at construction and reused
+    assert (list(rx.trk.programs), list(rx.fast.programs)) == keys
+    assert [len(k) for k in keys] == [1, 1]
+    ck = str(tmp_path_factory.mktemp("stop") / "stop.ckpt")
+    rx.save_checkpoint(ck)
+    rx.close()
+    return epochs, ck
+
+
+def test_request_stop_checkpoint_resumes(both, capture, stopped):
+    """``request_stop`` ends ``run_seconds`` at a block boundary with the
+    blocks in flight collected; its checkpoint resumes to the
+    uninterrupted run's epochs."""
+    _, ini = capture
+    _, (_, full) = both
+    before, ck = stopped
+    rx = _mk(ini)
+    rx.load_checkpoint(ck)
+    assert rx.epochs_written == len(before)
+    resumed = _run(rx)
+    assert len(resumed) >= 3 and len(before) + len(resumed) == len(full)
+    for a, b in zip(full[len(before):], resumed):
+        assert b[0].tow == a[0].tow
+        assert [o.prn for o in b] == [o.prn for o in a]
+        for oa, ob in zip(a, b):
+            assert ob.P == pytest.approx(oa.P, abs=1.0)
+
+
+@pytest.mark.parametrize("sig", [signal.SIGINT, signal.SIGTERM],
+                         ids=["SIGINT", "SIGTERM"])
+def test_cli_signal_stops_cleanly(both, capture, stopped, tmp_path, sig):
+    """``python -m gnsslib_tpu_torch`` resumed from the stopped run's
+    checkpoint and signalled once its first epoch is written: exit 0,
+    every RINEX epoch complete and in the new checkpoint (the blocks in
+    flight were flushed before it was written), which resumes to the
+    uninterrupted run's epochs (tests/test_interrupt.py's counterpart)."""
+    _, ini = capture
+    _, (_, full) = both
+    before, ck = stopped
+    cli_ini = tmp_path / "cli.ini"
+    outdir = tmp_path / "out"
+    cli_ini.write_text(re.sub(r"RINEXPATH=.*", f"RINEXPATH={outdir}",
+                              ini.read_text()))
+    ck2 = tmp_path / "sig.ckpt"
+    # two threads, as this process has: the default (one per core) is
+    # oversubscribed when the other test workers run beside it
+    env = dict(os.environ, PYTHONUNBUFFERED="1", OMP_NUM_THREADS="2",
+               MKL_NUM_THREADS="2")
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (os.path.dirname(os.path.dirname(__file__)),
+                    env.get("PYTHONPATH", "")) if p)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "gnsslib_tpu_torch", str(cli_ini), "--device",
+         "cpu", "--resume", ck, "--checkpoint", str(ck2)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env,
+        cwd=str(tmp_path))
+    try:
+        # the banner comes after the handlers are installed
+        assert proc.stdout.readline().startswith(b"gnsslib_tpu_torch:")
+        deadline = time.time() + 120
+        while not _obs_epochs(outdir):
+            assert proc.poll() is None, "the run ended before the signal"
+            assert time.time() < deadline, "no epoch before the deadline"
+            time.sleep(0.2)
+        proc.send_signal(sig)
+        out, _ = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    assert proc.returncode == 0, out.decode(errors="replace")[-2000:]
+    assert b"stopping" in out
+    text = open(_obs_epochs(outdir)).read().splitlines()
+    assert any("END OF HEADER" in ln for ln in text)
+    heads = [i for i, ln in enumerate(text) if ln.startswith(">")]
+    for i in heads:                          # every epoch has its records
+        nsat = int(text[i].split()[-1])
+        assert all(ln[:1] == "G" for ln in text[i + 1:i + 1 + nsat])
+        assert len(text) >= i + 1 + nsat
+    with open(ck2, "rb") as f:
+        snap = pickle.load(f)
+    assert snap["epochs"] == len(before) + len(heads)
+    rx = _mk(ini)
+    assert snap["base"] + rx.block_len <= rx.end_sample()  # stopped early
+    rx.load_checkpoint(str(ck2))
+    resumed = _run(rx)
+    assert len(before) + len(heads) + len(resumed) == len(full)
+    for a, b in zip(full[len(before) + len(heads):], resumed):
+        assert b[0].tow == a[0].tow
+        assert [o.prn for o in b] == [o.prn for o in a]
+
+
+def _obs_epochs(outdir):
+    """The RINEX obs file under ``outdir`` once it holds an epoch, else
+    None."""
+    if not os.path.isdir(outdir):
+        return None
+    for p in os.listdir(outdir):
+        path = os.path.join(outdir, p)
+        if p.endswith(".obs") and any(ln.startswith(">")
+                                      for ln in open(path)):
+            return path
+    return None
