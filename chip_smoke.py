@@ -10,17 +10,21 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
 1. refuse to run without CUDA; print the card, torch and CUDA versions;
 2. build the correlator kernels (csrc/band_taps.cu, window_taps.cu,
    gram_taps.cu, ablation_taps.cu), one nvcc each, all in parallel, and
-   print ptxas's registers and spills of the 13-tap instantiations (and
-   K1's 25-tap ones);
+   print ptxas's registers and spills of the 13-tap instantiations (both
+   entry points of K1 and of K3-K5, and K1's 25-tap cluster kernel);
 3. each kernel vs its plain PyTorch version at the main path's shapes (320
    windows of 16376 samples, 16412-sample replica rows, 13 taps; K2 on
    (320, 128, 128) bf16 rows; K6's four variants at the profiler's 320 x
    16493 windows and 18229-sample rows), real and I/Q input, with
    CUDA-event times of both and the card's bound for the same work.  K1
-   runs as the cluster kernel and as the v1 kernel, each checked
-   for bit-identical repeat launches and timed warm and cold (beyond L2)
-   by launches replayed from a CUDA graph, and cold by eager launches;
-   K2-K5 are timed cold by graph replay and by eager launches;
+   and K3-K5 run as their cluster kernel and as their v1 kernel, each
+   checked for bit-identical repeat launches and timed warm and cold
+   (beyond L2) by launches replayed from a CUDA graph, and cold by eager
+   launches; K2 is timed cold by graph replay and by eager launches.
+   Then ``gnsslib_tpu_torch.tools.profile_window``: the window kernel's
+   build steps, cluster sizes and ablations for K3 and the f32
+   instantiation, real and I/Q, each checked against the plain version
+   and timed by graph replay;
 4. synthesize both captures in one process pool: the slice's (4 visible
    GPS L1CA PRNs with LNAV bit streams) and the positioning run's (7
    satellites above 15 degrees for a known receiver position, one dark
@@ -39,8 +43,9 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    turns (a record, not a benchmark);
 8. the correlator profiler (``gnsslib_tpu_torch.tools.profile_fast``) at
    full width: every backend eager and replayed (as one block graph and as
-   a one-super-step graph) and every probe, launching K1-K5, then a short
-   duel of the same rows;
+   a one-super-step graph) and every probe, launching K1-K5 (all through
+   their cluster kernels: no v1 launch), then a short duel of the same
+   rows;
 9. the kernel profiler (``gnsslib_tpu_torch.tools.profile_kernel``): K6's
    four variants per launch, and 100 chained launches eager and replayed
    from one CUDA graph;
@@ -328,62 +333,72 @@ def phase_kernel(dev, iq: bool):
                 timing="graph_replay")
 
 
-def _window_inputs(trk, B: int, iq: bool, seed: int):
-    """Fetched windows at the main path's shapes: 8-bit samples, +-1
-    replica rows, valid lengths around n_nom, rates near the IF."""
-    rng = np.random.default_rng(seed)
-    nn = trk.n_nom
-    win = rng.integers(-128, 128, (B, trk.nwin, 2) if iq else (B, trk.nwin)
-                       ).astype(np.float32)
-    rc = rng.choice(np.asarray([-1, 1], np.int8), (B, trk.next))
-    rem = rng.uniform(0, 1, B).astype(np.float32)
-    ftot = (0.25 + rng.uniform(-4e-4, 4e-4, B)).astype(np.float32)
-    n = rng.integers(nn - 2, nn + 3, B).astype(np.int32)
-    a = np.abs(win).reshape(B, trk.nwin, -1).sum(-1)
-    l1 = max(float(a[b, :k].sum()) for b, k in enumerate(n))
-    return win, rc, rem, ftot, n, l1
-
-
 def phase_window_kernels(dev, iq: bool) -> dict:
-    """K5, K4 (f32) and K3 (bf16 windows, int8 rows) vs their plain
-    version at the 32-channel L1CA super-step's shapes."""
+    """K5, K4 (f32) and K3 (bf16 windows, int8 rows) at the 32-channel L1CA
+    super-step's shapes: each wrapper (one cluster-kernel launch, no v1,
+    no plain), the cluster kernel and the v1 kernel against the plain
+    version, two launches of each bit-identical, and cold (beyond L2) and
+    warm times of both by graph replay, cold eager beside.  Importable:
+    after ``cuda_build.build_all(("window_taps",))`` it is the kernel-only
+    loop; ``python -m gnsslib_tpu_torch.tools.profile_window`` times the
+    cluster kernel's build steps, cluster sizes and ablations."""
     import torch
-    from gnsslib_tpu_torch.constants import CodeType, DType
     from gnsslib_tpu_torch.ops import window_taps as wt
     from gnsslib_tpu_torch.tools.profile_band import graph_ms
-    from gnsslib_tpu_torch.track import TrackConfig, Tracker
-    trk = Tracker(TrackConfig(6, 3, 6), [1], [CodeType.L1CA], F_SF, F_IF,
-                  DType.IQ if iq else DType.REAL, device=dev)
-    B, T, smax = 320, len(trk.offsets), trk.smax
-    win, rc, rem, ftot, n, l1 = _window_inputs(trk, B, iq, 17 + iq)
+    from gnsslib_tpu_torch.tools.profile_window import inputs, tolerance
     kind = "iq" if iq else "real"
-    nv = np.minimum(n, trk.nwin)
-    comp = 2 if iq else 1
     res = {}
-    for name, k in (("correlate_windows", 0), ("correlate_windows8", 0),
-                    ("correlate_windows16", 1)):
+    for name, k, counts in (("correlate_windows", 0, wt.COUNTS5),
+                            ("correlate_windows8", 0, wt.COUNTS8),
+                            ("correlate_windows16", 1, wt.COUNTS16)):
         fn = getattr(wt, name)
-        w = torch.from_numpy(win).to(dev)
-        r = torch.from_numpy(rc).to(dev)
-        if k == 1:
-            w = w.to(torch.bfloat16)
-        else:
-            r = r.to(torch.float32)
-        args = [w, r] + [torch.from_numpy(a).to(dev) for a in (rem, ftot, n)]
-        zk = fn(*args, trk.offsets, smax)
-        zp = wt.window_taps_plain(*args, trk.offsets, smax)
+        trk, l1, host, args = inputs(dev, "bf16" if k else "f32", iq)
+        B, T, smax, offsets = len(host[4]), len(trk.offsets), trk.smax, \
+            trk.offsets
+        counts.reset()
+        zk = fn(*args, offsets, smax)
+        zp = wt.window_taps_plain(*args, offsets, smax)
         torch.cuda.synchronize()
-        err = float((zk - zp).abs().max())
-        # f32: summation order and sincosf rounding, 1e-5 of the window's
-        # L1 norm (as K1); bf16 (K3): an ulp of sincosf can also flip a
-        # mixed sample's bf16 rounding, each flip moving a tap by at most
-        # 2^-8 |x_i|: 1e-4
-        tol = (1e-4 if k == 1 else 1e-5) * l1
-        if not err <= tol:
-            raise AssertionError(f"{name} kernel vs plain ({kind}): "
-                                 f"max_abs_err {err} > {tol}")
+        if (counts.kernel, counts.v1, counts.plain) != (1, 0, 0):
+            raise AssertionError(f"{name} ({kind}) wrapper: launches "
+                                 f"{counts.kernel}, v1 {counts.v1}, plain "
+                                 f"{counts.plain}")
+        # f32: summation order and the carrier's ulps, 1e-5 of the
+        # window's L1 norm (as K1); bf16 (K3): an ulp of the carrier can
+        # also flip a mixed sample's bf16 rounding, each flip moving a tap
+        # by at most 2^-7 |x_i|: 1e-4
+        tol = tolerance("bf16" if k else "f32", l1)
+        runs = {"kernel": wt.launch, "v1": wt.launch_v1}
+
+        def once(launch, inputs):
+            z = torch.empty_like(zp)
+            launch(k, *inputs, offsets, smax, z)
+            return z
+
+        errs = {"wrapper": float((zk - zp).abs().max())}
+        bad = []
+        for run, launch in runs.items():
+            z1 = once(launch, args)
+            z2 = once(launch, args)
+            torch.cuda.synchronize()
+            errs[run] = float((z1 - zp).abs().max())
+            if not torch.equal(z1.view(torch.int32), z2.view(torch.int32)):
+                bad.append(f"{run} repeat launches differ")
+        bad += [f"{r} {e}" for r, e in errs.items() if not e <= tol]
+        log(f"[3] {name} {kind:4s} B={B} nwin={trk.nwin} next={trk.next} "
+            f"taps={T}: max_abs_err "
+            + ", ".join(f"{r} {e:.4g}" for r, e in errs.items())
+            + f" (tol {tol:.4g}, max|taps| {float(zp.abs().max()):.4g}); "
+            f"repeat launches bit-identical: {'no' if bad else 'yes'}")
+        if bad:
+            raise AssertionError(f"{name} ({kind}) vs plain: {bad}")
+
         out = torch.empty_like(zk)
-        wb, rb = w.element_size() * comp, r.element_size()
+        comp = 2 if iq else 1
+        nv = np.minimum(host[4], trk.nwin)
+        wb, rb = args[0].element_size() * comp, args[1].element_size()
+        # the bound: each window's valid samples and the replica values its
+        # taps read, the scalars, the taps out
         nbytes = (float(nv.sum()) * wb + float((nv + 2 * smax).sum()) * rb
                   + B * 12 + B * 2 * T * 4)
         flops = float(nv.sum()) * (4 * T + (6 if iq else 2))
@@ -391,39 +406,66 @@ def phase_window_kernels(dev, iq: bool) -> dict:
         copies = [[a.clone() for a in args]
                   for _ in range(copies_for(nbytes))]
 
-        def on_copy(c):
-            wt.launch(k, *copies[c], trk.offsets, smax, out)
-        ms = graph_ms(on_copy, len(copies))
-        eager_ms = cold_ms(on_copy, len(copies))
-        call_ms = cuda_ms(lambda: fn(*args, trk.offsets, smax), 50)
+        def on_copy(launch):
+            return lambda c: launch(k, *copies[c], offsets, smax, out)
+
+        # device time: launches replayed from a CUDA graph
+        cold = {r: graph_ms(on_copy(launch), len(copies))
+                for r, launch in runs.items()}
+        warm = {r: graph_ms(lambda c, launch=launch: launch(
+                    k, *args, offsets, smax, out), 1)
+                for r, launch in runs.items()}
+        eager = {r: cold_ms(on_copy(launch), len(copies))
+                 for r, launch in runs.items()}
+        call_ms = cuda_ms(lambda: fn(*args, offsets, smax), 50)
         plain_ms = cuda_ms(lambda: wt.window_taps_plain(
-            *args, trk.offsets, smax), 5)
-        log(f"[3] {name} {kind:4s} B={B} nwin={trk.nwin} next={trk.next} "
-            f"taps={T}: max_abs_err {err:.4g} (tol {tol:.4g}, max|taps| "
-            f"{float(zp.abs().max()):.4g}); kernel {ms:.4f} ms/launch by "
-            f"graph replay, eager {eager_ms:.4f} ms (inputs rotated over "
-            f"{len(copies)} copies), wrapper call {call_ms:.4f} ms, plain "
+            *args, offsets, smax), 5)
+        log(f"[3] {name} {kind:4s}: {card_line()}; cluster kernel S="
+            f"{wt.ctas_per_window()} CTAs per window, J="
+            f"{wt.samples_per_thread()} samples per chain, "
+            f"{wt.rounds()} rounds, window "
+            f"{'staged' if wt.stages_window() else 'through L1'}: cold "
+            f"{cold['kernel']:.4f} ms/launch, warm {warm['kernel']:.4f} ms; "
+            f"v1 kernel cold {cold['v1']:.4f} ms, warm {warm['v1']:.4f} ms "
+            f"(device time: launches replayed from one CUDA graph; cold: "
+            f"inputs rotated over {len(copies)} copies, beyond L2); eager "
+            f"back-to-back launches, cold: kernel {eager['kernel']:.4f} ms, "
+            f"v1 {eager['v1']:.4f} ms; wrapper call {call_ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms; bound {bms:.4f} ms by {by} "
             f"({nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP)")
-        res[name] = dict(err=err, ms=ms, eager_ms=eager_ms,
-                         plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                         timing="graph_replay")
+        res[name] = dict(err=max(errs.values()), ms=cold["kernel"],
+                         warm_ms=warm["kernel"], v1_ms=cold["v1"],
+                         v1_warm_ms=warm["v1"], eager_ms=eager["kernel"],
+                         v1_eager_ms=eager["v1"], plain_ms=plain_ms,
+                         bound_ms=bms, bound_by=by, timing="graph_replay")
     return res
+
+
+def phase_window_profiler(dev) -> dict:
+    """``tools/profile_window.py``: K3's and the f32 instantiation's build
+    steps, cluster sizes and ablations, real and I/Q, each variant that
+    computes the function held against the plain version, then timed by
+    graph replay; returns {(kind, iq): {variant: record}}."""
+    from gnsslib_tpu_torch.tools import profile_window
+    out = {}
+    for kind in ("bf16", "f32"):
+        for iq in (False, True):
+            out[kind, iq] = profile_window.profile(
+                kind, iq, log=lambda m: log(f"[3] {m}"))
+    return out
 
 
 def phase_gram_kernel(dev, iq: bool) -> dict:
     """K2 vs its plain version on (320, 128, 128) bf16 window rows fetched
     and masked as the fused backend fetches them."""
     import torch
-    from gnsslib_tpu_torch.constants import CodeType, DType
     from gnsslib_tpu_torch.ops import gram_taps as gt
     from gnsslib_tpu_torch.tools.profile_band import graph_ms
-    from gnsslib_tpu_torch.track import FastTracker, TrackConfig, Tracker
-    trk = Tracker(TrackConfig(6, 3, 6), [1], [CodeType.L1CA], F_SF, F_IF,
-                  DType.IQ if iq else DType.REAL, device=dev)
+    from gnsslib_tpu_torch.tools.profile_window import inputs
+    from gnsslib_tpu_torch.track import FastTracker
+    trk, l1, (win, rc, rem, ftot, n), _ = inputs(dev, "f32", iq, seed=23)
     fast = FastTracker(trk)
     B, T, smax = 320, len(trk.offsets), trk.smax
-    win, rc, rem, ftot, n, l1 = _window_inputs(trk, B, iq, 23 + iq)
     w = torch.from_numpy(win.reshape((-1,) + win.shape[2:])).to(dev)
     starts = torch.arange(B, dtype=torch.int32, device=dev) * trk.nwin
     nt = torch.from_numpy(n).to(dev)
@@ -933,8 +975,10 @@ def phase_profiler(dev) -> dict:
                       log=lambda m: log(f"[8] {m}"))
     launches = {k: c.kernel for k, c in counts.items()}
     plain = {k: c.plain for k, c in counts.items()}
+    v1 = {k: getattr(c, "v1", 0) for k, c in counts.items()}
     log(f"[8] profiler {t1 - t0:.1f} s, duel {time.time() - t1:.1f} s "
-        f"({card_line()}); launches {launches}, plain calls {plain}")
+        f"({card_line()}); launches {launches}, v1 launches {v1}, plain "
+        f"calls {plain}")
     for tag, rec in res.items():
         t = [rec["wall_ms"], rec["event_ms"]]
         if not all(np.isfinite(v) and v > 0 for v in t):
@@ -943,8 +987,12 @@ def phase_profiler(dev) -> dict:
             raise AssertionError(f"profiler {tag}: {rec['launches']} "
                                  f"launches, {rec['plain']} plain calls per "
                                  f"super-step")
-    if min(launches.values()) <= 0 or max(plain.values()) != 0:
-        raise AssertionError(f"profiler launches {launches}, plain {plain}")
+    # every launch of K1 and K3-K5 through the cluster kernels: their
+    # offsets are tap_offsets(6, 3)
+    if min(launches.values()) <= 0 or max(plain.values()) != 0 or \
+            max(v1.values()) != 0:
+        raise AssertionError(f"profiler launches {launches}, v1 {v1}, plain "
+                             f"{plain}")
     return launches
 
 
@@ -1211,12 +1259,14 @@ def main() -> int:
             if not re.search(r"registers|spill", ln):
                 continue
             var = re.search(r"ILi(\d)ELi13EE", entry)
-            k1 = re.search(r"band_taps_(v1|cluster)_kernelILi(\d+)ELb(\d)E",
-                           entry)
-            if k1 and (k1[2] == "13" or (k1[2], k1[1]) == ("25", "cluster")):
+            k1 = re.search(r"(?:band|window)_taps_(v1|cluster)_kernelILi"
+                           r"(\d+)ELb(\d)E", entry)
+            if k1 and (k1[2] == "13" or (k1[2], k1[1]) == ("25", "cluster")
+                       and name == "band_taps"):
                 kind = f"{k1[1]} T={k1[2]} " + ("iq" if k1[3] == "1"
-                                                else "real")
-            elif name == "band_taps":
+                                                else "real") + (
+                    " bf16" if "bfloat16" in entry else "")
+            elif name in ("band_taps", "window_taps"):
                 continue
             elif name == "ablation_taps" and var:
                 kind = ("full", "nosin", "onetap", "aligned")[int(var[1])]
@@ -1233,6 +1283,7 @@ def main() -> int:
         for name, r in phase_window_kernels(dev, iq).items():
             k.setdefault(name, []).append(r)
         k.setdefault("gram_taps", []).append(phase_gram_kernel(dev, iq))
+    phase_window_profiler(dev)
     ablation = phase_ablation_kernel(dev)
     # the K6 row: the full variant (K4's body); max_abs_err over all four
     k["ablation_taps"] = [dict(ablation["full"], err=max(
@@ -1286,7 +1337,7 @@ def main() -> int:
             "timing": real.get("timing", "eager")})
         if "eager_ms" in real:    # the same launches' eager time
             rows[-1]["eager_ms"] = real["eager_ms"]
-        if name == "band_taps":   # the same run's v1 kernel
+        if "v1_ms" in real:       # the same run's v1 kernel (K1, K3-K5)
             rows[-1]["v1_ms"] = real["v1_ms"]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-// Tap correlators of fetched windows (K3, K4, K5), for NVIDIA Hopper (sm_90a).
+// Tap correlators of fetched windows (K3, K4, K5), for NVIDIA Hopper
+// (sm_90a).
 //
 // Replaces the TPU kernels of gnsslib_tpu/ops/pallas_corr.py:
 //   K5 correlate_windows_impl   (:66,  body _kernel   :36)  f32 windows, f32 rows
@@ -13,35 +14,95 @@
 // written as (B, 2T) float32 interleaved [cos_t, sin_t].  K4 and K5 compute
 // the same float32 function and share one instantiation; the TPU's 8 or 16
 // windows per grid cell and its B % 16 padding were tiling artefacts and
-// are gone (one thread block per window, any B).
+// are gone (any B).  K3 rounds each mixed sample to bf16 (round to nearest
+// even) as _kernel16 does; its tap products bf16 * int8 are exact in float32
+// and summed in float32, as the Pallas kernel's reference evaluation
+// (interpret mode) sums them.  K4/K5 mix and sum in float32 unrounded.
 //
-// K3 reproduces _kernel16's rounding of the mixed samples to bf16 (round to
-// nearest even), so kernel and plain version agree in the working type.
-// Its tap products bf16 * int8 are exact in float32 and summed in float32,
-// as the Pallas kernel's reference evaluation (interpret mode) sums them;
-// with the tracker's +-1 replica rows a bf16 product would be exact anyway.
-// K4/K5 mix and sum in float32 unrounded.
+// What bounds each instantiation on this card, at the 32-channel L1CA
+// super-step (320 windows of 16376 samples, 16412-element rows, 13 taps):
+//   K3     ~10.5 MB of bf16 windows and ~5.3 MB of int8 rows, 4.7 us at
+//          3.35 TB/s, and ~283 MFLOP of tap FMAs, 4.2 us at 67 TFLOP/s f32:
+//          bytes and f32 issue are almost level, so K3 needs both fewer
+//          instructions per sample and more bytes in flight;
+//   K4/K5  ~21 MB of f32 windows and ~21 MB of f32 rows, 12.5 us: bytes.
 //
-// What bounds it on this card: at the 32-channel L1CA super-step (320
-// windows of 16376 samples, 16412-sample rows, 13 taps) K3 reads ~10.5 MB
-// of bf16 windows and ~5.3 MB of int8 rows (~4.7 us at 3.35 TB/s) and does
-// ~272 MFLOP of tap FMAs plus one sincosf per sample (~4 us at 67 TFLOP/s
-// f32); K4/K5 read ~21 MB of f32 windows and ~21 MB of f32 rows (~12.5 us).
-// The design keeps every reuse on chip: one thread block per window stages
-// the window's replica row in shared memory once (the 13 taps read it 13
-// times at shifted offsets), each thread strides over the samples with 2T
-// register accumulators, and a warp-shuffle plus shared-memory reduction
-// writes the 2T sums.  A float32 row is 16412 x 4 = 65.6 KB, more than the
-// default 48 KB of shared memory: the launch opts in to the larger dynamic
-// size with cudaFuncSetAttribute and returns its error.
+// Two kernels.  window_taps_v1_kernel (the port's first) gives each window
+// one 256-thread block (320 blocks on 132 SMs), stages the whole replica
+// row one element per thread before any work, and pays per sample and tap
+// one shared load (and K3 one int8->f32 conversion) for two FMAs, plus a
+// precise sincosf per sample; it takes any offsets.
+// window_taps_cluster_kernel takes the offsets the receiver and the
+// profiler make, tap_offsets(corrn, d): 0, -d, +d, ..., -corrn*d,
+// +corrn*d, so tap m (in lag order) of sample i reads r[i + base + m*d]
+// with base = smax - corrn*d; the wrapper sends any other offsets to v1.
+// tools/profile_window.py builds the steps below, the other choices of
+// each constant and ablations as variants of this source and times them
+// (PERF.md, PR 7, has the table; at the main path's shapes the kernel
+// takes about half of v1's time, K3 and the f32 instantiation alike):
+//
+// 1. Reuse each replica value across the taps.  A thread takes a chain of
+//    kJ samples s0 + j*d and holds R[q] = r[s0 + base + q*d],
+//    q < kJ + 2*corrn, in registers, converted to f32 once: tap m of chain
+//    step j is R[j + m], (kJ + 2*corrn)/kJ = 1.36 shared loads and
+//    conversions per sample at 13 taps instead of 13.  Threads cover the d
+//    residues of tiles of kJ*d samples; with kJ = 33, (kJ - 1)*d is a
+//    multiple of 32, so chain starts are distinct mod 32 and a warp's
+//    stride-d reads of 4-byte values hit 32 banks for any d.  Alone (one
+//    CTA per window, staged one value per thread) this step is slower
+//    than v1: the staging, unhidden, then holds every chain back.
+// 2. Stage with asynchronous copies.  The segment's replica values and
+//    its window samples are copied global -> shared by 16-byte cp.async,
+//    all issued before one wait, so each CTA has its whole segment's bytes
+//    in flight at once.  Copies start at the 16-byte boundary below the
+//    first byte: K3's int8 rows start every 16412 bytes (4-byte aligned
+//    only) and a segment starts anywhere in its row; a copy that reaches
+//    past the bytes asked for (or the last row) is cut to those bytes.
+//    This step moved most.  Staging the window too (kStageWindow) beat
+//    reading it through L1 in most runs: the windows come from device
+//    memory, unlike K1's block, which stays in L2.  Splitting the copies
+//    into kRounds groups, one per round of chains of each thread, so that
+//    a round computes while the next one's copies land, was slower at 2
+//    and 4 rounds (fewer threads per CTA): kRounds = 1.
+// 3. Fill the card.  Each window is split into S = kCluster segments, one
+//    CTA each, and the S CTAs of a window run as one thread-block cluster
+//    (cudaLaunchKernelEx with the cluster attribute).  Each CTA reduces its
+//    2T sums in shared memory (a warp butterfly, then the warps in order);
+//    every rank writes them into rank 0's shared memory through distributed
+//    shared memory, and after one cluster barrier rank 0 adds them in rank
+//    order and writes the row.  One launch, no scratch buffer, no atomics:
+//    the output is bit-identical from launch to launch.  Whether a window
+//    has work (n > 0) is decided per window, before the first cluster
+//    barrier, so every CTA of a cluster takes the same early return or
+//    reaches every barrier.  S = 2 was the fastest of 1, 2 and 4.  Both
+//    instantiations fit 80 registers with no spill (3 CTAs of 256 threads
+//    per SM); at 64 (4 CTAs) K3 real spills 8 bytes and none is faster by
+//    more than 1%.
+// 4. Carrier.  sincospif(2*ph) in place of sincosf(f32(2*pi) * ph): no
+//    Payne-Hanek reduction, no rounding of the angle; about a fifth of the
+//    kernel's time is still the carrier.  Its error against the plain
+//    version's cos/sin(f32(2*pi) * ph) is a few 1e-7 absolute, inside the
+//    f32 tolerance (1e-5 of the window's L1 norm); for K3 it flips the
+//    bf16 rounding of about 1.4 mixed values in 10^4 (1424 of 10475554 at
+//    the main path's shapes, real input), each moving a tap by at most
+//    2^-7 |x_i|: the largest tap error is then 0.75 against K3's tolerance
+//    of 106 (1e-4 of the L1 norm), where sincosf's is 0.004.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kJ = 33;            // samples per chain (stride d)
+constexpr int kCluster = 2;       // CTAs per window: one thread-block cluster
+constexpr bool kStageWindow = true;   // window samples by cp.async, not L1
+constexpr int kRounds = 1;        // chains per thread, one cp.async group each
+constexpr bool kPersistent = false;   // clusters that fit at once take all windows
 constexpr float kTwoPi = 6.283185307179586f;   // f32(2*pi), as the plain version
 
 __device__ __forceinline__ float frac_f(float x) { return x - floorf(x); }
@@ -56,15 +117,21 @@ __device__ __forceinline__ float as_float(__nv_bfloat16 x) {
 }
 __device__ __forceinline__ float as_float(int8_t x) { return (float)x; }
 
-// W: window sample type, R: replica type, BF16: K3's rounding of the mix.
+int ceil_div(int x, int y) { return (x + y - 1) / y; }
+
+// ------------------------------------------------------------------------
+// The v1 kernel.  W: window sample type, R: replica type, BF16: K3's
+// rounding of the mix.
+
 template <int NT, bool IQ, typename W, typename R, bool BF16>
 __global__ void __launch_bounds__(kThreads)
-window_taps_kernel(const W* __restrict__ win, int nwin,
-                   const R* __restrict__ rc, int next,
-                   const float* __restrict__ rem, const float* __restrict__ ftot,
-                   const int* __restrict__ nvalid,
-                   const int* __restrict__ offsets, int smax,
-                   float* __restrict__ out) {
+window_taps_v1_kernel(const W* __restrict__ win, int nwin,
+                      const R* __restrict__ rc, int next,
+                      const float* __restrict__ rem,
+                      const float* __restrict__ ftot,
+                      const int* __restrict__ nvalid,
+                      const int* __restrict__ offsets, int smax,
+                      float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
   R* rep = reinterpret_cast<R*>(smem);          // this window's replica row
   __shared__ float part[kWarps][2 * NT];
@@ -142,12 +209,383 @@ window_taps_kernel(const W* __restrict__ win, int nwin,
   }
 }
 
+// ------------------------------------------------------------------------
+// The cluster kernel (steps 1-4 above).
+
+struct ClusterArgs {
+  const void* win;
+  long long win_bytes;           // bytes in win (B * nwin * F * sizeof(W))
+  int nwin;
+  const void* rc;
+  long long rc_bytes;            // bytes in rc (B * next * sizeof(R))
+  int next;
+  const float* rem;
+  const float* ftot;
+  const int* nvalid;
+  int d;                         // the offsets' step
+  int base;                      // smax - corrn * d: the lag of tap m is base + m*d
+  int seg;                       // samples per CTA, a multiple of kJ * d
+  int nwindows;
+  int buf;                       // bytes between the two staging buffers (0: one)
+  float* out;
+};
+
+// The output slot of the tap at lag index m (offset (m - c) * d) in
+// tap_offsets order [0, -d, +d, -2d, +2d, ...].
+__device__ __forceinline__ int slot_of(int m, int c) {
+  return m == c ? 0 : (m < c ? 2 * (c - m) - 1 : 2 * (m - c));
+}
+
+// The carrier of sample i (fi = i as a float): sincospif(2 ph) with
+// ph = frac(frac(ftot * i) + rem).  The outer frac is left to sincospif,
+// whose argument reduction removes the same even integer from 2 ph either
+// way, so the result is the same bit for bit (|2 ph| < 2^22).
+__device__ __forceinline__ void carrier(float f, float fi, float r0,
+                                        float* sn, float* cs) {
+  // __fmul_rn: ftot*i rounded before the floor, as the plain version
+  // computes it (no FMA contraction into the frac)
+  sincospif(2.f * (frac_f(__fmul_rn(f, fi)) + r0), sn, cs);
+}
+
+// Shared bytes that staging `count` bytes at any head needs.
+__host__ __device__ constexpr int staged_bytes(int count) {
+  return (count + 30) / 16 * 16;
+}
+
+// 16 bytes global -> shared without a register round trip: the first
+// `bytes` (1..16) from src, zeros after them.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most n of this thread's committed cp.async groups are
+// pending (n above 3 waits as for 3: for more groups, never fewer).
+__device__ __forceinline__ void cp_async_wait_pending(int n) {
+  switch (n) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+  }
+}
+
+// Where byte `first` of src lands in its staging: (src + first) mod 16.
+__device__ __forceinline__ int head_of(const void* src, long long first) {
+  return static_cast<int>(reinterpret_cast<uintptr_t>(
+                              static_cast<const unsigned char*>(src) + first) &
+                          15);
+}
+
+// The 16-byte vectors that hold the first `bytes` of a staging at `head`.
+__device__ __forceinline__ int vectors_of(int head, int bytes) {
+  return (head + bytes + 15) >> 4;
+}
+
+// Vectors [v0, v1) of the staging of bytes [first, first + count) of src
+// (len bytes): vector v holds the bytes from the 16-byte boundary at or
+// below src + first on, 16 v further, and lands at dst + 16 v, so that
+// byte first lands at dst + head (head_of).  Copies are 16-byte cp.async;
+// a copy that reaches past first + count or len is cut to the bytes in
+// range (the rest of its 16 are zero); a vector that starts before src is
+// copied byte by byte.  dst is 16-byte aligned and holds
+// staged_bytes(count).  The caller commits, waits and synchronises.
+__device__ __forceinline__ void stage_vectors(unsigned char* dst,
+                                              const void* src, long long len,
+                                              long long first, int head,
+                                              int count, int v0, int v1) {
+  const unsigned char* s = static_cast<const unsigned char*>(src);
+  const long long end = min(len, first + count);
+  for (int v = v0 + threadIdx.x; v < v1; v += blockDim.x) {
+    const long long k0 = first - head + 16LL * v;   // the vector's first byte
+    unsigned char* out = dst + 16 * v;
+    if (k0 >= 0 && k0 < end) {
+      cp_async16(out, s + k0, static_cast<int>(min(16LL, end - k0)));
+    } else if (k0 >= end) {
+      *reinterpret_cast<uint4*>(out) = make_uint4(0u, 0u, 0u, 0u);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 16; ++e)
+        out[e] = k0 + e >= 0 && k0 + e < end ? s[k0 + e] : 0;
+    }
+  }
+}
+
+// One level of a warp butterfly over v[0, 2H): lanes that differ in bit H
+// swap halves, and each keeps the half its bit selects, summed with the
+// partner's: after fold<16>, lane l holds the warp's sum of v[l].  Shuffles
+// per level halve (31 in all, not 5 per value); the order is fixed.
+template <int H>
+__device__ __forceinline__ void fold(float (&v)[32], int lane) {
+  const bool up = (lane & H) != 0;
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float lo = v[i];
+    const float hi = v[i + H];
+    v[i] = (up ? hi : lo) + __shfl_xor_sync(0xffffffffu, up ? lo : hi, H);
+  }
+  if constexpr (H > 1) fold<H / 2>(v, lane);
+}
+
+// K3's rounding of a mixed pair to bf16 (round to nearest even).
+__device__ __forceinline__ void bf16_round_pair(float& a, float& b) {
+  a = bf16_round(a);
+  b = bf16_round(b);
+}
+
+// The mixed sample s of x (F values of W each) as f32 (wc, ws); zero where
+// !valid (x is not read).  K3 (BF16) rounds every product where the plain
+// version rounds it (no FMA contraction), then the mix to bf16.
+template <bool IQ, bool BF16, typename W>
+__device__ __forceinline__ void mix(const W* x, int s, bool valid, float sn,
+                                    float cs, float& wc, float& ws) {
+  if (IQ) {
+    const float xr = valid ? as_float(x[2 * s]) : 0.f;
+    const float xi = valid ? as_float(x[2 * s + 1]) : 0.f;
+    if (BF16) {
+      wc = __fsub_rn(__fmul_rn(xr, cs), __fmul_rn(xi, sn));
+      ws = __fadd_rn(__fmul_rn(xr, sn), __fmul_rn(xi, cs));
+    } else {
+      wc = xr * cs - xi * sn;
+      ws = xr * sn + xi * cs;
+    }
+  } else {
+    const float xv = valid ? as_float(x[s]) : 0.f;
+    wc = xv * cs;
+    ws = xv * sn;
+  }
+  if (BF16) bf16_round_pair(wc, ws);
+}
+
+// The taps of one chain, kJ samples d apart from x (the first `left` count,
+// the rest are taken as zero).  The replica values from r, d apart, are
+// loaded and converted once into R, and tap m (lag order) of chain step j
+// is R[j + m]; R[j + 2C] is loaded at step j, so the live values stay near
+// NT.  fi0 is the first sample's window index.
+template <int NT, bool IQ, bool BF16, typename W, typename R>
+__device__ __forceinline__ void chain_taps(float (&ac)[NT], float (&as)[NT],
+                                           const R* r, const W* x, int d,
+                                           int left, float f, float r0,
+                                           float fi0) {
+  constexpr int C = (NT - 1) / 2;
+  float Rv[kJ + 2 * C];
+#pragma unroll
+  for (int q = 0; q < 2 * C; ++q) Rv[q] = as_float(r[q * d]);
+  const float fd = (float)d;
+#pragma unroll
+  for (int j = 0; j < kJ; ++j) {
+    Rv[j + 2 * C] = as_float(r[(j + 2 * C) * d]);
+    const int s = j * d;
+    float sn, cs;
+    // the window index fi0 + s, exact (integers below 2^24)
+    carrier(f, fmaf((float)j, fd, fi0), r0, &sn, &cs);
+    float wc, ws;
+    mix<IQ, BF16>(x, s, s < left, sn, cs, wc, ws);
+#pragma unroll
+    for (int m = 0; m < NT; ++m) {
+      ac[m] = fmaf(wc, Rv[j + m], ac[m]);
+      as[m] = fmaf(ws, Rv[j + m], as[m]);
+    }
+  }
+}
+
+// Window b's valid samples in the segment from seg0 (0 without work).
+__device__ __forceinline__ int samples_here(const ClusterArgs& a, int b,
+                                            int seg0) {
+  return max(0, min(min(a.nvalid[b], a.nwin) - seg0, a.seg));
+}
+
+// Issue the copies of window b's segment (lim valid samples from seg0)
+// into buf: `rounds` cp.async groups, round p's holding the vectors its
+// chains need beyond the earlier rounds' (empty groups when lim == 0).
+template <int C, int F, typename W, typename R>
+__device__ __forceinline__ void stage_window(const ClusterArgs& a, int b,
+                                             int seg0, int lim, int rounds,
+                                             unsigned char* buf) {
+  const int d = a.d;
+  const int tile = kJ * d;
+  const int ntile = a.seg / tile;
+  const int T = blockDim.x;
+  const int rcount = (a.seg + 2 * C * d) * (int)sizeof(R);
+  const long long rfirst =
+      ((long long)b * a.next + seg0 + a.base) * (long long)sizeof(R);
+  const int rhead = head_of(a.rc, rfirst);
+  unsigned char* wsm = buf + staged_bytes(rcount);
+  const long long wfirst =
+      ((long long)b * a.nwin + seg0) * F * (long long)sizeof(W);
+  const int whead = head_of(a.win, wfirst);
+  const int wcount = lim * F * (int)sizeof(W);
+  int rv = 0, wv = 0;
+  for (int p = 0; p < rounds; ++p) {
+    if (lim > 0) {
+      const int send = (min(((p + 1) * T - 1) / d, ntile - 1) + 1) * tile;
+      const int rv1 = vectors_of(
+          rhead, min((send + 2 * C * d) * (int)sizeof(R), rcount));
+      stage_vectors(buf, a.rc, a.rc_bytes, rfirst, rhead, rcount, rv, rv1);
+      rv = rv1;
+      if constexpr (kStageWindow) {
+        const int wv1 = vectors_of(whead, min(send, lim) * F * (int)sizeof(W));
+        stage_vectors(wsm, a.win, a.win_bytes, wfirst, whead, wcount, wv, wv1);
+        wv = wv1;
+      }
+    }
+    cp_async_commit();
+  }
+}
+
+// The chains of window b's segment, staged in buf, into ac/as: round p
+// takes chains [p*T, (p+1)*T) after its copies have landed (`ahead`
+// groups were committed after this window's: the next window's).
+template <int NT, bool IQ, bool BF16, typename W, typename R>
+__device__ __forceinline__ void window_chains(float (&ac)[NT], float (&as)[NT],
+                                              const ClusterArgs& a, int b,
+                                              int seg0, int lim, int rounds,
+                                              int ahead,
+                                              const unsigned char* buf,
+                                              float f, float r0) {
+  constexpr int C = (NT - 1) / 2;
+  constexpr int F = IQ ? 2 : 1;
+  const int d = a.d;
+  const int tile = kJ * d;
+  const int ntile = a.seg / tile;
+  const int T = blockDim.x;
+  const int rcount = (a.seg + 2 * C * d) * (int)sizeof(R);
+  const long long rfirst =
+      ((long long)b * a.next + seg0 + a.base) * (long long)sizeof(R);
+  const R* rep = reinterpret_cast<const R*>(buf + head_of(a.rc, rfirst));
+  const long long wfirst =
+      ((long long)b * a.nwin + seg0) * F * (long long)sizeof(W);
+  const W* x;                                      // the segment's samples
+  if constexpr (kStageWindow)
+    x = reinterpret_cast<const W*>(buf + staged_bytes(rcount) +
+                                   head_of(a.win, wfirst));
+  else
+    x = static_cast<const W*>(a.win) + wfirst / (long long)sizeof(W);
+  for (int p = 0; p < rounds; ++p) {
+    cp_async_wait_pending(rounds - 1 - p + ahead);
+    __syncthreads();
+    // chain u: tile k = u / d of kJ*d samples, residue u % d
+    const int u = p * T + threadIdx.x;
+    const int k = u / d;
+    const int s0 = k * tile + (u - k * d);
+    if (k < ntile && s0 < lim)
+      chain_taps<NT, IQ, BF16>(ac, as, rep + s0, x + F * s0, d, lim - s0,
+                               f, r0, (float)(seg0 + s0));
+  }
+}
+
+// 80 registers up to 13 taps (3 CTAs of 256 threads per SM), 255 above.
+// Cluster c takes windows c, c + G, c + 2G, ... (G clusters); with more
+// than one, the next window's copies are issued into the other staging
+// buffer before this window's chains run.
 template <int NT, bool IQ, typename W, typename R, bool BF16>
-cudaError_t launch(const void* win, int nwin, const void* rc, int next,
-                   const float* rem, const float* ftot, const int* nvalid,
-                   const int* offsets, int smax, int nwindows, float* out,
-                   cudaStream_t stream) {
-  auto kernel = window_taps_kernel<NT, IQ, W, R, BF16>;
+__global__ void __launch_bounds__(kThreads, NT <= 13 ? 3 : 1)
+window_taps_cluster_kernel(const ClusterArgs a) {
+  constexpr int C = (NT - 1) / 2;            // corrn
+  constexpr int F = IQ ? 2 : 1;              // values per sample
+  constexpr int NV = 2 * NT;                 // sums per window
+  constexpr int NCH = (NV + 31) / 32;        // 32-sum chunks
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float part[kWarps][32 * NCH];
+  __shared__ float gather[2][kCluster][NV];  // rank 0's, by window parity
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int G = gridDim.x / kCluster;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int seg0 = rank * a.seg;                   // first window sample
+  const int rounds = (a.seg / (kJ * a.d) * a.d + blockDim.x - 1) / blockDim.x;
+
+  int b = blockIdx.x / kCluster;
+  int lim = samples_here(a, b, seg0);              // valid samples here
+  float f = a.ftot[b];
+  float r0 = a.rem[b];
+  stage_window<C, F, W, R>(a, b, seg0, lim, rounds, smem);
+  // arrive now, wait before the first write to rank 0's shared memory:
+  // every CTA of the cluster has then started
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  for (int i = 0; b < a.nwindows; ++i) {
+    // the same windows in every CTA of the cluster: every CTA reaches
+    // every barrier, whatever the windows' lengths
+    const int bn = b + G;
+    const bool more = bn < a.nwindows;
+    int limn = 0;
+    float fn = 0.f, rn = 0.f;
+    if (more) {
+      limn = samples_here(a, bn, seg0);
+      fn = a.ftot[bn];
+      rn = a.rem[bn];
+      stage_window<C, F, W, R>(a, bn, seg0, limn, rounds,
+                               smem + ((i + 1) & 1) * a.buf);
+    }
+    float ac[NT], as[NT];                          // lag order m
+#pragma unroll
+    for (int m = 0; m < NT; ++m) {
+      ac[m] = 0.f;
+      as[m] = 0.f;
+    }
+    window_chains<NT, IQ, BF16, W, R>(ac, as, a, b, seg0, lim, rounds,
+                                      more ? rounds : 0,
+                                      smem + (i & 1) * a.buf, f, r0);
+
+    // The CTA's sums, [cos_m, sin_m] in lag order: a butterfly over the
+    // warp (fold) leaves lane l with the warp's sum of value l of each
+    // 32-value chunk; then the warps' sums are added in warp order.
+    float v[NCH][32];
+#pragma unroll
+    for (int k = 0; k < 32 * NCH; ++k) v[k / 32][k % 32] = 0.f;
+#pragma unroll
+    for (int m = 0; m < NT; ++m) {
+      v[2 * m / 32][2 * m % 32] = ac[m];
+      v[(2 * m + 1) / 32][(2 * m + 1) % 32] = as[m];
+    }
+#pragma unroll
+    for (int ch = 0; ch < NCH; ++ch) {
+      fold<16>(v[ch], lane);
+      part[warp][32 * ch + lane] = v[ch][0];
+    }
+    __syncthreads();
+    // each rank writes its sums into rank 0's gather[i & 1][rank]; after
+    // the cluster barrier rank 0 adds them in rank order.  The next
+    // window writes the other half, and the one after it this half only
+    // after the next barrier, which rank 0 reaches after these reads.
+    if (i == 0) asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+    float* to = cluster.map_shared_rank(&gather[i & 1][0][0], 0) + rank * NV;
+    for (int t = tid; t < NV; t += blockDim.x) {
+      float x = 0.f;
+      for (int w = 0; w < (int)(blockDim.x >> 5); ++w) x += part[w][t];
+      to[t] = x;
+    }
+    cluster.sync();
+    if (rank == 0) {
+      float* o = a.out + (size_t)b * NV;
+      for (int t = tid; t < NV; t += blockDim.x) {
+        float x = 0.f;
+        for (int r = 0; r < kCluster; ++r) x += gather[i & 1][r][t];
+        o[2 * slot_of(t >> 1, C) + (t & 1)] = x;
+      }
+    }
+    b = bn;
+    lim = limn;
+    f = fn;
+    r0 = rn;
+  }
+}
+
+template <int NT, bool IQ, typename W, typename R, bool BF16>
+cudaError_t launch_v1(const void* win, int nwin, const void* rc, int next,
+                      const float* rem, const float* ftot, const int* nvalid,
+                      const int* offsets, int smax, int nwindows, float* out,
+                      cudaStream_t stream) {
+  auto kernel = window_taps_v1_kernel<NT, IQ, W, R, BF16>;
   const size_t shm = (size_t)next * sizeof(R);
   if (shm > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -160,45 +598,161 @@ cudaError_t launch(const void* win, int nwin, const void* rc, int next,
   return cudaGetLastError();
 }
 
+template <int NT, bool IQ, typename W, typename R, bool BF16>
+cudaError_t launch_cluster(ClusterArgs a, int nwindows, cudaStream_t stream) {
+  constexpr int C = (NT - 1) / 2;
+  constexpr int F = IQ ? 2 : 1;
+  const int tile = kJ * a.d;
+  a.seg = ceil_div(ceil_div(a.nwin, kCluster), tile) * tile;
+  a.nwindows = nwindows;
+  const int nrep = a.seg + 2 * C * a.d;
+  // kRounds chains of kJ samples per thread where the segment allows
+  const int want = ceil_div(ceil_div(a.seg / tile * a.d, kRounds), 32) * 32;
+  const int threads = want < kThreads ? want : kThreads;
+  size_t one = staged_bytes(nrep * (int)sizeof(R));   // one staging buffer
+  if (kStageWindow) one += staged_bytes(a.seg * F * (int)sizeof(W));
+  auto kernel = window_taps_cluster_kernel<NT, IQ, W, R, BF16>;
+  // opt in only when a launch needs more than this instantiation already
+  // has, so that repeated launches (and graph capture) make no call
+  static size_t opted = 48 * 1024;
+  const size_t most = kPersistent ? 2 * one : one;
+  if (most > opted) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)most);
+    if (e != cudaSuccess) return e;
+    opted = most;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // one cluster per window, or (kPersistent) as many as fit on the card
+  // at once with two staging buffers each, when that is fewer
+  int clusters = nwindows;
+  a.buf = 0;
+  if (kPersistent) {
+    static size_t asked = 0;            // the occupancy of the last shape
+    static int threads_asked = 0, fit = 0;
+    if (asked != 2 * one || threads_asked != threads) {
+      cfg.gridDim = dim3((unsigned)kCluster);
+      cfg.dynamicSmemBytes = 2 * one;
+      cudaError_t e = cudaOccupancyMaxActiveClusters(&fit, kernel, &cfg);
+      if (e != cudaSuccess) return e;
+      asked = 2 * one;
+      threads_asked = threads;
+    }
+    if (fit > 0 && fit < nwindows) {
+      clusters = fit;
+      a.buf = (int)one;
+    }
+  }
+  cfg.gridDim = dim3((unsigned)(clusters * kCluster));
+  cfg.dynamicSmemBytes = a.buf ? 2 * one : one;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+// kind 0: float32 windows and rows (K4/K5); kind 1: bf16 windows, int8 rows
+// and bf16 rounding of the mix (K3).
 template <int NT>
-cudaError_t dispatch(int kind, int iq, const void* win, int nwin,
-                     const void* rc, int next, const float* rem,
-                     const float* ftot, const int* nvalid, const int* offsets,
-                     int smax, int nwindows, float* out, cudaStream_t st) {
+cudaError_t dispatch_cluster(int kind, int iq, ClusterArgs a, int nwindows,
+                             cudaStream_t st) {
+  if (kind == 0)
+    return iq ? launch_cluster<NT, true, float, float, false>(a, nwindows, st)
+              : launch_cluster<NT, false, float, float, false>(a, nwindows, st);
+  return iq ? launch_cluster<NT, true, __nv_bfloat16, int8_t, true>(
+                  a, nwindows, st)
+            : launch_cluster<NT, false, __nv_bfloat16, int8_t, true>(
+                  a, nwindows, st);
+}
+
+template <int NT>
+cudaError_t dispatch_v1(int kind, int iq, const void* win, int nwin,
+                        const void* rc, int next, const float* rem,
+                        const float* ftot, const int* nvalid,
+                        const int* offsets, int smax, int nwindows,
+                        float* out, cudaStream_t st) {
   if (kind == 0) {
-    return iq ? launch<NT, true, float, float, false>(
+    return iq ? launch_v1<NT, true, float, float, false>(
                     win, nwin, rc, next, rem, ftot, nvalid, offsets, smax,
                     nwindows, out, st)
-              : launch<NT, false, float, float, false>(
+              : launch_v1<NT, false, float, float, false>(
                     win, nwin, rc, next, rem, ftot, nvalid, offsets, smax,
                     nwindows, out, st);
   }
-  return iq ? launch<NT, true, __nv_bfloat16, int8_t, true>(
+  return iq ? launch_v1<NT, true, __nv_bfloat16, int8_t, true>(
                   win, nwin, rc, next, rem, ftot, nvalid, offsets, smax,
                   nwindows, out, st)
-            : launch<NT, false, __nv_bfloat16, int8_t, true>(
+            : launch_v1<NT, false, __nv_bfloat16, int8_t, true>(
                   win, nwin, rc, next, rem, ftot, nvalid, offsets, smax,
                   nwindows, out, st);
 }
 
 }  // namespace
 
-#define WINDOW_TAPS_CASE(NT)                                                 \
-  case NT:                                                                   \
-    return (int)dispatch<NT>(kind, iq, win, nwin, rc, next, rm, ft, nv, of,  \
-                             smax, nwindows, y, st);
+#define TAP_CASES(X) X(1) X(3) X(5) X(7) X(9) X(11) X(13) X(15) X(17) \
+                     X(19) X(21) X(23) X(25)
 
 // Plain C interface for ctypes.  kind 0: float32 windows and float32 rows
 // (K4/K5); kind 1: bf16 windows and int8 rows with bf16 rounding (K3).
 // Every pointer is a device pointer; the stream is the caller's current
-// CUDA stream.  Returns the cudaError_t of the launch (0 on success); a
-// kind other than 0/1 or ntaps outside {1, 3, ..., 25} returns
-// cudaErrorInvalidValue without launching.
+// CUDA stream.  Each returns the cudaError_t of the launch (0 on success);
+// arguments it does not take (a kind other than 0/1, ntaps outside
+// {1, 3, ..., 25}) return cudaErrorInvalidValue without launching.
+
+// The cluster kernel for offsets tap_offsets((ntaps - 1) / 2, d).
 extern "C" int window_taps_launch(int kind, int iq, const void* win, int nwin,
                                   const void* rc, int next, const void* rem,
                                   const void* ftot, const void* nvalid,
-                                  const void* offsets, int ntaps, int smax,
-                                  int nwindows, void* out, void* stream) {
+                                  int ntaps, int smax, int d, int nwindows,
+                                  void* out, void* stream) {
+  if (kind != 0 && kind != 1) return (int)cudaErrorInvalidValue;
+  if (nwindows <= 0) return (int)cudaSuccess;
+  const int base = smax - (ntaps - 1) / 2 * d;
+  if (d < 1 || base < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (nwin <= 0)                  // no samples: every tap sum is zero
+    return (int)cudaMemsetAsync(out, 0, (size_t)nwindows * 2 * ntaps * 4, st);
+  const int wsize = kind == 0 ? 4 : 2;           // bytes per window value
+  const int rsize = kind == 0 ? 4 : 1;           // bytes per replica value
+  ClusterArgs a = {};
+  a.win = win;
+  a.win_bytes = (long long)nwindows * nwin * (iq ? 2 : 1) * wsize;
+  a.nwin = nwin;
+  a.rc = rc;
+  a.rc_bytes = (long long)nwindows * next * rsize;
+  a.next = next;
+  a.rem = static_cast<const float*>(rem);
+  a.ftot = static_cast<const float*>(ftot);
+  a.nvalid = static_cast<const int*>(nvalid);
+  a.d = d;
+  a.base = base;
+  a.out = static_cast<float*>(out);
+#define CLUSTER_CASE(NT) \
+  case NT:               \
+    return (int)dispatch_cluster<NT>(kind, iq, a, nwindows, st);
+  switch (ntaps) {
+    TAP_CASES(CLUSTER_CASE)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef CLUSTER_CASE
+}
+
+// The v1 kernel, for any offsets (a device array of ntaps ints).
+extern "C" int window_taps_v1_launch(int kind, int iq, const void* win,
+                                     int nwin, const void* rc, int next,
+                                     const void* rem, const void* ftot,
+                                     const void* nvalid, const void* offsets,
+                                     int ntaps, int smax, int nwindows,
+                                     void* out, void* stream) {
   if (kind != 0 && kind != 1) return (int)cudaErrorInvalidValue;
   if (nwindows <= 0) return (int)cudaSuccess;
   const float* rm = static_cast<const float*>(rem);
@@ -207,24 +761,24 @@ extern "C" int window_taps_launch(int kind, int iq, const void* win, int nwin,
   const int* of = static_cast<const int*>(offsets);
   float* y = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define V1_CASE(NT)                                                          \
+  case NT:                                                                   \
+    return (int)dispatch_v1<NT>(kind, iq, win, nwin, rc, next, rm, ft, nv,   \
+                                of, smax, nwindows, y, st);
   switch (ntaps) {
-    WINDOW_TAPS_CASE(1)
-    WINDOW_TAPS_CASE(3)
-    WINDOW_TAPS_CASE(5)
-    WINDOW_TAPS_CASE(7)
-    WINDOW_TAPS_CASE(9)
-    WINDOW_TAPS_CASE(11)
-    WINDOW_TAPS_CASE(13)
-    WINDOW_TAPS_CASE(15)
-    WINDOW_TAPS_CASE(17)
-    WINDOW_TAPS_CASE(19)
-    WINDOW_TAPS_CASE(21)
-    WINDOW_TAPS_CASE(23)
-    WINDOW_TAPS_CASE(25)
+    TAP_CASES(V1_CASE)
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef V1_CASE
 }
+
+// Samples per chain and CTAs per window of the cluster kernel, and whether
+// it stages the window samples (for the caller's records).
+extern "C" int window_taps_samples_per_thread() { return kJ; }
+extern "C" int window_taps_ctas_per_window() { return kCluster; }
+extern "C" int window_taps_stages_window() { return kStageWindow ? 1 : 0; }
+extern "C" int window_taps_rounds() { return kRounds; }
 
 extern "C" const char* window_taps_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -30,9 +30,9 @@ import functools
 import torch
 
 from .carrier import TWO_PI
-from .correlator import tap_offsets
 from .kernels import (LaunchCounts, bind, check_offsets, check_tensors,
-                      device_offsets, raise_on, route, stream_of)
+                      device_offsets, progression, raise_on, route,
+                      stream_of)
 from .nco import frac
 
 
@@ -46,17 +46,6 @@ class BandCounts(LaunchCounts):
 
 
 COUNTS = BandCounts("band_taps")
-
-
-@functools.lru_cache(maxsize=64)
-def progression(offsets: tuple):
-    """The step d when ``offsets`` is ``tap_offsets((T - 1) // 2, d)`` with
-    d >= 1 (d = 1 for the single tap ``(0,)``), else None."""
-    c = (len(offsets) - 1) // 2
-    d = offsets[2] if c else 1
-    if d >= 1 and offsets == tuple(int(o) for o in tap_offsets(c, d)):
-        return d
-    return None
 
 
 def band_taps_plain(block, rc, wstart, n, rem, ftot, active, offsets,

@@ -1,5 +1,6 @@
 """What the wrappers of the port's CUDA kernels share: launch counters,
-argument checks, the tap-offset upload and the ctypes binding.
+argument checks, the tap-offset progression test, the tap-offset upload
+and the ctypes binding.
 
 Every wrapper launches its kernel for CUDA tensors and hands CPU tensors to
 its plain PyTorch version; a failed build or launch raises, and nothing
@@ -11,6 +12,8 @@ import ctypes
 import functools
 
 import torch
+
+from .correlator import tap_offsets
 
 MAX_TAPS = 25      # templated tap counts 1, 3, ..., 25 in every csrc/*.cu
 
@@ -82,6 +85,18 @@ def check_offsets(op: str, offsets, smax: int) -> tuple:
         raise ValueError(f"{op}: need an odd tap count <= {MAX_TAPS} "
                          f"with |offset| <= smax={smax}, got {offsets}")
     return offsets
+
+
+@functools.lru_cache(maxsize=64)
+def progression(offsets: tuple):
+    """The step d when ``offsets`` is ``tap_offsets((T - 1) // 2, d)`` with
+    d >= 1 (d = 1 for the single tap ``(0,)``), else None: the offsets the
+    kernels that reuse replica values across taps take (K1, K3-K5)."""
+    c = (len(offsets) - 1) // 2
+    d = offsets[2] if c else 1
+    if d >= 1 and offsets == tuple(int(o) for o in tap_offsets(c, d)):
+        return d
+    return None
 
 
 def check_tensors(op: str, device: torch.device, want) -> None:

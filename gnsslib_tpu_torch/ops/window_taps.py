@@ -17,8 +17,13 @@ For every window b, already fetched out of the sample block:
 returned as (B, 2T) float32 interleaved [cos_t, sin_t].  One CUDA source
 (``csrc/window_taps.cu``) serves all three; K4 and K5 share its float32
 instantiation but keep their own wrappers and launch counters.  Each
-wrapper launches the kernel for CUDA tensors and uses
-:func:`window_taps_plain` only for tensors on the CPU.
+wrapper launches a kernel for CUDA tensors and uses
+:func:`window_taps_plain` only for tensors on the CPU.  Offsets of the
+form ``tap_offsets(corrn, d)`` (all the receiver and the profiler make) go
+to the cluster kernel (``COUNTS*.kernel``), any other offsets to the v1
+kernel (``COUNTS*.v1``); the choice follows the offsets, never a failure,
+and there is no fallback from a kernel to the plain version or from one
+kernel to the other.
 """
 from __future__ import annotations
 
@@ -29,12 +34,24 @@ import torch
 
 from .carrier import TWO_PI
 from .kernels import (LaunchCounts, bind, check_offsets, check_tensors,
-                      device_offsets, raise_on, route, stream_of)
+                      device_offsets, progression, raise_on, route,
+                      stream_of)
 from .nco import frac
 
-COUNTS5 = LaunchCounts("correlate_windows")        # K5
-COUNTS8 = LaunchCounts("correlate_windows8")       # K4
-COUNTS16 = LaunchCounts("correlate_windows16")     # K3
+
+class WindowCounts(LaunchCounts):
+    """One wrapper's counters: cluster-kernel launches (``kernel``), v1
+    kernel launches (``v1``) and CPU calls of the plain version
+    (``plain``)."""
+
+    def reset(self) -> None:
+        super().reset()
+        self.v1 = 0
+
+
+COUNTS5 = WindowCounts("correlate_windows")        # K5
+COUNTS8 = WindowCounts("correlate_windows8")       # K4
+COUNTS16 = WindowCounts("correlate_windows16")     # K3
 
 _F32, _BF16 = 0, 1            # the kernel kinds of window_taps_launch
 
@@ -103,8 +120,8 @@ def _run(op, counts, kind, windows, rc, rem, ftot, n, offsets, smax):
         return window_taps_plain(windows, rc, rem, ftot, n, offsets, smax)
     out = torch.empty((windows.shape[0], 2 * len(offsets)),
                       dtype=torch.float32, device=windows.device)
-    launch(kind, windows, rc, rem, ftot, n, offsets, smax, out)
-    counts.kernel += 1
+    which = launch(kind, windows, rc, rem, ftot, n, offsets, smax, out)
+    setattr(counts, which, getattr(counts, which) + 1)
     return out
 
 
@@ -138,15 +155,37 @@ def correlate_windows16(windows, rc, rem, ftot, n, offsets, smax: int):
 
 
 def launch(kind: int, windows, rc, rem, ftot, n, offsets, smax: int,
-           out) -> None:
-    """Launch the kernel of ``kind`` (0: f32, 1: bf16/int8) on the current
+           out) -> str:
+    """Launch a kernel of ``kind`` (0: f32, 1: bf16/int8) on the current
     CUDA stream into ``out`` (B, 2T) f32, with no argument checks and no
-    count: the wrappers check, allocate, count and call this.  Raises if
-    the launch is refused."""
+    count: the wrappers check, allocate, count and call this.  Offsets of
+    the form ``tap_offsets(corrn, d)`` launch the cluster kernel, any
+    other offsets the v1 kernel; returns which (``"kernel"`` or ``"v1"``,
+    the counter to add to).  Raises if the launch is refused."""
+    offsets = tuple(int(o) for o in offsets)
+    d = progression(offsets)
+    if d is None:
+        launch_v1(kind, windows, rc, rem, ftot, n, offsets, smax, out)
+        return "v1"
+    lib = _library()
+    with torch.cuda.device(windows.device):
+        err = lib.window_taps_launch(
+            kind, int(windows.dim() == 3), windows.data_ptr(),
+            windows.shape[1], rc.data_ptr(), rc.shape[1], rem.data_ptr(),
+            ftot.data_ptr(), n.data_ptr(), len(offsets), int(smax), d,
+            windows.shape[0], out.data_ptr(), stream_of(windows.device))
+    raise_on(lib, "window_taps", err)
+    return "kernel"
+
+
+def launch_v1(kind: int, windows, rc, rem, ftot, n, offsets, smax: int,
+              out) -> None:
+    """Launch the v1 kernel (``window_taps_v1_launch``: one block per
+    window, any offsets) as :func:`launch` does, with no count."""
     lib = _library()
     offs = device_offsets(tuple(int(o) for o in offsets), windows.device)
     with torch.cuda.device(windows.device):
-        err = lib.window_taps_launch(
+        err = lib.window_taps_v1_launch(
             kind, int(windows.dim() == 3), windows.data_ptr(),
             windows.shape[1], rc.data_ptr(), rc.shape[1], rem.data_ptr(),
             ftot.data_ptr(), n.data_ptr(), offs.data_ptr(), offs.shape[0],
@@ -155,12 +194,48 @@ def launch(kind: int, windows, rc, rem, ftot, n, offsets, smax: int,
     raise_on(lib, "window_taps", err)
 
 
+def samples_per_thread() -> int:
+    """Samples in each thread's chain of the cluster kernel (its ``kJ``)."""
+    return int(_library().window_taps_samples_per_thread())
+
+
+def ctas_per_window() -> int:
+    """CTAs, one thread-block cluster, per window of the cluster kernel
+    (its ``kCluster``, chosen by measurement: PERF.md)."""
+    return int(_library().window_taps_ctas_per_window())
+
+
+def rounds() -> int:
+    """Chains each thread of the cluster kernel takes, one round each; a
+    round waits only for its own group of asynchronous copies."""
+    return int(_library().window_taps_rounds())
+
+
+def stages_window() -> bool:
+    """Whether the cluster kernel stages the window samples in shared
+    memory by asynchronous copies (else it reads them through L1)."""
+    return bool(_library().window_taps_stages_window())
+
+
+_VP, _I32 = ctypes.c_void_p, ctypes.c_int
+# the arguments of csrc/window_taps.cu's window_taps_launch (the cluster
+# kernel) and window_taps_v1_launch (the v1 kernel)
+LAUNCH_ARGTYPES = [_I32, _I32, _VP, _I32, _VP, _I32, _VP, _VP, _VP, _I32,
+                   _I32, _I32, _I32, _VP, _VP]
+V1_ARGTYPES = [_I32, _I32, _VP, _I32, _VP, _I32, _VP, _VP, _VP, _VP, _I32,
+               _I32, _I32, _VP, _VP]
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     """Build (first use) and bind ``csrc/window_taps.cu``."""
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    return bind("window_taps", "window_taps_launch", [
-        i32, i32, vp, i32, vp, i32, vp, vp, vp, vp, i32, i32, i32, vp, vp])
+    lib = bind("window_taps", "window_taps_launch", LAUNCH_ARGTYPES)
+    lib.window_taps_v1_launch.argtypes = V1_ARGTYPES
+    lib.window_taps_v1_launch.restype = _I32
+    for fn in ("samples_per_thread", "ctas_per_window", "rounds",
+               "stages_window"):
+        getattr(lib, f"window_taps_{fn}").restype = _I32
+    return lib
 
 
 def load_kernel() -> None:

@@ -50,7 +50,7 @@ import torch
 from .. import cuda_build
 from ..constants import CodeType, DType
 from ..ops import band_taps as bt
-from ..ops.kernels import stream_of
+from ..ops.kernels import progression, stream_of
 from ..track import TrackConfig, Tracker
 
 F_SF, F_IF = 16.368e6, 4.092e6          # the receiver runs' sampling and IF
@@ -87,8 +87,10 @@ VARIANTS = {
 }
 # the variants that compute K1's function (the others take work away)
 SAME = ("kernel", "step1", "step2", "S1", "S4", "S8")
-_TAPS = ("#define TAP_CASES(X) X(1) X(3) X(5) X(7) X(9) X(11) X(13) X(15) "
-         "X(17) \\\n                     X(19) X(21) X(23) X(25)")
+# the tap counts of a source's entry points, and of a variant's (13 only)
+TAPS_ALL = ("#define TAP_CASES(X) X(1) X(3) X(5) X(7) X(9) X(11) X(13) "
+            "X(15) X(17) \\\n                     X(19) X(21) X(23) X(25)")
+TAPS13 = "#define TAP_CASES(X) X(13)"
 
 
 def inputs(device, iq: bool):
@@ -146,16 +148,55 @@ def graph_ms(fn_k, ncopy: int, reps: int = 60, rounds: int = 5) -> float:
     return float(np.median(times))
 
 
+def apply_variant(src: str, replacements, label: str) -> str:
+    """``src`` with each (old, new) of ``replacements`` applied; raises if
+    an old line is not exactly once in it."""
+    for old, new in replacements:
+        if src.count(old) != 1:
+            raise RuntimeError(f"{label}: the line {old!r} is not once in "
+                               f"the source")
+        src = src.replace(old, new)
+    return src
+
+
 def variant_source(name: str) -> str:
     """``csrc/band_taps.cu`` with variant ``name``'s replacements, built
     for 13 taps only; raises if a replaced line is not in the source."""
     src = (cuda_build.CSRC / "band_taps.cu").read_text()
-    for old, new in VARIANTS[name] + [(_TAPS, "#define TAP_CASES(X) X(13)")]:
-        if src.count(old) != 1:
-            raise RuntimeError(f"profile_band: variant {name}: the line "
-                               f"{old!r} is not once in band_taps.cu")
-        src = src.replace(old, new)
-    return src
+    return apply_variant(src, VARIANTS[name] + [(TAPS_ALL, TAPS13)],
+                         f"profile_band: variant {name}")
+
+
+def compile_sources(sources: dict, out, tool: str) -> dict:
+    """Compile each ``{name: CUDA source text}`` into ``out/lib<name>.so``
+    (one nvcc each, all started together, ``-Xptxas -v``) and load it:
+    {name: (ctypes library, compiler output)}.  Raises after all have
+    ended if any failed."""
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    try:
+        for name, src in sources.items():
+            (out / f"{name}.cu").write_text(src)
+            procs[name] = subprocess.Popen(
+                [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o",
+                 str(out / f"lib{name}.so"), str(out / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        text, failed = {}, []
+        for name, proc in procs.items():
+            o, e = proc.communicate()
+            text[name] = o + e
+            if proc.returncode != 0:
+                failed.append(f"{tool}: nvcc failed for {name}:\n"
+                              f"{e[-4000:]}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return {name: (ctypes.CDLL(str(out / f"lib{name}.so")), text[name])
+            for name in sources}
 
 
 _LIBS = {}          # variant -> its loaded library, built once per process
@@ -164,20 +205,8 @@ _LIBS = {}          # variant -> its loaded library, built once per process
 def build(names) -> dict:
     """Build every variant of ``names`` not built yet (one nvcc each, in
     parallel) and load it: {name: ctypes library}."""
-    OUT.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in (n for n in names if n not in _LIBS):
-        (OUT / f"{name}.cu").write_text(variant_source(name))
-        procs[name] = subprocess.Popen(
-            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o",
-             str(OUT / f"lib{name}.so"), str(OUT / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    for name, proc in procs.items():
-        _, err = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"profile_band: nvcc failed for {name}:\n"
-                               f"{err[-4000:]}")
-        lib = ctypes.CDLL(str(OUT / f"lib{name}.so"))
+    todo = {n: variant_source(n) for n in names if n not in _LIBS}
+    for name, (lib, _) in compile_sources(todo, OUT, "profile_band").items():
         lib.band_taps_launch.argtypes = bt.LAUNCH_ARGTYPES
         lib.band_taps_launch.restype = ctypes.c_int
         lib.band_taps_ctas_per_window.restype = ctypes.c_int
@@ -190,7 +219,7 @@ def launcher(lib, offsets, smax: int, out, ok):
     rc, wstart, n, rem, ftot, active) into ``out`` and ``ok`` as
     :func:`gnsslib_tpu_torch.ops.band_taps.launch` does."""
     offsets = tuple(int(o) for o in offsets)
-    d = bt.progression(offsets)
+    d = progression(offsets)
     dev = out.device
 
     def fn(a):

@@ -16,7 +16,8 @@ from gnsslib_tpu_torch.ops import band_taps as bt
 from gnsslib_tpu_torch.ops import gram_taps as gt
 from gnsslib_tpu_torch.ops import window_taps as wt
 from gnsslib_tpu_torch.ops.correlator import tap_offsets
-from gnsslib_tpu_torch.tools import profile_band, profile_kernel
+from gnsslib_tpu_torch.tools import (profile_band, profile_kernel,
+                                     profile_window)
 from gnsslib_tpu_torch.track import (FastTracker, TrackConfig, Tracker,
                                      state_from_numpy, state_to_numpy)
 
@@ -280,6 +281,173 @@ def test_window_taps_kernels_match_plain(dev, fn, iq):
     assert counts.kernel == 1 and counts.plain == 0
     err = float((zk - zp).abs().max())
     assert err <= _tol(win, n, 1e-4 if bf16 else 1e-5), err
+
+
+# --- K3 (bf16 windows, int8 rows) and K4/K5 (f32): the window kernels -- #
+WINDOW_WRAPPERS = {"bf16": (wt.correlate_windows16, wt.COUNTS16),
+                   "f32": (wt.correlate_windows8, wt.COUNTS8)}
+
+
+def _win_inputs(kind, B, iq, seed, dev, smax, nwin=16376, nn=16368):
+    """Fetched windows of ``kind`` ("bf16": K3, "f32": K4/K5) at the main
+    path's window length: 8-bit samples, +-1 replica rows of nwin + 2*smax
+    values, n around nn; returns (host windows, host n, tensors)."""
+    rng = np.random.default_rng(seed)
+    win = rng.integers(-128, 128, (B, nwin, 2) if iq else (B, nwin)
+                       ).astype(np.float32)
+    rc = rng.choice(np.asarray([-1, 1], np.int8), (B, nwin + 2 * smax))
+    rem = rng.uniform(0, 1, B).astype(np.float32)
+    ftot = rng.uniform(-0.5, 0.5, B).astype(np.float32)
+    n = rng.integers(nn - 2, nn + 3, B).astype(np.int32)
+    t = [torch.from_numpy(a).to(dev) for a in (win, rc, rem, ftot, n)]
+    if kind == "bf16":
+        t[0] = t[0].to(torch.bfloat16)
+    else:
+        t[1] = t[1].to(torch.float32)
+    return win, n, t
+
+
+def _win_tol(kind, win, n):
+    """Phase 3's tolerance over the windows' valid samples (1e-5 of the
+    largest window L1 norm for f32, 1e-4 for K3's bf16 flips)."""
+    nwin = win.shape[1]
+    a = np.abs(win).reshape(win.shape[0], nwin, -1).sum(-1)
+    l1 = max([1.0] + [float(a[b, :k].sum())
+                      for b, k in enumerate(np.clip(n, 0, nwin))])
+    return profile_window.tolerance(kind, l1)
+
+
+def _win_run(kind, args, offsets, smax):
+    """The wrapper's taps, the plain version's, and the counters' change."""
+    fn, counts = WINDOW_WRAPPERS[kind]
+    counts.reset()
+    zk = fn(*args, offsets, smax)
+    zp = wt.window_taps_plain(*args, offsets, smax)
+    torch.cuda.synchronize()
+    return zk, zp, (counts.kernel, counts.v1, counts.plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("corrd", [1, 2, 3, 4])
+@pytest.mark.parametrize("iq,corrn", [(False, 6), (True, 6), (False, 1),
+                                      (False, 0), (True, 0), (False, 12),
+                                      (True, 12)])
+@pytest.mark.parametrize("kind", ["bf16", "f32"])
+def test_window_taps_cluster_kernel_matches_plain(dev, kind, iq, corrn,
+                                                  corrd):
+    """The window cluster kernel (K3 and the f32 instantiation) vs
+    window_taps_plain on the card at the main path's window length, at
+    tap counts 1, 3, 13 and 25 and tap spacings 1-4: one cluster-kernel
+    launch, no v1, no plain."""
+    smax = corrn * corrd
+    offsets = tap_offsets(corrn, corrd)
+    win, n, args = _win_inputs(kind, 320, iq, 10 * corrn + corrd + iq, dev,
+                               smax)
+    zk, zp, counts = _win_run(kind, args, offsets, smax)
+    assert counts == (1, 0, 0)
+    assert float((zk - zp).abs().max()) <= _win_tol(kind, win, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iq", [False, True])
+@pytest.mark.parametrize("kind", ["bf16", "f32"])
+def test_window_taps_ragged_windows(dev, kind, iq):
+    """n = 0 and n < 0, n below one segment, n that is no multiple of
+    S*J, n at a segment's edge (either side), n = nwin and n beyond nwin."""
+    smax, nwin, B = 18, 16376, 64
+    win, _, args = _win_inputs(kind, B, iq, 71 + iq, dev, smax)
+    tile = wt.samples_per_thread() * 3              # kJ samples at d = 3
+    seg = -(-(-(-nwin // wt.ctas_per_window())) // tile) * tile  # ceils
+    n = np.asarray([0, -5, 1, 2, 99, 100, 98, seg - 1, seg, seg + 1,
+                    2 * seg + 17, 3 * seg - 1, nwin - 1, nwin, nwin + 40,
+                    5000], np.int32)
+    n = np.resize(n, B)
+    args[4] = torch.from_numpy(n).to(dev)
+    offsets = tap_offsets(6, 3)
+    zk, zp, counts = _win_run(kind, args, offsets, smax)
+    assert counts == (1, 0, 0)
+    assert float((zk - zp).abs().max()) <= _win_tol(kind, win, n)
+    assert torch.all(zk[torch.from_numpy(n <= 0).to(dev)] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,iq", [(1, False), (7, True), (321, False)])
+@pytest.mark.parametrize("kind", ["bf16", "f32"])
+def test_window_taps_batch_sizes(dev, kind, B, iq):
+    """Any number of windows (clusters of S CTAs each), one launch."""
+    smax = 18
+    win, n, args = _win_inputs(kind, B, iq, 81 + B, dev, smax)
+    zk, zp, counts = _win_run(kind, args, tap_offsets(6, 3), smax)
+    assert counts == (1, 0, 0) and zk.shape == (B, 26)
+    assert float((zk - zp).abs().max()) <= _win_tol(kind, win, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offsets", [(0, -1, 2), (0, -2, 2, -4, 5), (3,),
+                                     (0, 3, -3)])
+@pytest.mark.parametrize("kind", ["bf16", "f32"])
+def test_window_taps_non_progression_goes_to_v1(dev, kind, offsets):
+    """Offsets that are not tap_offsets(corrn, d) launch the v1 kernel,
+    counted in v1 (not kernel), and match the plain version."""
+    smax = 6
+    win, n, args = _win_inputs(kind, 64, False, 91, dev, smax)
+    zk, zp, counts = _win_run(kind, args, offsets, smax)
+    assert counts == (0, 1, 0)
+    assert float((zk - zp).abs().max()) <= _win_tol(kind, win, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iq", [False, True])
+@pytest.mark.parametrize("kind", ["bf16", "f32"])
+def test_window_taps_bit_identical_and_graph_replay(dev, kind, iq):
+    """Two launches give bit-identical taps (no atomics, a fixed
+    reduction order), and a launch captured in a CUDA graph and replayed
+    gives the eager launch's bits."""
+    smax = 18
+    offsets = tap_offsets(6, 3)
+    _, _, args = _win_inputs(kind, 320, iq, 101 + iq, dev, smax)
+    fn, _ = WINDOW_WRAPPERS[kind]
+    z1 = fn(*args, offsets, smax)
+    z2 = fn(*args, offsets, smax)
+    torch.cuda.synchronize()
+    assert torch.equal(z1.view(torch.int32), z2.view(torch.int32))
+    k = 1 if kind == "bf16" else 0
+    out = torch.empty_like(z1)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):              # warm-up before capture
+        wt.launch(k, *args, offsets, smax, out)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        wt.launch(k, *args, offsets, smax, out)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), z1.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", profile_window.SAME)
+@pytest.mark.parametrize("iq", [False, True])
+@pytest.mark.parametrize("kind", ["bf16", "f32"])
+def test_profile_window_variants_match_plain(dev, kind, iq, variant):
+    """The v1 kernel, and the window kernel's build steps, cluster sizes,
+    rounds and window staging as tools/profile_window.py builds
+    and times them, against the plain version at the main path's shapes
+    (13 taps)."""
+    trk, l1, _, args = profile_window.inputs(dev, kind, iq)
+    zp = wt.window_taps_plain(*args, trk.offsets, trk.smax)
+    out = torch.empty_like(zp)
+    if variant == "v1":
+        wt.launch_v1(profile_window.KINDS[kind], *args, trk.offsets,
+                     trk.smax, out)
+    else:      # one nvcc per variant, all in parallel on the first call
+        lib = profile_window.build(profile_window.VARIANTS)[variant]
+        profile_window.launcher(lib, kind, trk.offsets, trk.smax, out)(args)
+    torch.cuda.synchronize()
+    assert float((out - zp).abs().max()) <= profile_window.tolerance(kind,
+                                                                     l1)
 
 
 @pytest.mark.cuda
