@@ -422,9 +422,7 @@ def phase_window_kernels(dev, iq: bool) -> dict:
             *args, offsets, smax), 5)
         log(f"[3] {name} {kind:4s}: {card_line()}; cluster kernel S="
             f"{wt.ctas_per_window()} CTAs per window, J="
-            f"{wt.samples_per_thread()} samples per chain, "
-            f"{wt.rounds()} rounds, window "
-            f"{'staged' if wt.stages_window() else 'through L1'}: cold "
+            f"{wt.samples_per_thread()} samples per chain: cold "
             f"{cold['kernel']:.4f} ms/launch, warm {warm['kernel']:.4f} ms; "
             f"v1 kernel cold {cold['v1']:.4f} ms, warm {warm['v1']:.4f} ms "
             f"(device time: launches replayed from one CUDA graph; cold: "

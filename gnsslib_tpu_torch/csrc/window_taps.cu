@@ -38,8 +38,8 @@
 // with base = smax - corrn*d; the wrapper sends any other offsets to v1.
 // tools/profile_window.py builds the steps below, the other choices of
 // each constant and ablations as variants of this source and times them
-// (PERF.md, PR 7, has the table; at the main path's shapes the kernel
-// takes about half of v1's time, K3 and the f32 instantiation alike):
+// (PERF.md has the table; at the main path's shapes K3 takes under half
+// of v1's time, the f32 instantiation about two thirds):
 //
 // 1. Reuse each replica value across the taps.  A thread takes a chain of
 //    kJ samples s0 + j*d and holds R[q] = r[s0 + base + q*d],
@@ -58,12 +58,16 @@
 //    first byte: K3's int8 rows start every 16412 bytes (4-byte aligned
 //    only) and a segment starts anywhere in its row; a copy that reaches
 //    past the bytes asked for (or the last row) is cut to those bytes.
-//    This step moved most.  Staging the window too (kStageWindow) beat
-//    reading it through L1 in most runs: the windows come from device
-//    memory, unlike K1's block, which stays in L2.  Splitting the copies
-//    into kRounds groups, one per round of chains of each thread, so that
-//    a round computes while the next one's copies land, was slower at 2
-//    and 4 rounds (fewer threads per CTA): kRounds = 1.
+//    This step moved most.  Staging the window too beat reading it
+//    through L1 for K3 and for f32 I/Q windows (by up to 30%): the
+//    windows come from device memory, unlike K1's block, which stays in
+//    L2.  f32 real windows read up to 13% faster through L1 in most runs
+//    and slower in one; one path, staged, serves all.  Two designs that
+//    should hide the copies behind the chains were slower (PERF.md): the
+//    copies split into one group per round of chains, 2 or 4 chains per
+//    thread, and clusters that stay resident and stage the next window
+//    while they compute one (twice the shared memory, so fewer CTAs per
+//    SM).
 // 3. Fill the card.  Each window is split into S = kCluster segments, one
 //    CTA each, and the S CTAs of a window run as one thread-block cluster
 //    (cudaLaunchKernelEx with the cluster attribute).  Each CTA reduces its
@@ -76,8 +80,8 @@
 //    barrier, so every CTA of a cluster takes the same early return or
 //    reaches every barrier.  S = 2 was the fastest of 1, 2 and 4.  Both
 //    instantiations fit 80 registers with no spill (3 CTAs of 256 threads
-//    per SM); at 64 (4 CTAs) K3 real spills 8 bytes and none is faster by
-//    more than 1%.
+//    per SM); capped at 64 (4 CTAs) some instantiations spill and none
+//    is faster by more than 2%.
 // 4. Carrier.  sincospif(2*ph) in place of sincosf(f32(2*pi) * ph): no
 //    Payne-Hanek reduction, no rounding of the angle; about a fifth of the
 //    kernel's time is still the carrier.  Its error against the plain
@@ -100,9 +104,6 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kJ = 33;            // samples per chain (stride d)
 constexpr int kCluster = 2;       // CTAs per window: one thread-block cluster
-constexpr bool kStageWindow = true;   // window samples by cp.async, not L1
-constexpr int kRounds = 1;        // chains per thread, one cp.async group each
-constexpr bool kPersistent = false;   // clusters that fit at once take all windows
 constexpr float kTwoPi = 6.283185307179586f;   // f32(2*pi), as the plain version
 
 __device__ __forceinline__ float frac_f(float x) { return x - floorf(x); }
@@ -225,8 +226,6 @@ struct ClusterArgs {
   int d;                         // the offsets' step
   int base;                      // smax - corrn * d: the lag of tap m is base + m*d
   int seg;                       // samples per CTA, a multiple of kJ * d
-  int nwindows;
-  int buf;                       // bytes between the two staging buffers (0: one)
   float* out;
 };
 
@@ -262,48 +261,25 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// Wait until at most n of this thread's committed cp.async groups are
-// pending (n above 3 waits as for 3: for more groups, never fewer).
-__device__ __forceinline__ void cp_async_wait_pending(int n) {
-  switch (n) {
-    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
-    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
-    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
-    default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
-  }
-}
-
-// Where byte `first` of src lands in its staging: (src + first) mod 16.
-__device__ __forceinline__ int head_of(const void* src, long long first) {
-  return static_cast<int>(reinterpret_cast<uintptr_t>(
-                              static_cast<const unsigned char*>(src) + first) &
-                          15);
-}
-
-// The 16-byte vectors that hold the first `bytes` of a staging at `head`.
-__device__ __forceinline__ int vectors_of(int head, int bytes) {
-  return (head + bytes + 15) >> 4;
-}
-
-// Vectors [v0, v1) of the staging of bytes [first, first + count) of src
-// (len bytes): vector v holds the bytes from the 16-byte boundary at or
-// below src + first on, 16 v further, and lands at dst + 16 v, so that
-// byte first lands at dst + head (head_of).  Copies are 16-byte cp.async;
-// a copy that reaches past first + count or len is cut to the bytes in
-// range (the rest of its 16 are zero); a vector that starts before src is
-// copied byte by byte.  dst is 16-byte aligned and holds
-// staged_bytes(count).  The caller commits, waits and synchronises.
-__device__ __forceinline__ void stage_vectors(unsigned char* dst,
-                                              const void* src, long long len,
-                                              long long first, int head,
-                                              int count, int v0, int v1) {
+// bytes [first, first + count) of src (len bytes) land at dst + head,
+// head = (src + first) mod 16, by 16-byte cp.async copies from the 16-byte
+// boundary at or below src + first, every one issued before any wait.  A
+// copy that reaches past first + count or len is cut to the bytes in range
+// (the rest of its 16 are zero); a vector that starts before src is copied
+// byte by byte.  dst is 16-byte aligned and holds staged_bytes(count).
+// Returns head; the caller waits (cp_async_wait_all) and synchronises.
+__device__ __forceinline__ int stage_async(unsigned char* dst,
+                                           const void* src, long long len,
+                                           long long first, int count) {
   const unsigned char* s = static_cast<const unsigned char*>(src);
+  const int head = static_cast<int>(
+      reinterpret_cast<uintptr_t>(s + first) & 15);
   const long long end = min(len, first + count);
-  for (int v = v0 + threadIdx.x; v < v1; v += blockDim.x) {
+  for (int v = threadIdx.x; v < (head + count + 15) >> 4; v += blockDim.x) {
     const long long k0 = first - head + 16LL * v;   // the vector's first byte
     unsigned char* out = dst + 16 * v;
     if (k0 >= 0 && k0 < end) {
@@ -316,6 +292,7 @@ __device__ __forceinline__ void stage_vectors(unsigned char* dst,
         out[e] = k0 + e >= 0 && k0 + e < end ? s[k0 + e] : 0;
     }
   }
+  return head;
 }
 
 // One level of a warp butterfly over v[0, 2H): lanes that differ in bit H
@@ -396,95 +373,7 @@ __device__ __forceinline__ void chain_taps(float (&ac)[NT], float (&as)[NT],
   }
 }
 
-// Window b's valid samples in the segment from seg0 (0 without work).
-__device__ __forceinline__ int samples_here(const ClusterArgs& a, int b,
-                                            int seg0) {
-  return max(0, min(min(a.nvalid[b], a.nwin) - seg0, a.seg));
-}
-
-// Issue the copies of window b's segment (lim valid samples from seg0)
-// into buf: `rounds` cp.async groups, round p's holding the vectors its
-// chains need beyond the earlier rounds' (empty groups when lim == 0).
-template <int C, int F, typename W, typename R>
-__device__ __forceinline__ void stage_window(const ClusterArgs& a, int b,
-                                             int seg0, int lim, int rounds,
-                                             unsigned char* buf) {
-  const int d = a.d;
-  const int tile = kJ * d;
-  const int ntile = a.seg / tile;
-  const int T = blockDim.x;
-  const int rcount = (a.seg + 2 * C * d) * (int)sizeof(R);
-  const long long rfirst =
-      ((long long)b * a.next + seg0 + a.base) * (long long)sizeof(R);
-  const int rhead = head_of(a.rc, rfirst);
-  unsigned char* wsm = buf + staged_bytes(rcount);
-  const long long wfirst =
-      ((long long)b * a.nwin + seg0) * F * (long long)sizeof(W);
-  const int whead = head_of(a.win, wfirst);
-  const int wcount = lim * F * (int)sizeof(W);
-  int rv = 0, wv = 0;
-  for (int p = 0; p < rounds; ++p) {
-    if (lim > 0) {
-      const int send = (min(((p + 1) * T - 1) / d, ntile - 1) + 1) * tile;
-      const int rv1 = vectors_of(
-          rhead, min((send + 2 * C * d) * (int)sizeof(R), rcount));
-      stage_vectors(buf, a.rc, a.rc_bytes, rfirst, rhead, rcount, rv, rv1);
-      rv = rv1;
-      if constexpr (kStageWindow) {
-        const int wv1 = vectors_of(whead, min(send, lim) * F * (int)sizeof(W));
-        stage_vectors(wsm, a.win, a.win_bytes, wfirst, whead, wcount, wv, wv1);
-        wv = wv1;
-      }
-    }
-    cp_async_commit();
-  }
-}
-
-// The chains of window b's segment, staged in buf, into ac/as: round p
-// takes chains [p*T, (p+1)*T) after its copies have landed (`ahead`
-// groups were committed after this window's: the next window's).
-template <int NT, bool IQ, bool BF16, typename W, typename R>
-__device__ __forceinline__ void window_chains(float (&ac)[NT], float (&as)[NT],
-                                              const ClusterArgs& a, int b,
-                                              int seg0, int lim, int rounds,
-                                              int ahead,
-                                              const unsigned char* buf,
-                                              float f, float r0) {
-  constexpr int C = (NT - 1) / 2;
-  constexpr int F = IQ ? 2 : 1;
-  const int d = a.d;
-  const int tile = kJ * d;
-  const int ntile = a.seg / tile;
-  const int T = blockDim.x;
-  const int rcount = (a.seg + 2 * C * d) * (int)sizeof(R);
-  const long long rfirst =
-      ((long long)b * a.next + seg0 + a.base) * (long long)sizeof(R);
-  const R* rep = reinterpret_cast<const R*>(buf + head_of(a.rc, rfirst));
-  const long long wfirst =
-      ((long long)b * a.nwin + seg0) * F * (long long)sizeof(W);
-  const W* x;                                      // the segment's samples
-  if constexpr (kStageWindow)
-    x = reinterpret_cast<const W*>(buf + staged_bytes(rcount) +
-                                   head_of(a.win, wfirst));
-  else
-    x = static_cast<const W*>(a.win) + wfirst / (long long)sizeof(W);
-  for (int p = 0; p < rounds; ++p) {
-    cp_async_wait_pending(rounds - 1 - p + ahead);
-    __syncthreads();
-    // chain u: tile k = u / d of kJ*d samples, residue u % d
-    const int u = p * T + threadIdx.x;
-    const int k = u / d;
-    const int s0 = k * tile + (u - k * d);
-    if (k < ntile && s0 < lim)
-      chain_taps<NT, IQ, BF16>(ac, as, rep + s0, x + F * s0, d, lim - s0,
-                               f, r0, (float)(seg0 + s0));
-  }
-}
-
-// 80 registers up to 13 taps (3 CTAs of 256 threads per SM), 255 above.
-// Cluster c takes windows c, c + G, c + 2G, ... (G clusters); with more
-// than one, the next window's copies are issued into the other staging
-// buffer before this window's chains run.
+// 80 registers up to 13 taps (3 CTAs of 256 threads per SM), 255 above
 template <int NT, bool IQ, typename W, typename R, bool BF16>
 __global__ void __launch_bounds__(kThreads, NT <= 13 ? 3 : 1)
 window_taps_cluster_kernel(const ClusterArgs a) {
@@ -494,89 +383,98 @@ window_taps_cluster_kernel(const ClusterArgs a) {
   constexpr int NCH = (NV + 31) / 32;        // 32-sum chunks
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float part[kWarps][32 * NCH];
-  __shared__ float gather[2][kCluster][NV];  // rank 0's, by window parity
+  __shared__ float gather[kCluster][NV];     // rank 0's: every rank's sums
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
-  const int G = gridDim.x / kCluster;
+  const int b = blockIdx.x / kCluster;
   const int tid = threadIdx.x;
+  float* o = a.out + (size_t)b * NV;
+
+  const int n = min(a.nvalid[b], a.nwin);
+  const float f = a.ftot[b];
+  const float r0 = a.rem[b];
+  if (n <= 0) {                 // the same in every CTA of the cluster
+    if (rank == 0)
+      for (int t = tid; t < NV; t += blockDim.x) o[t] = 0.f;
+    return;
+  }
+  // arrive now, wait before writing to rank 0's shared memory: every CTA
+  // of the cluster has then started
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+
+  const int d = a.d;
+  const int seg = a.seg;
+  const int seg0 = rank * seg;                     // first window sample
+  const int lim = max(0, min(n - seg0, seg));      // valid samples here
+
+  float ac[NT], as[NT];                            // lag order m
+#pragma unroll
+  for (int m = 0; m < NT; ++m) {
+    ac[m] = 0.f;
+    as[m] = 0.f;
+  }
+
+  if (lim > 0) {                                   // uniform in the CTA
+    const int nrep = seg + 2 * C * d;              // replica values read
+    const int rcount = nrep * (int)sizeof(R);
+    const long long rfirst =
+        ((long long)b * a.next + seg0 + a.base) * (long long)sizeof(R);
+    const int rhead = stage_async(smem, a.rc, a.rc_bytes, rfirst, rcount);
+    const R* rep = reinterpret_cast<const R*>(smem + rhead);
+    unsigned char* wsm = smem + staged_bytes(rcount);
+    const long long wfirst =
+        ((long long)b * a.nwin + seg0) * F * (long long)sizeof(W);
+    const W* x = reinterpret_cast<const W*>(           // the segment's samples
+        wsm + stage_async(wsm, a.win, a.win_bytes, wfirst,
+                          lim * F * (int)sizeof(W)));
+    cp_async_wait_all();
+    __syncthreads();
+    // chain u: tile k = u / d of kJ*d samples, residue u % d
+    const int tile = kJ * d;
+    for (int u = tid; u < seg / tile * d; u += blockDim.x) {
+      const int k = u / d;
+      const int s0 = k * tile + (u - k * d);
+      if (s0 < lim)
+        chain_taps<NT, IQ, BF16>(ac, as, rep + s0, x + F * s0, d, lim - s0,
+                                 f, r0, (float)(seg0 + s0));
+    }
+  }
+
+  // The CTA's sums, [cos_m, sin_m] in lag order: a butterfly over the
+  // warp (fold) leaves lane l with the warp's sum of value l of each
+  // 32-value chunk; then the warps' sums are added in warp order.
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int seg0 = rank * a.seg;                   // first window sample
-  const int rounds = (a.seg / (kJ * a.d) * a.d + blockDim.x - 1) / blockDim.x;
-
-  int b = blockIdx.x / kCluster;
-  int lim = samples_here(a, b, seg0);              // valid samples here
-  float f = a.ftot[b];
-  float r0 = a.rem[b];
-  stage_window<C, F, W, R>(a, b, seg0, lim, rounds, smem);
-  // arrive now, wait before the first write to rank 0's shared memory:
-  // every CTA of the cluster has then started
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-  for (int i = 0; b < a.nwindows; ++i) {
-    // the same windows in every CTA of the cluster: every CTA reaches
-    // every barrier, whatever the windows' lengths
-    const int bn = b + G;
-    const bool more = bn < a.nwindows;
-    int limn = 0;
-    float fn = 0.f, rn = 0.f;
-    if (more) {
-      limn = samples_here(a, bn, seg0);
-      fn = a.ftot[bn];
-      rn = a.rem[bn];
-      stage_window<C, F, W, R>(a, bn, seg0, limn, rounds,
-                               smem + ((i + 1) & 1) * a.buf);
-    }
-    float ac[NT], as[NT];                          // lag order m
+  float v[NCH][32];
 #pragma unroll
-    for (int m = 0; m < NT; ++m) {
-      ac[m] = 0.f;
-      as[m] = 0.f;
-    }
-    window_chains<NT, IQ, BF16, W, R>(ac, as, a, b, seg0, lim, rounds,
-                                      more ? rounds : 0,
-                                      smem + (i & 1) * a.buf, f, r0);
-
-    // The CTA's sums, [cos_m, sin_m] in lag order: a butterfly over the
-    // warp (fold) leaves lane l with the warp's sum of value l of each
-    // 32-value chunk; then the warps' sums are added in warp order.
-    float v[NCH][32];
+  for (int k = 0; k < 32 * NCH; ++k) v[k / 32][k % 32] = 0.f;
 #pragma unroll
-    for (int k = 0; k < 32 * NCH; ++k) v[k / 32][k % 32] = 0.f;
+  for (int m = 0; m < NT; ++m) {
+    v[2 * m / 32][2 * m % 32] = ac[m];
+    v[(2 * m + 1) / 32][(2 * m + 1) % 32] = as[m];
+  }
 #pragma unroll
-    for (int m = 0; m < NT; ++m) {
-      v[2 * m / 32][2 * m % 32] = ac[m];
-      v[(2 * m + 1) / 32][(2 * m + 1) % 32] = as[m];
-    }
-#pragma unroll
-    for (int ch = 0; ch < NCH; ++ch) {
-      fold<16>(v[ch], lane);
-      part[warp][32 * ch + lane] = v[ch][0];
-    }
-    __syncthreads();
-    // each rank writes its sums into rank 0's gather[i & 1][rank]; after
-    // the cluster barrier rank 0 adds them in rank order.  The next
-    // window writes the other half, and the one after it this half only
-    // after the next barrier, which rank 0 reaches after these reads.
-    if (i == 0) asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-    float* to = cluster.map_shared_rank(&gather[i & 1][0][0], 0) + rank * NV;
+  for (int ch = 0; ch < NCH; ++ch) {
+    fold<16>(v[ch], lane);
+    part[warp][32 * ch + lane] = v[ch][0];
+  }
+  __syncthreads();
+  // each rank writes its sums into rank 0's gather[rank]; after the
+  // cluster barrier rank 0 adds them in rank order
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  float* to = cluster.map_shared_rank(&gather[0][0], 0) + rank * NV;
+  for (int t = tid; t < NV; t += blockDim.x) {
+    float x = 0.f;
+    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) x += part[w][t];
+    to[t] = x;
+  }
+  cluster.sync();
+  if (rank == 0) {
     for (int t = tid; t < NV; t += blockDim.x) {
       float x = 0.f;
-      for (int w = 0; w < (int)(blockDim.x >> 5); ++w) x += part[w][t];
-      to[t] = x;
+      for (int r = 0; r < kCluster; ++r) x += gather[r][t];
+      o[2 * slot_of(t >> 1, C) + (t & 1)] = x;
     }
-    cluster.sync();
-    if (rank == 0) {
-      float* o = a.out + (size_t)b * NV;
-      for (int t = tid; t < NV; t += blockDim.x) {
-        float x = 0.f;
-        for (int r = 0; r < kCluster; ++r) x += gather[i & 1][r][t];
-        o[2 * slot_of(t >> 1, C) + (t & 1)] = x;
-      }
-    }
-    b = bn;
-    lim = limn;
-    f = fn;
-    r0 = rn;
   }
 }
 
@@ -604,26 +502,26 @@ cudaError_t launch_cluster(ClusterArgs a, int nwindows, cudaStream_t stream) {
   constexpr int F = IQ ? 2 : 1;
   const int tile = kJ * a.d;
   a.seg = ceil_div(ceil_div(a.nwin, kCluster), tile) * tile;
-  a.nwindows = nwindows;
   const int nrep = a.seg + 2 * C * a.d;
-  // kRounds chains of kJ samples per thread where the segment allows
-  const int want = ceil_div(ceil_div(a.seg / tile * a.d, kRounds), 32) * 32;
+  // one chain of kJ samples per thread where the segment allows
+  const int want = ceil_div(a.seg / tile * a.d, 32) * 32;
   const int threads = want < kThreads ? want : kThreads;
-  size_t one = staged_bytes(nrep * (int)sizeof(R));   // one staging buffer
-  if (kStageWindow) one += staged_bytes(a.seg * F * (int)sizeof(W));
+  size_t shm = staged_bytes(nrep * (int)sizeof(R));
+  shm += staged_bytes(a.seg * F * (int)sizeof(W));
   auto kernel = window_taps_cluster_kernel<NT, IQ, W, R, BF16>;
   // opt in only when a launch needs more than this instantiation already
   // has, so that repeated launches (and graph capture) make no call
   static size_t opted = 48 * 1024;
-  const size_t most = kPersistent ? 2 * one : one;
-  if (most > opted) {
+  if (shm > opted) {
     cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)most);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
     if (e != cudaSuccess) return e;
-    opted = most;
+    opted = shm;
   }
   cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(nwindows * kCluster));
   cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = shm;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -632,28 +530,6 @@ cudaError_t launch_cluster(ClusterArgs a, int nwindows, cudaStream_t stream) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  // one cluster per window, or (kPersistent) as many as fit on the card
-  // at once with two staging buffers each, when that is fewer
-  int clusters = nwindows;
-  a.buf = 0;
-  if (kPersistent) {
-    static size_t asked = 0;            // the occupancy of the last shape
-    static int threads_asked = 0, fit = 0;
-    if (asked != 2 * one || threads_asked != threads) {
-      cfg.gridDim = dim3((unsigned)kCluster);
-      cfg.dynamicSmemBytes = 2 * one;
-      cudaError_t e = cudaOccupancyMaxActiveClusters(&fit, kernel, &cfg);
-      if (e != cudaSuccess) return e;
-      asked = 2 * one;
-      threads_asked = threads;
-    }
-    if (fit > 0 && fit < nwindows) {
-      clusters = fit;
-      a.buf = (int)one;
-    }
-  }
-  cfg.gridDim = dim3((unsigned)(clusters * kCluster));
-  cfg.dynamicSmemBytes = a.buf ? 2 * one : one;
   cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, a);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
@@ -773,12 +649,10 @@ extern "C" int window_taps_v1_launch(int kind, int iq, const void* win,
 #undef V1_CASE
 }
 
-// Samples per chain and CTAs per window of the cluster kernel, and whether
-// it stages the window samples (for the caller's records).
+// Samples per chain and CTAs per window of the cluster kernel (for the
+// caller's records).
 extern "C" int window_taps_samples_per_thread() { return kJ; }
 extern "C" int window_taps_ctas_per_window() { return kCluster; }
-extern "C" int window_taps_stages_window() { return kStageWindow ? 1 : 0; }
-extern "C" int window_taps_rounds() { return kRounds; }
 
 extern "C" const char* window_taps_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -205,18 +205,6 @@ def ctas_per_window() -> int:
     return int(_library().window_taps_ctas_per_window())
 
 
-def rounds() -> int:
-    """Chains each thread of the cluster kernel takes, one round each; a
-    round waits only for its own group of asynchronous copies."""
-    return int(_library().window_taps_rounds())
-
-
-def stages_window() -> bool:
-    """Whether the cluster kernel stages the window samples in shared
-    memory by asynchronous copies (else it reads them through L1)."""
-    return bool(_library().window_taps_stages_window())
-
-
 _VP, _I32 = ctypes.c_void_p, ctypes.c_int
 # the arguments of csrc/window_taps.cu's window_taps_launch (the cluster
 # kernel) and window_taps_v1_launch (the v1 kernel)
@@ -232,9 +220,8 @@ def _library() -> ctypes.CDLL:
     lib = bind("window_taps", "window_taps_launch", LAUNCH_ARGTYPES)
     lib.window_taps_v1_launch.argtypes = V1_ARGTYPES
     lib.window_taps_v1_launch.restype = _I32
-    for fn in ("samples_per_thread", "ctas_per_window", "rounds",
-               "stages_window"):
-        getattr(lib, f"window_taps_{fn}").restype = _I32
+    lib.window_taps_samples_per_thread.restype = _I32
+    lib.window_taps_ctas_per_window.restype = _I32
     return lib
 
 

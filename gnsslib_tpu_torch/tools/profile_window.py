@@ -1,6 +1,6 @@
 """Time the window correlator (K3, and the float32 instantiation of K4/K5)
 on the card against variants of its source: its build steps, cluster
-sizes, rounds and window staging, and variants that each take one
+sizes and other constants, and variants that each take one
 cost away, at the receiver's shapes.
 
     python -m gnsslib_tpu_torch.tools.profile_window [--kind bf16|f32|all]
@@ -24,20 +24,24 @@ CUDA graph, inputs rotated over copies beyond the L2 cache:
               d apart reuse each replica value across the taps; one CTA
               per window, the replica staged one value per thread, the
               window read through L1, the carrier by sincosf as in v1
-    async     step 1 + the replica and the window staged by 16-byte
-              cp.async, all in flight before one wait
-    cluster   + S CTAs per window in one thread-block cluster
-    kernel    + the carrier by sincospif: the kernel the wrappers launch
+    async     step 1 + step 2: the replica and the window staged by
+              16-byte cp.async, all in flight before one wait
+    cluster   + step 3: S = 2 CTAs per window in one thread-block cluster
+    kernel    + step 4: the carrier by sincospif; the kernel the wrappers
+              launch
     S1 S2 S4  the kernel with 1, 2 or 4 CTAs per window
-    R1 R2 R4  the kernel with 1, 2 or 4 rounds: kRounds chains per
-              thread, one cp.async group per round, round p computing
-              while the later rounds' copies land
-    stagewin  the kernel with the window staged by cp.async
-    l1win     the kernel with the window read through L1
+    l1win     the kernel with the window read through L1, not staged
+    J17 J65   the kernel with chains of 17 or 65 samples
+    B4        the kernel capped at 64 registers (4 CTAs per SM), not 80
+    i2f pack  K3's int8 and bf16 conversions by other instructions (an
+              integer add and a float subtraction; one packed rounding of
+              the cos/sin pair)
     nocarrier the carrier replaced by two multiply-adds
     nostage   no staging copies (the chains read whatever shared memory
               holds)
     nocompute no chain loop: the staging and the reduction only
+    empty     neither: the window's scalars, the reduction of zeros, the
+              cluster barriers and the row written
     launch    returns at once: the launch and CTA scheduling floor
 
 The variants of SAME compute the function and are held against
@@ -79,28 +83,30 @@ OUT = cuda_build.BUILD_DIR / "profile_window"
 _SINCOSPIF = "  sincospif(2.f * (frac_f(__fmul_rn(f, fi)) + r0), sn, cs);\n"
 _SINCOSF = [(_SINCOSPIF, "  sincosf(__fmul_rn(kTwoPi, frac_f(frac_f("
                          "__fmul_rn(f, fi)) + r0)), sn, cs);\n")]
-_STAGE = "  for (int v = v0 + threadIdx.x; v < v1; v += blockDim.x) {"
-_RCOPY = ("      stage_vectors(buf, a.rc, a.rc_bytes, rfirst, rhead, rcount, "
-          "rv, rv1);\n")
-_BY_VALUE = [(_RCOPY,
-              "      if (p == 0)\n"
-              "        for (int t = threadIdx.x; t < rcount / (int)sizeof(R);\n"
-              "             t += blockDim.x) {\n"
-              "          const long long k = rfirst / (long long)sizeof(R) + t;\n"
-              "          reinterpret_cast<R*>(buf + rhead)[t] =\n"
-              "              k < a.rc_bytes / (long long)sizeof(R)\n"
-              "                  ? static_cast<const R*>(a.rc)[k] : (R)0;\n"
-              "        }\n")]
-_CHAIN = "    if (k < ntile && s0 < lim)\n"
-_ENTRY = "  int b = blockIdx.x / kCluster;\n"
+_STAGE = ("  for (int v = threadIdx.x; v < (head + count + 15) >> 4; "
+          "v += blockDim.x) {")
+_RSTAGE = ("    const int rhead = stage_async(smem, a.rc, a.rc_bytes, rfirst, "
+           "rcount);\n")
+_BY_VALUE = [(_RSTAGE,
+              "    for (int t = tid; t < nrep; t += blockDim.x) {\n"
+              "      const long long k = rfirst / (long long)sizeof(R) + t;\n"
+              "      reinterpret_cast<R*>(smem)[t] =\n"
+              "          k < a.rc_bytes / (long long)sizeof(R)\n"
+              "              ? static_cast<const R*>(a.rc)[k] : (R)0;\n"
+              "    }\n"
+              "    const int rhead = 0;\n")]
+_L1WIN = [("    const W* x = reinterpret_cast<const W*>(           // the "
+           "segment's samples\n"
+           "        wsm + stage_async(wsm, a.win, a.win_bytes, wfirst,\n"
+           "                          lim * F * (int)sizeof(W)));\n",
+           "    const W* x = static_cast<const W*>(a.win) + wfirst / "
+           "(long long)sizeof(W);\n"),
+          ("  shm += staged_bytes(a.seg * F * (int)sizeof(W));\n", "")]
+_CHAIN = "      if (s0 < lim)\n        chain_taps<"
+_ENTRY = "  float* o = a.out + (size_t)b * NV;\n"
 _CLUSTER = "constexpr int kCluster = 2;"
-_WINDOW = "constexpr bool kStageWindow = true;"
-_ROUNDS = "constexpr int kRounds = 1;"
-_PERSIST = "constexpr bool kPersistent = false;"
 _KJ = "constexpr int kJ = 33;"
-
-
-_NOSTAGE = [(_STAGE, _STAGE.replace("v < v1", "v < 0 * v1"))]
+_NOSTAGE = [(_STAGE, _STAGE.replace("v < (head", "v < 0 * (head"))]
 _NOCHAIN = [(_CHAIN, _CHAIN.replace("s0 < lim", "s0 < 0"))]
 
 
@@ -110,14 +116,13 @@ def _set(line: str, value) -> list:
 
 
 VARIANTS = {
-    "reuse": _BY_VALUE + _set(_WINDOW, "false") + _set(_CLUSTER, 1) + _SINCOSF,
+    "reuse": _BY_VALUE + _L1WIN + _set(_CLUSTER, 1) + _SINCOSF,
     "async": _set(_CLUSTER, 1) + _SINCOSF,
     "cluster": _SINCOSF,
     "kernel": [],
     **{f"S{c}": _set(_CLUSTER, c) for c in (1, 2, 4)},
-    **{f"R{r}": _set(_ROUNDS, r) for r in (1, 2, 4)},
-    "stagewin": _set(_WINDOW, "true"),
-    "l1win": _set(_WINDOW, "false"),
+    "l1win": _L1WIN,
+    **{f"J{j}": _set(_KJ, j) for j in (17, 65)},
     "B4": [("__launch_bounds__(kThreads, NT <= 13 ? 3 : 1)",
             "__launch_bounds__(kThreads, NT <= 13 ? 4 : 1)")],
     "i2f": [("__device__ __forceinline__ float as_float(int8_t x) { return "
@@ -127,22 +132,17 @@ VARIANTS = {
     "pack": [("  a = bf16_round(a);\n  b = bf16_round(b);\n",
               "  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);\n"
               "  a = __low2float(h);\n  b = __high2float(h);\n")],
-    **{f"J{j}": _set(_KJ, j) for j in (17, 65)},
-    "persist": _set(_PERSIST, "true"),
-    "persistS4": _set(_PERSIST, "true") + _set(_CLUSTER, 4),
-    "persistJ17": _set(_PERSIST, "true") + _set(_KJ, 17),
     "nocarrier": [(_SINCOSPIF, "  *sn = fmaf(f, fi, r0);\n"
                                "  *cs = fmaf(r0, fi, f);\n")],
     "nostage": _NOSTAGE,
     "nocompute": _NOCHAIN,
     "empty": _NOSTAGE + _NOCHAIN,
-    "launch": [(_ENTRY, "  if (a.d > 0) return;\n" + _ENTRY)],
+    "launch": [(_ENTRY, _ENTRY + "  if (a.d > 0) return;\n")],
 }
 # the variants that compute the function (the others take work away);
 # v1 is the wrappers' library's own entry point
-SAME = ("v1", "reuse", "async", "cluster", "kernel", "S1", "S2",
-        "S4", "R1", "R2", "R4", "stagewin", "l1win", "B4", "i2f", "pack",
-        "J17", "J65", "persist", "persistS4", "persistJ17")
+SAME = ("v1", "reuse", "async", "cluster", "kernel", "S1", "S2", "S4",
+        "l1win", "J17", "J65", "B4", "i2f", "pack")
 
 
 def inputs(device, kind: str, iq: bool, seed: int = 17):
@@ -313,8 +313,9 @@ def profile(kind: str = "bf16", iq: bool = False, rounds: int = 5,
                              rounds=rounds)
         rec["regs"] = "" if name == "v1" else registers(name, kind, iq)
     for name, rec in res.items():
-        log(f"{name:10s} {rec['ms']:8.4f} ms  ({rec['ms'] - res['kernel']['ms']:+.4f}"
-            f" vs kernel)  {rec['regs']}")
+        gap = rec["ms"] - res["kernel"]["ms"]
+        log(f"{name:10s} {rec['ms']:8.4f} ms  ({gap:+.4f} vs kernel)  "
+            f"{rec['regs']}")
     return res
 
 

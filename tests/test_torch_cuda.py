@@ -433,7 +433,7 @@ def test_window_taps_bit_identical_and_graph_replay(dev, kind, iq):
 @pytest.mark.parametrize("kind", ["bf16", "f32"])
 def test_profile_window_variants_match_plain(dev, kind, iq, variant):
     """The v1 kernel, and the window kernel's build steps, cluster sizes,
-    rounds and window staging as tools/profile_window.py builds
+    chain lengths and conversions as tools/profile_window.py builds
     and times them, against the plain version at the main path's shapes
     (13 taps)."""
     trk, l1, _, args = profile_window.inputs(dev, kind, iq)
