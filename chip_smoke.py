@@ -11,20 +11,21 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
 2. build the correlator kernels (csrc/band_taps.cu, window_taps.cu,
    gram_taps.cu, ablation_taps.cu), one nvcc each, all in parallel, and
    print ptxas's registers and spills of the 13-tap instantiations (both
-   entry points of K1 and of K3-K5, and K1's 25-tap cluster kernel);
+   entry points of K1-K5; K2's banded Gram at the 7 n-tiles of 13 taps
+   3 apart), K1's 25-tap cluster kernel and K2's 11 n-tiles (25 taps);
 3. each kernel vs its plain PyTorch version at the main path's shapes (320
    windows of 16376 samples, 16412-sample replica rows, 13 taps; K2 on
    (320, 128, 128) bf16 rows; K6's four variants at the profiler's 320 x
    16493 windows and 18229-sample rows), real and I/Q input, with
    CUDA-event times of both and the card's bound for the same work.  K1
-   and K3-K5 run as their cluster kernel and as their v1 kernel, each
-   checked for bit-identical repeat launches and timed warm and cold
-   (beyond L2) by launches replayed from a CUDA graph, and cold by eager
-   launches; K2 is timed cold by graph replay and by eager launches.
-   Then ``gnsslib_tpu_torch.tools.profile_window``: the window kernel's
-   build steps, cluster sizes and ablations for K3 and the f32
-   instantiation, real and I/Q, each checked against the plain version
-   and timed by graph replay;
+   and K3-K5 run as their cluster kernel, K2 as its banded-Gram kernel on
+   the tensor cores, and each as its v1 kernel, each checked for
+   bit-identical repeat launches and timed warm and cold (beyond L2) by
+   launches replayed from a CUDA graph, and cold by eager launches.
+   Then ``gnsslib_tpu_torch.tools.profile_window`` and ``profile_gram``:
+   the window kernel's build steps, cluster sizes and ablations for K3 and
+   the f32 instantiation, and K2's, real and I/Q, each checked against the
+   plain version and timed by graph replay;
 4. synthesize both captures in one process pool: the slice's (4 visible
    GPS L1CA PRNs with LNAV bit streams) and the positioning run's (7
    satellites above 15 degrees for a known receiver position, one dark
@@ -44,8 +45,8 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
 8. the correlator profiler (``gnsslib_tpu_torch.tools.profile_fast``) at
    full width: every backend eager and replayed (as one block graph and as
    a one-super-step graph) and every probe, launching K1-K5 (all through
-   their cluster kernels: no v1 launch), then a short duel of the same
-   rows;
+   their cluster or banded-Gram kernels: no v1 launch), then a short duel
+   of the same rows;
 9. the kernel profiler (``gnsslib_tpu_torch.tools.profile_kernel``): K6's
    four variants per launch, and 100 chained launches eager and replayed
    from one CUDA graph;
@@ -454,34 +455,64 @@ def phase_window_profiler(dev) -> dict:
 
 
 def phase_gram_kernel(dev, iq: bool) -> dict:
-    """K2 vs its plain version on (320, 128, 128) bf16 window rows fetched
-    and masked as the fused backend fetches them."""
+    """K2 at the 32-channel L1CA super-step's shapes ((320, 128, 128) bf16
+    rows fetched and masked as the fused backend fetches them): the
+    wrapper (one banded-Gram launch, no v1, no plain), the banded-Gram
+    kernel and the v1 kernel against the plain version, two launches of
+    each bit-identical, and cold (beyond L2) and warm times of both by
+    graph replay, cold eager beside.  Importable: after
+    ``cuda_build.build_all(("gram_taps",))`` it is the kernel-only loop;
+    ``python -m gnsslib_tpu_torch.tools.profile_gram`` times the kernel's
+    build steps, cluster sizes and ablations."""
     import torch
     from gnsslib_tpu_torch.ops import gram_taps as gt
     from gnsslib_tpu_torch.tools.profile_band import graph_ms
-    from gnsslib_tpu_torch.tools.profile_window import inputs
-    from gnsslib_tpu_torch.track import FastTracker
-    trk, l1, (win, rc, rem, ftot, n), _ = inputs(dev, "f32", iq, seed=23)
-    fast = FastTracker(trk)
-    B, T, smax = 320, len(trk.offsets), trk.smax
-    w = torch.from_numpy(win.reshape((-1,) + win.shape[2:])).to(dev)
-    starts = torch.arange(B, dtype=torch.int32, device=dev) * trk.nwin
-    nt = torch.from_numpy(n).to(dev)
-    rows = fast._fetch_windows(fast._block_rows(w), starts, rowform=True,
-                               nvalid=nt)
-    wi, wq = rows if iq else (rows, None)
-    args = [wi, wq] + [torch.from_numpy(a).to(dev) for a in (rc, rem, ftot)]
-    zk = gt.gram_taps(*args, trk.offsets, smax)
-    zp = gt.gram_taps_plain(*args, trk.offsets, smax)
-    torch.cuda.synchronize()
-    err = float((zk - zp).abs().max())
-    tol = 1e-4 * l1          # bf16 rounding flips, as K3
+    from gnsslib_tpu_torch.tools.profile_gram import inputs, tolerance
+    trk, l1, n, args = inputs(dev, iq)
+    B, T, smax, offsets = args[0].shape[0], len(trk.offsets), trk.smax, \
+        trk.offsets
     kind = "iq" if iq else "real"
-    if not err <= tol:
-        raise AssertionError(f"gram_taps kernel vs plain ({kind}): "
-                             f"max_abs_err {err} > {tol}")
-    K = wi.shape[1]
+    gt.COUNTS.reset()
+    zk = gt.gram_taps(*args, offsets, smax)
+    zp = gt.gram_taps_plain(*args, offsets, smax)
+    torch.cuda.synchronize()
+    if (gt.COUNTS.kernel, gt.COUNTS.v1, gt.COUNTS.plain) != (1, 0, 0):
+        raise AssertionError(f"gram_taps ({kind}) wrapper: launches "
+                             f"{gt.COUNTS.kernel}, v1 {gt.COUNTS.v1}, plain "
+                             f"{gt.COUNTS.plain}")
+    # the mixed samples keep the plain version's bf16 values: summation
+    # order only, within K3's 1e-4 of the window's L1 norm
+    tol = tolerance(l1)
+    runs = {"kernel": gt.launch, "v1": gt.launch_v1}
+
+    def once(launch, inputs):
+        z = torch.empty_like(zp)
+        launch(*inputs, offsets, smax, z)
+        return z
+
+    errs = {"wrapper": float((zk - zp).abs().max())}
+    bad = []
+    for run, launch in runs.items():
+        z1 = once(launch, args)
+        z2 = once(launch, args)
+        torch.cuda.synchronize()
+        errs[run] = float((z1 - zp).abs().max())
+        if not torch.equal(z1.view(torch.int32), z2.view(torch.int32)):
+            bad.append(f"{run} repeat launches differ")
+    bad += [f"{r} {e}" for r, e in errs.items() if not e <= tol]
+    K = args[0].shape[1]
+    log(f"[3] gram_taps {kind:4s} B={B} rows={K}x128 next={trk.next} "
+        f"taps={T}: max_abs_err "
+        + ", ".join(f"{r} {e:.4g}" for r, e in errs.items())
+        + f" (tol {tol:.4g}, max|taps| {float(zp.abs().max()):.4g}); "
+        f"repeat launches bit-identical: {'no' if bad else 'yes'}")
+    if bad:
+        raise AssertionError(f"gram_taps ({kind}) vs plain: {bad}")
+
     out = torch.empty_like(zk)
+    # the bound: the rows and the replica bytes they read, the scalars,
+    # the taps out; the direct tap sums' f32 operations over the valid
+    # samples (the same work whatever implements it, as for the v1 kernel)
     nbytes = (B * K * 128 * 2 * (2 if iq else 1)
               + B * min(trk.next, K * 128 + 2 * smax) + B * 8
               + B * 2 * T * 4)
@@ -490,22 +521,45 @@ def phase_gram_kernel(dev, iq: bool) -> dict:
     copies = [[None if a is None else a.clone() for a in args]
               for _ in range(copies_for(nbytes))]
 
-    def on_copy(c):
-        gt.launch(*copies[c], trk.offsets, smax, out)
-    ms = graph_ms(on_copy, len(copies))
-    eager_ms = cold_ms(on_copy, len(copies))
-    call_ms = cuda_ms(lambda: gt.gram_taps(*args, trk.offsets, smax), 50)
-    plain_ms = cuda_ms(lambda: gt.gram_taps_plain(*args, trk.offsets, smax),
-                       5)
-    log(f"[3] gram_taps {kind:4s} B={B} rows={K}x128 next={trk.next} "
-        f"taps={T}: max_abs_err {err:.4g} (tol {tol:.4g}, max|taps| "
-        f"{float(zp.abs().max()):.4g}); kernel {ms:.4f} ms/launch by graph "
-        f"replay, eager {eager_ms:.4f} ms (inputs rotated over "
-        f"{len(copies)} copies), wrapper call {call_ms:.4f} ms, plain "
+    def on_copy(launch):
+        return lambda c: launch(*copies[c], offsets, smax, out)
+
+    # device time: launches replayed from a CUDA graph
+    cold = {r: graph_ms(on_copy(launch), len(copies))
+            for r, launch in runs.items()}
+    warm = {r: graph_ms(lambda c, launch=launch: launch(
+                *args, offsets, smax, out), 1)
+            for r, launch in runs.items()}
+    eager = {r: cold_ms(on_copy(launch), len(copies))
+             for r, launch in runs.items()}
+    call_ms = cuda_ms(lambda: gt.gram_taps(*args, offsets, smax), 50)
+    plain_ms = cuda_ms(lambda: gt.gram_taps_plain(*args, offsets, smax), 5)
+    log(f"[3] gram_taps {kind:4s}: {card_line()}; banded-Gram kernel S="
+        f"{gt.ctas_per_window()} CTAs per window, "
+        f"{len(gt.tile_plan(K, smax)[0])} n-tiles per m-tile: cold "
+        f"{cold['kernel']:.4f} ms/launch, warm {warm['kernel']:.4f} ms; "
+        f"v1 kernel cold {cold['v1']:.4f} ms, warm {warm['v1']:.4f} ms "
+        f"(device time: launches replayed from one CUDA graph; cold: "
+        f"inputs rotated over {len(copies)} copies, beyond L2); eager "
+        f"back-to-back launches, cold: kernel {eager['kernel']:.4f} ms, "
+        f"v1 {eager['v1']:.4f} ms; wrapper call {call_ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms; bound {bms:.4f} ms by {by} "
         f"({nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP)")
-    return dict(err=err, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
-                bound_ms=bms, bound_by=by, timing="graph_replay")
+    return dict(err=max(errs.values()), ms=cold["kernel"],
+                warm_ms=warm["kernel"], v1_ms=cold["v1"],
+                v1_warm_ms=warm["v1"], eager_ms=eager["kernel"],
+                v1_eager_ms=eager["v1"], plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, timing="graph_replay")
+
+
+def phase_gram_profiler(dev) -> dict:
+    """``tools/profile_gram.py``: K2's build steps, cluster sizes and
+    ablations, real and I/Q, each variant that computes the function held
+    against the plain version, then timed by graph replay; returns
+    {iq: {variant: record}}."""
+    from gnsslib_tpu_torch.tools import profile_gram
+    return {iq: profile_gram.profile(iq, log=lambda m: log(f"[3] {m}"))
+            for iq in (False, True)}
 
 
 def phase_ablation_kernel(dev) -> dict:
@@ -985,8 +1039,8 @@ def phase_profiler(dev) -> dict:
             raise AssertionError(f"profiler {tag}: {rec['launches']} "
                                  f"launches, {rec['plain']} plain calls per "
                                  f"super-step")
-    # every launch of K1 and K3-K5 through the cluster kernels: their
-    # offsets are tap_offsets(6, 3)
+    # every launch of K1-K5 through the cluster (K2: banded-Gram) kernels:
+    # their offsets are tap_offsets(6, 3), smax 18
     if min(launches.values()) <= 0 or max(plain.values()) != 0 or \
             max(v1.values()) != 0:
         raise AssertionError(f"profiler launches {launches}, v1 {v1}, plain "
@@ -1257,20 +1311,19 @@ def main() -> int:
             if not re.search(r"registers|spill", ln):
                 continue
             var = re.search(r"ILi(\d)ELi13EE", entry)
-            k1 = re.search(r"(?:band|window)_taps_(v1|cluster)_kernelILi"
-                           r"(\d+)ELb(\d)E", entry)
-            if k1 and (k1[2] == "13" or (k1[2], k1[1]) == ("25", "cluster")
-                       and name == "band_taps"):
-                kind = f"{k1[1]} T={k1[2]} " + ("iq" if k1[3] == "1"
-                                                else "real") + (
+            k1 = re.search(r"(?:band|window|gram)_taps_(v1|cluster|mma)_"
+                           r"kernelILi(\d+)ELb(\d)E", entry)
+            # 13-tap instantiations (K2's banded Gram: its 7 n-tiles), and
+            # the 25-tap ones of K1 and K2 (K2: 11 n-tiles)
+            wide = {"band_taps": ("cluster", "25"), "gram_taps": ("mma", "11")}
+            if k1 and ((k1[1], k1[2]) in (("mma", "7"), wide.get(name))
+                       or (k1[1] != "mma" and k1[2] == "13")):
+                size = f"NN={k1[2]}" if k1[1] == "mma" else f"T={k1[2]}"
+                kind = f"{k1[1]} {size} " + ("iq" if k1[3] == "1"
+                                             else "real") + (
                     " bf16" if "bfloat16" in entry else "")
-            elif name in ("band_taps", "window_taps"):
-                continue
             elif name == "ablation_taps" and var:
                 kind = ("full", "nosin", "onetap", "aligned")[int(var[1])]
-            elif name != "ablation_taps" and "ILi13E" in entry:
-                kind = ("iq" if "ILi13ELb1E" in entry else "real") + (
-                    " bf16" if "bfloat16" in entry else "")
             else:
                 continue
             log(f"[2]   {name} {kind}: {ln.split(':', 1)[-1].strip()}")
@@ -1282,6 +1335,7 @@ def main() -> int:
             k.setdefault(name, []).append(r)
         k.setdefault("gram_taps", []).append(phase_gram_kernel(dev, iq))
     phase_window_profiler(dev)
+    phase_gram_profiler(dev)
     ablation = phase_ablation_kernel(dev)
     # the K6 row: the full variant (K4's body); max_abs_err over all four
     k["ablation_taps"] = [dict(ablation["full"], err=max(
@@ -1335,7 +1389,7 @@ def main() -> int:
             "timing": real.get("timing", "eager")})
         if "eager_ms" in real:    # the same launches' eager time
             rows[-1]["eager_ms"] = real["eager_ms"]
-        if "v1_ms" in real:       # the same run's v1 kernel (K1, K3-K5)
+        if "v1_ms" in real:       # the same run's v1 kernel (K1-K5)
             rows[-1]["v1_ms"] = real["v1_ms"]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

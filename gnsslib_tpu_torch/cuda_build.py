@@ -11,6 +11,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -42,8 +43,19 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (put it on PATH or set CUDA_HOME)")
 
 
+_INCLUDE = re.compile(r'^#include "([\w.]+\.cuh)"$', re.M)
+
+
+def source(name: str) -> str:
+    """``csrc/<name>.cu`` with each ``#include "<header>.cuh"`` of ``csrc/``
+    replaced by the header's text: what nvcc compiles, in one string (the
+    build hashes it; the profilers' source variants edit it)."""
+    return _INCLUDE.sub(lambda m: (CSRC / m[1]).read_text(),
+                        (CSRC / f"{name}.cu").read_text())
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = source(name).encode()
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{key[:16]}.so"
 

@@ -30,22 +30,13 @@ import functools
 import torch
 
 from .carrier import TWO_PI
-from .kernels import (LaunchCounts, bind, check_offsets, check_tensors,
+from .kernels import (V1Counts, bind, check_offsets, check_tensors,
                       device_offsets, progression, raise_on, route,
                       stream_of)
 from .nco import frac
 
 
-class BandCounts(LaunchCounts):
-    """K1's counters: cluster-kernel launches (``kernel``), v1 kernel
-    launches (``v1``) and CPU calls of the plain version (``plain``)."""
-
-    def reset(self) -> None:
-        super().reset()
-        self.v1 = 0
-
-
-COUNTS = BandCounts("band_taps")
+COUNTS = V1Counts("band_taps")
 
 
 def band_taps_plain(block, rc, wstart, n, rem, ftot, active, offsets,

@@ -15,11 +15,19 @@ splits into the row-start angle theta_k and the in-row ramp phi_j:
 
 returned as (B, 2T) float32 interleaved [cos_t, sin_t] — what
 ``_taps_fused`` returns.  The bf16 rounding of wc/ws is the TPU kernel's;
-its bf16 Gram matrix, split 64-lane layout and one-hot diagonal extractor
-fed the TPU's matrix unit only and are not reproduced (sums stay f32).
+its split 64-lane layout, its bf16 rounding of each Gram entry and its
+one-hot diagonal extractor are not reproduced (sums stay f32).
 
-:func:`gram_taps` launches ``csrc/gram_taps.cu`` for CUDA tensors and uses
-:func:`gram_taps_plain` only for tensors on the CPU.
+:func:`gram_taps` launches a kernel of ``csrc/gram_taps.cu`` for CUDA
+tensors and uses :func:`gram_taps_plain` only for tensors on the CPU.  The
+kernel is the TPU kernel's Gram on the tensor cores, restricted to the tap
+band: per window ``U[j, l] = sum_k wc[k, j] r[128 k + l]`` over 8 m-tiles
+of 16 lanes j, each reading only the n-tiles of 8 lag columns that
+:func:`tile_plan` lists, then ``cos_t = sum_j U[j, j + smax + o_t]``
+(``COUNTS.kernel``).  Geometries beyond its largest instantiation (smax >
+``MAX_SMAX`` or more than ``MAX_ROWS`` rows; ``tile_plan`` returns None)
+launch the v1 kernel (``COUNTS.v1``); the choice follows the geometry,
+never a failure, and nothing falls back to the plain version.
 """
 from __future__ import annotations
 
@@ -29,21 +37,40 @@ import functools
 import torch
 
 from .carrier import TWO_PI
-from .kernels import (LaunchCounts, bind, check_offsets, check_tensors,
+from .kernels import (V1Counts, bind, check_offsets, check_tensors,
                       device_offsets, raise_on, route, stream_of)
 from .nco import frac
 
-COUNTS = LaunchCounts("gram_taps")
+COUNTS = V1Counts("gram_taps")
 LANES = 128                  # samples per window row
+M_TILE, N_TILE, K_STEP = 16, 8, 16    # mma.m16n8k16: lanes j, lags l, rows k
+MAX_SMAX = 36                # the kernel's largest band (11 n-tiles)
+MAX_ROWS = 256               # the kernel's most rows per window
+
+
+@functools.lru_cache(maxsize=64)
+def tile_plan(K: int, smax: int):
+    """The banded-Gram kernel's tiles for windows of ``K`` rows and taps
+    within ``[-smax, smax]``: for each of the 128 / 16 m-tiles (lanes
+    ``[16 m, 16 m + 16)``), the first lag columns of the n-tiles it reads,
+    ``16 m + 8 n`` for n < ceil((16 + 2 smax) / 8), so that it covers the
+    lags ``j + [0, 2 smax]`` of its lanes; None when the kernel does not
+    take the geometry (then :func:`launch` sends it to the v1 kernel)."""
+    if smax > MAX_SMAX or K > MAX_ROWS:
+        return None
+    nn = -(-(M_TILE + 2 * smax) // N_TILE)
+    return tuple(tuple(M_TILE * m + N_TILE * n for n in range(nn))
+                 for m in range(LANES // M_TILE))
 
 
 def _bf16_round(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 
 
-def gram_taps_plain(win_i, win_q, rc, rem, ftot, offsets, smax: int):
-    """The factored-carrier tap sums in plain PyTorch (any device)."""
-    B, K, _ = win_i.shape
+def mixed_rows(win_i, win_q, rem, ftot):
+    """The mixed rows (wc, ws), each (B, K, 128) f32 holding bf16 values:
+    the A operands of the banded-Gram kernel."""
+    K = win_i.shape[1]
     dev = win_i.device
     kk = torch.arange(K, device=dev, dtype=torch.float32) * float(LANES)
     th = TWO_PI * frac(frac(ftot[:, None] * kk[None, :]) + rem[:, None])
@@ -57,8 +84,15 @@ def gram_taps_plain(win_i, win_q, rc, rem, ftot, offsets, smax: int):
         a, b = wr * ck - wi * sk, wr * sk + wi * ck
     else:
         a, b = wr * ck, wr * sk
-    wc = _bf16_round(a * cj - b * sj).reshape(B, K * LANES)
-    ws = _bf16_round(b * cj + a * sj).reshape(B, K * LANES)
+    return _bf16_round(a * cj - b * sj), _bf16_round(b * cj + a * sj)
+
+
+def gram_taps_plain(win_i, win_q, rc, rem, ftot, offsets, smax: int):
+    """The factored-carrier tap sums in plain PyTorch (any device)."""
+    B, K, _ = win_i.shape
+    dev = win_i.device
+    wc, ws = (w.reshape(B, K * LANES)
+              for w in mixed_rows(win_i, win_q, rem, ftot))
     span = K * LANES + 2 * smax
     rcf = torch.zeros((B, span), dtype=torch.float32, device=dev)
     m = min(span, rc.shape[1])
@@ -108,33 +142,74 @@ def gram_taps(win_i, win_q, rc, rem, ftot, offsets, smax: int):
         return gram_taps_plain(win_i, win_q, rc, rem, ftot, offsets, smax)
     out = torch.empty((win_i.shape[0], 2 * len(offsets)),
                       dtype=torch.float32, device=win_i.device)
-    launch(win_i, win_q, rc, rem, ftot, offsets, smax, out)
-    COUNTS.kernel += 1
+    which = launch(win_i, win_q, rc, rem, ftot, offsets, smax, out)
+    setattr(COUNTS, which, getattr(COUNTS, which) + 1)
     return out
 
 
-def launch(win_i, win_q, rc, rem, ftot, offsets, smax: int, out) -> None:
-    """Launch the kernel on the current CUDA stream into ``out`` (B, 2T)
+def launch(win_i, win_q, rc, rem, ftot, offsets, smax: int, out) -> str:
+    """Launch a kernel on the current CUDA stream into ``out`` (B, 2T)
     f32, with no argument checks and no count: :func:`gram_taps` checks,
-    allocates, counts and calls this.  Raises if the launch is refused."""
+    allocates, counts and calls this.  The banded-Gram kernel takes what
+    :func:`tile_plan` plans, the v1 kernel anything else; returns which
+    (``"kernel"`` or ``"v1"``, the counter to add to).  Raises if the
+    launch is refused."""
+    plan = tile_plan(win_i.shape[1], smax)
+    if plan is None:
+        launch_v1(win_i, win_q, rc, rem, ftot, offsets, smax, out)
+        return "v1"
+    _launch("gram_taps_launch", win_i, win_q, rc, rem, ftot, offsets, smax,
+            out, len(plan[0]))
+    return "kernel"
+
+
+def launch_v1(win_i, win_q, rc, rem, ftot, offsets, smax: int,
+              out) -> None:
+    """Launch the v1 kernel (``gram_taps_v1_launch``: one block per
+    window, f32 FMAs, any band) as :func:`launch` does, with no count."""
+    _launch("gram_taps_v1_launch", win_i, win_q, rc, rem, ftot, offsets,
+            smax, out)
+
+
+def _launch(fn: str, win_i, win_q, rc, rem, ftot, offsets, smax: int, out,
+            *tiles) -> None:
+    """Call the library's entry point ``fn`` (``tiles``: the banded-Gram
+    kernel's n-tiles per m-tile, after smax) and raise on its error."""
     lib = _library()
     offs = device_offsets(tuple(int(o) for o in offsets), win_i.device)
     iq = win_q is not None
     with torch.cuda.device(win_i.device):
-        err = lib.gram_taps_launch(
+        err = getattr(lib, fn)(
             int(iq), win_i.data_ptr(), win_q.data_ptr() if iq else None,
             win_i.shape[1], rc.data_ptr(), rc.shape[1], rem.data_ptr(),
             ftot.data_ptr(), offs.data_ptr(), offs.shape[0], int(smax),
-            win_i.shape[0], out.data_ptr(), stream_of(win_i.device))
+            *tiles, win_i.shape[0], out.data_ptr(), stream_of(win_i.device))
     raise_on(lib, "gram_taps", err)
+
+
+def ctas_per_window() -> int:
+    """CTAs, one thread-block cluster, per window of the banded-Gram
+    kernel (its ``kCluster``)."""
+    return int(_library().gram_taps_ctas_per_window())
+
+
+_VP, _I32 = ctypes.c_void_p, ctypes.c_int
+# the arguments of csrc/gram_taps.cu's gram_taps_launch (the banded-Gram
+# kernel) and gram_taps_v1_launch (the v1 kernel)
+LAUNCH_ARGTYPES = [_I32, _VP, _VP, _I32, _VP, _I32, _VP, _VP, _VP, _I32,
+                   _I32, _I32, _I32, _VP, _VP]
+V1_ARGTYPES = [_I32, _VP, _VP, _I32, _VP, _I32, _VP, _VP, _VP, _I32, _I32,
+               _I32, _VP, _VP]
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     """Build (first use) and bind ``csrc/gram_taps.cu``."""
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    return bind("gram_taps", "gram_taps_launch", [
-        i32, vp, vp, i32, vp, i32, vp, vp, vp, i32, i32, i32, vp, vp])
+    lib = bind("gram_taps", "gram_taps_launch", LAUNCH_ARGTYPES)
+    lib.gram_taps_v1_launch.argtypes = V1_ARGTYPES
+    lib.gram_taps_v1_launch.restype = _I32
+    lib.gram_taps_ctas_per_window.restype = _I32
+    return lib
 
 
 def load_kernel() -> None:

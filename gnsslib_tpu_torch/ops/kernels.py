@@ -41,6 +41,17 @@ class LaunchCounts:
         return {k: v for k, v in vars(self).items() if k != "name"}
 
 
+class V1Counts(LaunchCounts):
+    """The counters of a wrapper with two kernels: redesigned-kernel
+    launches (``kernel``), launches of its first kernel, which takes the
+    arguments the redesign does not (``v1``), and CPU calls of the plain
+    version (``plain``)."""
+
+    def reset(self) -> None:
+        super().reset()
+        self.v1 = 0
+
+
 REGISTRY: dict[str, LaunchCounts] = {}
 
 

@@ -33,25 +33,15 @@ import functools
 import torch
 
 from .carrier import TWO_PI
-from .kernels import (LaunchCounts, bind, check_offsets, check_tensors,
+from .kernels import (V1Counts, bind, check_offsets, check_tensors,
                       device_offsets, progression, raise_on, route,
                       stream_of)
 from .nco import frac
 
 
-class WindowCounts(LaunchCounts):
-    """One wrapper's counters: cluster-kernel launches (``kernel``), v1
-    kernel launches (``v1``) and CPU calls of the plain version
-    (``plain``)."""
-
-    def reset(self) -> None:
-        super().reset()
-        self.v1 = 0
-
-
-COUNTS5 = WindowCounts("correlate_windows")        # K5
-COUNTS8 = WindowCounts("correlate_windows8")       # K4
-COUNTS16 = WindowCounts("correlate_windows16")     # K3
+COUNTS5 = V1Counts("correlate_windows")        # K5
+COUNTS8 = V1Counts("correlate_windows8")       # K4
+COUNTS16 = V1Counts("correlate_windows16")     # K3
 
 _F32, _BF16 = 0, 1            # the kernel kinds of window_taps_launch
 

@@ -180,10 +180,11 @@ def tolerance(kind: str, l1: float) -> float:
 
 
 def variant_source(name: str) -> str:
-    """``csrc/window_taps.cu`` with variant ``name``'s replacements, built
-    for 13 taps only; raises if a replaced line is not in the source."""
-    src = (cuda_build.CSRC / "window_taps.cu").read_text()
-    return apply_variant(src, VARIANTS[name] + [(TAPS_ALL, TAPS13)],
+    """``csrc/window_taps.cu`` (with ``csrc/stage_async.cuh`` inlined) with
+    variant ``name``'s replacements, built for 13 taps only; raises if a
+    replaced line is not in the source."""
+    return apply_variant(cuda_build.source("window_taps"),
+                         VARIANTS[name] + [(TAPS_ALL, TAPS13)],
                          f"profile_window: variant {name}")
 
 

@@ -16,8 +16,8 @@ from gnsslib_tpu_torch.ops import band_taps as bt
 from gnsslib_tpu_torch.ops import gram_taps as gt
 from gnsslib_tpu_torch.ops import window_taps as wt
 from gnsslib_tpu_torch.ops.correlator import tap_offsets
-from gnsslib_tpu_torch.tools import (profile_band, profile_kernel,
-                                     profile_window)
+from gnsslib_tpu_torch.tools import (profile_band, profile_gram,
+                                     profile_kernel, profile_window)
 from gnsslib_tpu_torch.track import (FastTracker, TrackConfig, Tracker,
                                      state_from_numpy, state_to_numpy)
 
@@ -469,7 +469,164 @@ def test_gram_taps_kernel_matches_plain(dev, iq):
     zp = gt.gram_taps_plain(wi, wq, rc, rem, ftot, trk.offsets, trk.smax)
     torch.cuda.synchronize()
     assert gt.COUNTS.kernel == 1 and gt.COUNTS.plain == 0
+    assert gt.COUNTS.v1 == 0
     assert float((zk - zp).abs().max()) <= _tol(win, n, 1e-4)
+
+
+def _gram_inputs(B, K, iq, seed, dev, smax, nvalid=None, short=0):
+    """K2 inputs: (B, K, 128) bf16 rows of 8-bit values masked to valid
+    lengths ``nvalid`` (default: within 300 of K*128), +-1 replica rows
+    of K*128 + 2*smax - ``short`` bytes, rates around the main path's.
+    Returns (the tolerance, 1e-4 of the largest window L1 norm, and
+    [win_i, win_q or None, rc, rem, ftot] on ``dev``)."""
+    rng = np.random.default_rng(seed)
+    n = rng.integers(K * 128 - 300, K * 128 + 1, B) if nvalid is None \
+        else np.asarray(nvalid)
+    keep = np.arange(K * 128).reshape(K, 128)[None] < n[:, None, None]
+    rows = [(rng.integers(-128, 128, (B, K, 128)) * keep).astype(np.float32)
+            for _ in range(2 if iq else 1)]
+    rc = rng.choice(np.asarray([-1, 1], np.int8), (B, K * 128 + 2 * smax
+                                                   - short))
+    rem = rng.uniform(0, 1, B).astype(np.float32)
+    ftot = (0.25 + rng.uniform(-4e-4, 4e-4, B)).astype(np.float32)
+    l1 = max([1.0] + [float(sum(np.abs(r[b]).sum() for r in rows))
+                      for b in range(B)])
+    t = [torch.from_numpy(r).to(torch.bfloat16).to(dev) for r in rows]
+    return 1e-4 * l1, [t[0], t[1] if iq else None] + [
+        torch.from_numpy(a).to(dev) for a in (rc, rem, ftot)]
+
+
+def _gram_run(args, offsets, smax):
+    """The wrapper's taps, the plain version's, and the counters."""
+    gt.COUNTS.reset()
+    zk = gt.gram_taps(*args, offsets, smax)
+    zp = gt.gram_taps_plain(*args, offsets, smax)
+    torch.cuda.synchronize()
+    return zk, zp, (gt.COUNTS.kernel, gt.COUNTS.v1, gt.COUNTS.plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iq", [False, True])
+@pytest.mark.parametrize("B,K,corrn,corrd,short", [
+    (320, 128, 6, 3, 8),        # the main path's geometry, 13 taps
+    (5, 128, 12, 3, 0),         # 25 taps, smax = 36: 11 n-tiles
+    (7, 33, 6, 3, 36),          # K not a multiple of 16; B = 7
+    (7, 33, 1, 2, 0),
+    (3, 1, 2, 4, 3),            # one row: rank 1 of each cluster idle
+    (4, 200, 6, 1, 5),
+])
+def test_gram_taps_banded_kernel_matches_plain(dev, iq, B, K, corrn, corrd,
+                                               short):
+    """K2's banded-Gram kernel (COUNTS.kernel, no v1) against the plain
+    version for tap_offsets(corrn, d) geometries up to the 25-tap smax = 36
+    one, K = 33 rows and B = 7 windows; replica rows shorter than the rows'
+    extent count 0 past their end."""
+    offsets = tuple(int(o) for o in tap_offsets(corrn, corrd))
+    smax = corrn * corrd
+    tol, args = _gram_inputs(B, K, iq, 300 + K + corrn + iq, dev, smax,
+                             short=short)
+    zk, zp, counts = _gram_run(args, offsets, smax)
+    assert counts == (1, 0, 0)
+    assert float((zk - zp).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offsets,smax", [((0, 5, -7), 18), ((2,), 3),
+                                          ((0, -1, 2), 40)])
+def test_gram_taps_any_offsets_and_wide_band(dev, offsets, smax):
+    """The banded-Gram kernel takes any offsets within its band; a band
+    wider than its largest instantiation (smax 40 > 36) launches the v1
+    kernel (COUNTS.v1); both match the plain version."""
+    tol, args = _gram_inputs(6, 128, False, 41 + smax, dev, smax)
+    zk, zp, counts = _gram_run(args, offsets, smax)
+    assert counts == ((0, 1, 0) if smax > gt.MAX_SMAX else (1, 0, 0))
+    assert float((zk - zp).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iq", [False, True])
+def test_gram_taps_zero_valid_windows(dev, iq):
+    """Windows with no valid samples (rows of zeros) give zeros beside
+    windows with samples, and K = 0 rows give zeros for every window."""
+    smax = 18
+    offsets = tap_offsets(6, 3)
+    tol, args = _gram_inputs(6, 128, iq, 7 + iq, dev, smax,
+                             nvalid=[0, 16376, 0, 100, 0, 16384])
+    zk, zp, counts = _gram_run(args, offsets, smax)
+    assert counts == (1, 0, 0)
+    assert float((zk - zp).abs().max()) <= tol
+    assert torch.all(zk[0::2] == 0)
+    empty = [None if a is None else a[:, :0].contiguous() if a.dim() == 3
+             else a for a in args]
+    z0 = gt.gram_taps(*empty, offsets, smax)
+    torch.cuda.synchronize()
+    assert z0.shape == zk.shape and torch.all(z0 == 0)
+
+
+@pytest.mark.cuda
+def test_gram_taps_unaligned_rows(dev):
+    """Rows whose storage does not start on 16 bytes (a view two values
+    in) are staged by plain copies and give the aligned rows' bits."""
+    smax = 18
+    offsets = tap_offsets(6, 3)
+    tol, args = _gram_inputs(4, 64, True, 12, dev, smax)
+    shifted = []
+    for a in args[:2]:
+        flat = torch.zeros(a.numel() + 2, dtype=a.dtype, device=dev)
+        flat[2:] = a.reshape(-1)
+        shifted.append(flat[2:].view(a.shape))
+    assert shifted[0].data_ptr() % 16 != 0
+    z = gt.gram_taps(*args, offsets, smax)
+    zs = gt.gram_taps(*shifted, *args[2:], offsets, smax)
+    torch.cuda.synchronize()
+    assert torch.equal(z.view(torch.int32), zs.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iq", [False, True])
+def test_gram_taps_bit_identical_and_graph_replay(dev, iq):
+    """Two launches give bit-identical taps (no atomics, a fixed
+    reduction order), and a launch captured in a CUDA graph and replayed
+    gives the eager launch's bits."""
+    smax = 18
+    offsets = tap_offsets(6, 3)
+    _, args = _gram_inputs(320, 128, iq, 111 + iq, dev, smax)
+    z1 = gt.gram_taps(*args, offsets, smax)
+    z2 = gt.gram_taps(*args, offsets, smax)
+    torch.cuda.synchronize()
+    assert torch.equal(z1.view(torch.int32), z2.view(torch.int32))
+    out = torch.empty_like(z1)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):              # warm-up before capture
+        gt.launch(*args, offsets, smax, out)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        gt.launch(*args, offsets, smax, out)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), z1.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", profile_gram.SAME)
+@pytest.mark.parametrize("iq", [False, True])
+def test_profile_gram_variants_match_plain(dev, iq, variant):
+    """The v1 kernel, and the banded-Gram kernel's build steps, cluster
+    sizes and register cap as tools/profile_gram.py builds and times them,
+    against the plain version at the main path's shapes (13 taps)."""
+    trk, l1, _, args = profile_gram.inputs(dev, iq)
+    zp = gt.gram_taps_plain(*args, trk.offsets, trk.smax)
+    out = torch.empty_like(zp)
+    if variant == "v1":
+        gt.launch_v1(*args, trk.offsets, trk.smax, out)
+    else:      # one nvcc per variant, all in parallel on the first call
+        lib = profile_gram.build(profile_gram.VARIANTS)[variant]
+        profile_gram.launcher(lib, trk.offsets, trk.smax, out)(args)
+    torch.cuda.synchronize()
+    assert float((out - zp).abs().max()) <= profile_gram.tolerance(l1)
 
 
 @pytest.mark.cuda

@@ -58,3 +58,27 @@ def test_window_counts_on_cpu(name):
         z = getattr(wt, name)(win, rc, rem, ftot, n, offsets, smax)
         assert z.shape == (B, 6)
     assert counts.values() == {"kernel": 0, "plain": 2, "v1": 0}
+
+
+def test_gram_counts_on_cpu():
+    """K2's wrapper has its own kernel, v1 and plain counters in the
+    registry; CPU tensors take the plain version and launch nothing, for
+    geometries of either kernel (tile_plan or None)."""
+    from gnsslib_tpu_torch.ops import gram_taps as gt
+    counts = kernels.REGISTRY["gram_taps"]
+    assert counts is gt.COUNTS
+    counts.reset()
+    assert counts.values() == {"kernel": 0, "plain": 0, "v1": 0}
+    rng = np.random.default_rng(4)
+    B, K = 2, 3
+    win = torch.from_numpy(rng.integers(-8, 9, (B, K, 128)).astype(
+        np.float32)).to(torch.bfloat16)
+    rem = torch.zeros(B)
+    ftot = torch.full((B,), 0.25)
+    for smax, offsets in ((2, (0, -2, 2)), (40, (0, -40, 40))):
+        assert (gt.tile_plan(K, smax) is None) == (smax > gt.MAX_SMAX)
+        rc = torch.from_numpy(rng.choice(np.asarray([-1, 1], np.int8),
+                                         (B, K * 128 + 2 * smax)))
+        z = gt.gram_taps(win, None, rc, rem, ftot, offsets, smax)
+        assert z.shape == (B, 6)
+    assert counts.values() == {"kernel": 0, "plain": 2, "v1": 0}
