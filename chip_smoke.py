@@ -11,17 +11,20 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
 2. build the correlator kernels (csrc/band_taps.cu, window_taps.cu,
    gram_taps.cu, ablation_taps.cu), one nvcc each, all in parallel, and
    print ptxas's registers and spills of the 13-tap instantiations (both
-   entry points of K1-K5; K2's banded Gram at the 7 n-tiles of 13 taps
-   3 apart), K1's 25-tap cluster kernel and K2's 11 n-tiles (25 taps);
+   entry points of K1-K6; K2's banded Gram at the 7 n-tiles of 13 taps
+   3 apart; K6's one-tap chain for onetap), K1's 25-tap cluster kernel
+   and K2's 11 n-tiles (25 taps);
 3. each kernel vs its plain PyTorch version at the main path's shapes (320
    windows of 16376 samples, 16412-sample replica rows, 13 taps; K2 on
    (320, 128, 128) bf16 rows; K6's four variants at the profiler's 320 x
    16493 windows and 18229-sample rows), real and I/Q input, with
-   CUDA-event times of both and the card's bound for the same work.  K1
-   and K3-K5 run as their cluster kernel, K2 as its banded-Gram kernel on
-   the tensor cores, and each as its v1 kernel, each checked for
-   bit-identical repeat launches and timed warm and cold (beyond L2) by
-   launches replayed from a CUDA graph, and cold by eager launches.
+   CUDA-event times of both and the card's bound for the same work.  K1,
+   K3-K5 and K6 run as their cluster kernel (K6's on K4's body, its full
+   variant checked bit for bit against K4), K2 as its banded-Gram kernel
+   on the tensor cores, and each as its v1 kernel, each checked for
+   bit-identical repeat launches and timed cold (beyond L2; K1-K5 warm
+   too) by launches replayed from a CUDA graph, and cold by eager
+   launches.
    Then ``gnsslib_tpu_torch.tools.profile_window`` and ``profile_gram``:
    the window kernel's build steps, cluster sizes and ablations for K3 and
    the f32 instantiation, and K2's, real and I/Q, each checked against the
@@ -48,8 +51,9 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    their cluster or banded-Gram kernels: no v1 launch), then a short duel
    of the same rows;
 9. the kernel profiler (``gnsslib_tpu_torch.tools.profile_kernel``): K6's
-   four variants per launch, and 100 chained launches eager and replayed
-   from one CUDA graph;
+   four variants per wrapper call and by graph replay (cluster and v1
+   kernels), and 100 chained launches eager and replayed from one CUDA
+   graph;
 10. the positioning receiver from INI files with 32 L1CA channels and
    SPP, SMOOTH, RAIM, RELOCK, ACQCONFIRM, HOTSTART, RTCM and LOG: fixes
    against the true position, the faded satellite's loss of lock and
@@ -563,29 +567,93 @@ def phase_gram_profiler(dev) -> dict:
 
 
 def phase_ablation_kernel(dev) -> dict:
-    """K6's four variants vs their plain versions at the kernel profiler's
-    shapes (B = 320, nwin = 16493, W = 18229, 13 taps)."""
+    """K6's four variants at the kernel profiler's shapes (B = 320, nwin =
+    16493, W = 18229, 13 taps at range(-18, 19, 3)): each wrapper (one
+    cluster-kernel launch, no v1, no plain), the cluster kernel and the v1
+    kernel against the plain version, ``full`` against correlate_windows8
+    (K4) at tap_offsets(6, 3) bit for bit, two launches and a graph replay
+    of each kernel bit-identical, and cold (beyond L2) times of both by
+    graph replay, eager beside.  Importable: after
+    ``cuda_build.build_all(("ablation_taps", "window_taps"))`` it is the
+    kernel-only loop."""
     import torch
     from gnsslib_tpu_torch.ops import ablation_taps as ab
+    from gnsslib_tpu_torch.ops import window_taps as wt
+    from gnsslib_tpu_torch.ops.correlator import tap_offsets
     from gnsslib_tpu_torch.tools import profile_kernel as pk
+    from gnsslib_tpu_torch.tools.profile_band import graph_ms
     args = pk.inputs(dev)
     win, rc, rem, ftot, n = args
     B, nwin = win.shape
     offs, smax, T = pk.OFFSETS, pk.SMAX, len(pk.OFFSETS)
     nv = np.minimum(np.ceil(n.cpu().numpy()), nwin).astype(np.int64)
     l1 = win.abs().sum(dim=1)
+    runs = {"kernel": ab.launch, "v1": ab.launch_v1}
+
+    def bits(z):
+        return z.view(torch.int32)
+
+    # full is K4's f32 instantiation: its taps at K6's ascending offsets
+    # are K4's at tap_offsets(6, 3), columns permuted, bit for bit (K4's
+    # int bound ceil(n) keeps the same samples, i < n)
+    k4_offs = tuple(int(o) for o in tap_offsets(6, 3))
+    z4 = wt.correlate_windows8(win, rc, rem, ftot,
+                               torch.ceil(n).to(torch.int32), k4_offs, smax)
+    cols = [2 * k4_offs.index(o) + c for o in offs for c in (0, 1)]
+    z6 = ab.ablation_taps(*args, offs, smax, "full")
+    torch.cuda.synchronize()
+    same_k4 = torch.equal(bits(z6), bits(z4[:, cols].contiguous()))
+    log(f"[3] ablation_taps[full] vs correlate_windows8 at "
+        f"tap_offsets(6, 3), columns permuted: bit-identical "
+        f"{'yes' if same_k4 else 'no'}")
+    if not same_k4:
+        raise AssertionError("ablation_taps[full] differs from "
+                             "correlate_windows8: "
+                             f"{float((z6 - z4[:, cols]).abs().max())}")
     res = {}
     for v in ab.VARIANTS:
+        counts = ab.COUNTS[v]
+        counts.reset()
         zk = ab.ablation_taps(*args, offs, smax, v)
         zp = ab.PLAIN[v](*args, offs, smax)
         torch.cuda.synchronize()
-        errw = (zk - zp).abs().max(dim=1).values
-        err = float(errw.max())
-        # f32 both: summation order and sincosf rounding, 1e-5 of each
-        # window's L1 norm (as K1, K4, K5)
-        if not bool(torch.all(errw <= 1e-5 * l1)):
-            raise AssertionError(f"ablation_taps[{v}] kernel vs plain: "
-                                 f"max_abs_err {err}")
+        if (counts.kernel, counts.v1, counts.plain) != (1, 0, 0):
+            raise AssertionError(f"ablation_taps[{v}] wrapper: launches "
+                                 f"{counts.kernel}, v1 {counts.v1}, plain "
+                                 f"{counts.plain}")
+        # f32 both: summation order and the carrier's rounding, 1e-5 of
+        # each window's L1 norm (as K1, K4, K5)
+        zs = {"wrapper": zk}
+        bad = []
+        for run, launch in runs.items():
+            z1, z2 = torch.empty_like(zp), torch.empty_like(zp)
+            launch(v, *args, offs, smax, z1)
+            launch(v, *args, offs, smax, z2)
+            torch.cuda.synchronize()
+            zs[run] = z1
+            if not torch.equal(bits(z1), bits(z2)):
+                bad.append(f"{run} repeat launches differ")
+            # one launch captured in a CUDA graph, replayed
+            zg = torch.zeros_like(zp)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                launch(v, *args, offs, smax, zg)
+            graph.replay()
+            torch.cuda.synchronize()
+            if not torch.equal(bits(zg), bits(z1)):
+                bad.append(f"{run} graph replay differs")
+        errw = {r: (z - zp).abs().max(dim=1).values for r, z in zs.items()}
+        errs = {r: float(e.max()) for r, e in errw.items()}
+        bad += [f"{r} {errs[r]}" for r, e in errw.items()
+                if not bool(torch.all(e <= 1e-5 * l1))]
+        log(f"[3] ablation_taps[{v}] B={B} nwin={nwin} W={rc.shape[1]} "
+            f"taps={T} plan {ab.plan(v, offs, smax)[:2]}: max_abs_err "
+            + ", ".join(f"{r} {e:.4g}" for r, e in errs.items())
+            + f" (tol 1e-5 of each window's L1 norm, min "
+            f"{float(l1.min()):.4g}); repeat launches and graph replays "
+            f"bit-identical: {'no' if bad else 'yes'}")
+        if bad:
+            raise AssertionError(f"ablation_taps[{v}] vs plain: {bad}")
         # the bytes the variant needs: the valid window samples, the union
         # of the replica ranges its taps read, the scalars, the taps out
         lg = ab.lags(v, offs, smax)
@@ -598,17 +666,30 @@ def phase_ablation_kernel(dev) -> dict:
         out = torch.empty_like(zk)
         copies = [[a.clone() for a in args]
                   for _ in range(copies_for(nbytes))]
-        ms = cold_ms(lambda c: ab.launch(v, *copies[c], offs, smax, out),
-                     len(copies))
+
+        def on_copy(launch):
+            return lambda c: launch(v, *copies[c], offs, smax, out)
+
+        # device time: launches replayed from a CUDA graph
+        cold = {r: graph_ms(on_copy(launch), len(copies))
+                for r, launch in runs.items()}
+        eager = {r: cold_ms(on_copy(launch), len(copies))
+                 for r, launch in runs.items()}
         plain_ms = cuda_ms(lambda: ab.PLAIN[v](*args, offs, smax), 5)
-        log(f"[3] ablation_taps[{v}] B={B} nwin={nwin} W={rc.shape[1]} "
-            f"taps={T}: max_abs_err {err:.4g} (tol 1e-5 of each window's "
-            f"L1 norm, min {float(l1.min()):.4g}); kernel {ms:.4f} ms/launch "
-            f"(inputs rotated over {len(copies)} copies), plain "
+        log(f"[3] ablation_taps[{v}]: {card_line()}; cluster kernel S="
+            f"{ab.ctas_per_window()} CTAs per window, J="
+            f"{ab.samples_per_thread()} samples per chain: cold "
+            f"{cold['kernel']:.4f} ms/launch; v1 kernel cold "
+            f"{cold['v1']:.4f} ms (device time: launches replayed from one "
+            f"CUDA graph, inputs rotated over {len(copies)} copies, beyond "
+            f"L2); eager back-to-back launches, cold: kernel "
+            f"{eager['kernel']:.4f} ms, v1 {eager['v1']:.4f} ms; plain "
             f"{plain_ms:.4f} ms; bound {bms:.4f} ms by {by} "
             f"({nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP)")
-        res[v] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                      bound_by=by)
+        res[v] = dict(err=max(errs.values()), ms=cold["kernel"],
+                      v1_ms=cold["v1"], eager_ms=eager["kernel"],
+                      v1_eager_ms=eager["v1"], plain_ms=plain_ms,
+                      bound_ms=bms, bound_by=by, timing="graph_replay")
         del copies
     return res
 
@@ -1049,8 +1130,9 @@ def phase_profiler(dev) -> dict:
 
 
 def phase_kernel_profiler(dev) -> dict:
-    """K6's profiler: each variant per launch, then 100 chained launches
-    eager and replayed from one CUDA graph; returns its launch counts."""
+    """K6's profiler: each variant per wrapper call, its cluster and v1
+    kernels by graph replay, then 100 chained launches eager and replayed
+    from one CUDA graph; returns its launch counts."""
     from gnsslib_tpu_torch.ops import ablation_taps as ab
     from gnsslib_tpu_torch.tools import profile_kernel as pk
     for c in ab.COUNTS.values():
@@ -1059,19 +1141,24 @@ def phase_kernel_profiler(dev) -> dict:
     res = pk.profile(dev, reps=20, scan_test=True,
                      log=lambda m: log(f"[9] {m}"))
     launches = {v: c.kernel for v, c in ab.COUNTS.items()}
+    v1 = {v: c.v1 for v, c in ab.COUNTS.items()}
     plain = {v: c.plain for v, c in ab.COUNTS.items()}
     log(f"[9] kernel profiler {time.time() - t0:.1f} s; launches "
-        f"{launches} (graph capture counted once, replays not), plain "
-        f"calls {plain}")
+        f"{launches} (graph capture counted once, replays not), v1 "
+        f"launches {v1}, plain calls {plain}")
     for v, rec in res.items():
-        t = [rec["ms"], rec["eager_ms_per_iter"], rec["graph_ms_per_iter"]]
+        t = [rec["ms"], rec["eager_ms_per_iter"], rec["graph_ms_per_iter"],
+             rec["graph_ms"], rec["v1_graph_ms"]]
         if not all(x is not None and np.isfinite(x) and x > 0 for x in t):
             raise AssertionError(f"kernel profiler {v}: times {t}")
         log(f"[9] {v}: launch overhead per chained iteration "
             f"{t[1] - t[2]:.4f} ms (eager {t[1]:.4f} - graph {t[2]:.4f})")
-    if min(launches.values()) <= 0 or max(plain.values()) != 0:
-        raise AssertionError(f"kernel profiler launches {launches}, plain "
-                             f"{plain}")
+    # every wrapper launch through the cluster kernel: the tool's lags are
+    # progressions for every variant
+    if min(launches.values()) <= 0 or max(plain.values()) != 0 or \
+            max(v1.values()) != 0:
+        raise AssertionError(f"kernel profiler launches {launches}, v1 {v1}, "
+                             f"plain {plain}")
     return dict(launches=sum(launches.values()), res=res)
 
 
@@ -1310,7 +1397,9 @@ def main() -> int:
                 continue
             if not re.search(r"registers|spill", ln):
                 continue
-            var = re.search(r"ILi(\d)ELi13EE", entry)
+            var = re.search(r"ablation_taps_v1_kernelILi(\d)ELi13EE", entry)
+            k6 = re.search(r"ablation_taps_cluster_kernelILb(\d)ELi(\d+)EE",
+                           entry)
             k1 = re.search(r"(?:band|window|gram)_taps_(v1|cluster|mma)_"
                            r"kernelILi(\d+)ELb(\d)E", entry)
             # 13-tap instantiations (K2's banded Gram: its 7 n-tiles), and
@@ -1322,8 +1411,15 @@ def main() -> int:
                 kind = f"{k1[1]} {size} " + ("iq" if k1[3] == "1"
                                              else "real") + (
                     " bf16" if "bfloat16" in entry else "")
-            elif name == "ablation_taps" and var:
-                kind = ("full", "nosin", "onetap", "aligned")[int(var[1])]
+            elif var:
+                kind = "v1 " + ("full", "nosin", "onetap",
+                                "aligned")[int(var[1])]
+            elif k6 and (k6[2] == "13" or (k6[1], k6[2]) == ("0", "1")):
+                # full and aligned share an instantiation; onetap is its
+                # one-tap chain
+                kind = "cluster " + ("nosin" if k6[1] == "1" else
+                                     "full/aligned" if k6[2] == "13" else
+                                     "onetap") + f" T={k6[2]}"
             else:
                 continue
             log(f"[2]   {name} {kind}: {ln.split(':', 1)[-1].strip()}")
@@ -1384,13 +1480,10 @@ def main() -> int:
             "bound_ms": real["bound_ms"], "bound_by": real["bound_by"],
             # no single PyTorch call mixes, masks and sums the shifted taps
             "library_ms": None,
-            # how "ms" was timed: launches replayed from a CUDA graph, or
-            # eager back-to-back launches between CUDA events
-            "timing": real.get("timing", "eager")})
-        if "eager_ms" in real:    # the same launches' eager time
-            rows[-1]["eager_ms"] = real["eager_ms"]
-        if "v1_ms" in real:       # the same run's v1 kernel (K1-K5)
-            rows[-1]["v1_ms"] = real["v1_ms"]
+            # how "ms" was timed (launches replayed from a CUDA graph), the
+            # same launches eager, and the same run's v1 kernel
+            "timing": real["timing"], "eager_ms": real["eager_ms"],
+            "v1_ms": real["v1_ms"]})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

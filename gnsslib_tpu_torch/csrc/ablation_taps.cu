@@ -15,52 +15,93 @@
 //   cos_t[b] = sum_{i < n_b} w_b[i] * cos(2*pi*ph_b(i)) * rc_b[i + lag_t]
 //   sin_t[b] = the same with sin
 //
-// written as (B, 2T) float32 interleaved [cos_t, sin_t].  n_b is a float,
-// as in the TPU tool (its mask is i < n), and the window index i runs
-// below min(ceil(n_b), nwin).  The TPU's 8 windows per grid cell and the
-// tool's B % 8 padding were tiling artefacts and are gone: one thread block
-// per window, any B.
+// written as (B, 2T) float32 interleaved [cos_t, sin_t] in the caller's
+// tap order.  n_b is a float, as in the TPU tool (its mask is i < n), and
+// the window index i runs below min(ceil(n_b), nwin).  The TPU's 8 windows
+// per grid cell and the tool's B % 8 padding were tiling artefacts and are
+// gone: any B.
 //
-// The kernel is window_taps.cu's float32 instantiation instruction for
-// instruction (the same shared-memory row, the same scalar loads, the same
-// register accumulators and reduction), so that each ablation measures one
-// cost of K3-K5 on this card.  The tap lags come from the caller as a
-// device array (smax + o_t, or 128*t for ALIGNED): FULL and ALIGNED run the
-// same instructions and differ only in the addresses they read.  Every load
-// is a scalar 4-byte load: the window from device memory (coalesced), the
-// replica from shared memory, where 32 consecutive samples of a warp hit 32
-// banks at any offset.  An unaligned offset therefore costs nothing here
-// that an aligned one saves; ALIGNED measures that claim.
+// The TPU tool ablates K4's body, so this kernel ablates the port's K4
+// body: the window cluster kernel (window_cluster_body, csrc/
+// window_cluster.cuh, shared with csrc/window_taps.cu), whose chains of kJ
+// samples d apart reuse each replica value across the taps in registers,
+// whose segments are staged by 16-byte cp.async, whose S CTAs per window
+// add their sums in rank order through distributed shared memory, and
+// whose carrier is sincospif.  It takes lags that form a progression
+// base + m*d (ops/ablation_taps.py::plan); the entry ablation_taps_launch
+// runs, per variant:
+//   FULL    K4's f32 instantiation itself, with a float valid bound and the
+//           columns in the caller's order: at tap_offsets(6, 3) its output
+//           is correlate_windows8's bit for bit, columns permuted
+//   NOSIN   the chain's carrier slot computes 1 - ph^2 and ph (the outer
+//           frac taken explicitly, which sincospif's argument reduction
+//           takes for FULL): what the carrier costs in K4's chains
+//   ONETAP  the one-tap chain (NT = 1: no replica value left to reuse) at
+//           FULL's d, its pair written to every tap: what the tap loop
+//           costs
+//   ALIGNED FULL's instructions at lags 0, 128, ..., 128*(T-1) (d = 128:
+//           tiles of 33*128 samples, 12*128 more replica values staged per
+//           segment at 13 taps).  The TPU's question, the cost of slices
+//           that do not start on a 128-lane boundary, has no counterpart
+//           here: cp.async stages a segment at any head, and a warp's
+//           stride-d reads hit 32 banks for any d.  What ALIGNED measures
+//           on this card is a wider lag spread: more replica bytes per
+//           segment and longer chains in the row.
+// Lags that form no progression (none of the tool's) go to the port's
+// first K6 kernel, kept as ablation_taps_v1_launch: one block per window,
+// the whole row in shared memory, a precise sincosf, the lags from a
+// device array.
 //
 // What bounds it on this card: memory.  At the tool's shapes (B = 320,
-// nwin = 16493, W = 18229, 13 taps) a launch reads 21.1 MB of f32 windows
-// and 23.3 MB of f32 rows, 44.4 MB: ~13.3 us at 3.35 TB/s (H100 SXM),
-// against ~0.28 GFLOP of tap FMAs (~4 us at 67 TFLOP/s f32) plus one sincosf
-// per sample.  A row is 18229 x 4 = 72.9 KB of dynamic shared memory, above
-// the default 48 KB: a launch that needs more than its instantiation has
-// opted in to calls cudaFuncSetAttribute and returns its error (so a
-// launch inside CUDA-graph capture, after a warm-up, makes no such call).
+// nwin = 16493, W = 18229, 13 taps) a launch must read 21.1 MB of f32
+// windows and ~21.1 MB of the f32 rows its lags reach, ~42 MB: ~12.6 us at
+// 3.35 TB/s (H100 SXM), against ~0.28 GFLOP of tap FMAs (~4 us at
+// 67 TFLOP/s f32) plus a carrier per sample.  Every launch opts in the
+// dynamic shared memory it needs (launch.cuh): the cluster kernel stages
+// ~66 KB per CTA, v1 a whole row (72.9 KB).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "stage_async.cuh"
+#include "launch.cuh"
+#include "window_cluster.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr float kTwoPi = 6.283185307179586f;   // f32(2*pi), as the plain version
-
 enum Variant { kFull = 0, kNoSin = 1, kOneTap = 2, kAligned = 3 };
+constexpr int kMaxTaps = 25;      // templated tap counts 1, 3, ..., 25
 
-__device__ __forceinline__ float frac_f(float x) { return x - floorf(x); }
+// ------------------------------------------------------------------------
+// The cluster kernel: window_cluster_body on f32 windows and rows, a float
+// valid bound and the caller's column order; POLY for NOSIN.
+
+// 80 registers up to 13 taps (3 CTAs of 256 threads per SM), 255 above
+template <bool POLY, int NT>
+__global__ void __launch_bounds__(kThreads, NT <= 13 ? 3 : 1)
+ablation_taps_cluster_kernel(const ClusterArgs a) {
+  window_cluster_body<NT, false, float, float, false, float, POLY, true>(a);
+}
+
+template <bool POLY, int NT>
+cudaError_t launch_ablation(ClusterArgs a, int nwindows, cudaStream_t st) {
+  static size_t opted = 0;            // this instantiation's opt-in
+  return launch_cluster<NT, false, float, float>(
+      ablation_taps_cluster_kernel<POLY, NT>, opted, a, nwindows, st);
+}
+
+// ------------------------------------------------------------------------
+// The v1 kernel (the port's first K6 kernel): any lags, from a device
+// array.
 
 template <int V, int NT>
 __global__ void __launch_bounds__(kThreads)
-ablation_taps_kernel(const float* __restrict__ win, int nwin,
-                     const float* __restrict__ rc, int W,
-                     const float* __restrict__ rem,
-                     const float* __restrict__ ftot,
-                     const float* __restrict__ nvalid,
-                     const int* __restrict__ lags, float* __restrict__ out) {
+ablation_taps_v1_kernel(const float* __restrict__ win, int nwin,
+                        const float* __restrict__ rc, int W,
+                        const float* __restrict__ rem,
+                        const float* __restrict__ ftot,
+                        const float* __restrict__ nvalid,
+                        const int* __restrict__ lags,
+                        float* __restrict__ out) {
   constexpr int NC = V == kOneTap ? 1 : NT;     // taps computed
   extern __shared__ __align__(16) unsigned char smem[];
   float* rep = reinterpret_cast<float*>(smem);  // this window's replica row
@@ -135,44 +176,35 @@ ablation_taps_kernel(const float* __restrict__ win, int nwin,
 }
 
 template <int V, int NT>
-cudaError_t launch(const float* win, int nwin, const float* rc, int W,
-                   const float* rem, const float* ftot, const float* nvalid,
-                   const int* lags, int nwindows, float* out,
-                   cudaStream_t stream) {
-  auto kernel = ablation_taps_kernel<V, NT>;
-  const size_t shm = (size_t)W * sizeof(float);
-  // opt in only when a launch needs more than this instantiation already
-  // has, so that repeated launches (and graph capture) make no call
-  static size_t opted = 48 * 1024;
-  if (shm > opted) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
-    if (e != cudaSuccess) return e;
-    opted = shm;
-  }
-  kernel<<<nwindows, kThreads, shm, stream>>>(win, nwin, rc, W, rem, ftot,
-                                              nvalid, lags, out);
-  return cudaGetLastError();
+cudaError_t launch_v1(const float* win, int nwin, const float* rc, int W,
+                      const float* rem, const float* ftot, const float* nvalid,
+                      const int* lags, int nwindows, float* out,
+                      cudaStream_t stream) {
+  static size_t opted = 0;            // this instantiation's opt-in
+  return launch_kernel(ablation_taps_v1_kernel<V, NT>, opted,
+                       dim3((unsigned)nwindows), dim3(kThreads),
+                       (size_t)W * sizeof(float), 0, stream, win, nwin, rc,
+                       W, rem, ftot, nvalid, lags, out);
 }
 
 template <int NT>
-cudaError_t dispatch(int variant, const float* win, int nwin, const float* rc,
-                     int W, const float* rem, const float* ftot,
-                     const float* nv, const int* lags, int nwindows,
-                     float* out, cudaStream_t st) {
+cudaError_t dispatch_v1(int variant, const float* win, int nwin,
+                        const float* rc, int W, const float* rem,
+                        const float* ftot, const float* nv, const int* lags,
+                        int nwindows, float* out, cudaStream_t st) {
   switch (variant) {
     case kFull:
-      return launch<kFull, NT>(win, nwin, rc, W, rem, ftot, nv, lags,
-                               nwindows, out, st);
-    case kNoSin:
-      return launch<kNoSin, NT>(win, nwin, rc, W, rem, ftot, nv, lags,
-                                nwindows, out, st);
-    case kOneTap:
-      return launch<kOneTap, NT>(win, nwin, rc, W, rem, ftot, nv, lags,
-                                 nwindows, out, st);
-    case kAligned:
-      return launch<kAligned, NT>(win, nwin, rc, W, rem, ftot, nv, lags,
+      return launch_v1<kFull, NT>(win, nwin, rc, W, rem, ftot, nv, lags,
                                   nwindows, out, st);
+    case kNoSin:
+      return launch_v1<kNoSin, NT>(win, nwin, rc, W, rem, ftot, nv, lags,
+                                   nwindows, out, st);
+    case kOneTap:
+      return launch_v1<kOneTap, NT>(win, nwin, rc, W, rem, ftot, nv, lags,
+                                    nwindows, out, st);
+    case kAligned:
+      return launch_v1<kAligned, NT>(win, nwin, rc, W, rem, ftot, nv, lags,
+                                     nwindows, out, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -180,23 +212,73 @@ cudaError_t dispatch(int variant, const float* win, int nwin, const float* rc,
 
 }  // namespace
 
-#define ABLATION_TAPS_CASE(NT)                                                \
-  case NT:                                                                    \
-    return (int)dispatch<NT>(variant, w, nwin, r, W, rm, ft, nv, lg, nwindows, \
-                             y, st);
+#define TAP_CASES(X) X(1) X(3) X(5) X(7) X(9) X(11) X(13) X(15) X(17) \
+                     X(19) X(21) X(23) X(25)
 
 // Plain C interface for ctypes.  variant: 0 FULL, 1 NOSIN, 2 ONETAP,
-// 3 ALIGNED.  win (B, nwin), rc (B, W), rem, ftot and n (B,) float32; lags
-// (ntaps,) int32, each with lag + nwin <= W (the caller checks); out
+// 3 ALIGNED.  win (B, nwin), rc (B, W), rem, ftot and n (B,) float32; out
 // (B, 2*ntaps) float32.  Every pointer is a device pointer; the stream is
-// the caller's current CUDA stream.  Returns the cudaError_t of the launch
-// (0 on success); a variant outside 0..3 or ntaps outside {1, 3, ..., 25}
-// returns cudaErrorInvalidValue without launching.
+// the caller's current CUDA stream.  Each returns the
+// cudaError_t of the launch (0 on success); arguments it does not take (a
+// variant outside 0..3, ntaps outside {1, 3, ..., 25}, a bad plan) return
+// cudaErrorInvalidValue without launching.
+
+// The cluster kernel for lags base + m*d (base >= 0, d >= 1, each with
+// lag + nwin <= W: the caller checks).  src (ntaps ints on the device):
+// the lag m < ntaps whose pair output tap j takes, a permutation for FULL,
+// NOSIN and ALIGNED; ONETAP computes the lag `base` only (its chain still
+// d apart), and its src is all zeros: its pair goes to every tap.
 extern "C" int ablation_taps_launch(int variant, const void* win, int nwin,
                                     const void* rc, int W, const void* rem,
                                     const void* ftot, const void* n,
-                                    const void* lags, int ntaps, int nwindows,
-                                    void* out, void* stream) {
+                                    int ntaps, int base, int d,
+                                    const void* src, int nwindows, void* out,
+                                    void* stream) {
+  if (variant < 0 || variant > 3 || ntaps < 1 || ntaps > kMaxTaps ||
+      ntaps % 2 == 0 || base < 0 || d < 1)
+    return (int)cudaErrorInvalidValue;
+  if (nwindows <= 0) return (int)cudaSuccess;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (nwin <= 0)                  // no samples: every tap sum is zero
+    return (int)cudaMemsetAsync(out, 0, (size_t)nwindows * 2 * ntaps * 4, st);
+  ClusterArgs a = {};
+  a.win = win;
+  a.win_bytes = (long long)nwindows * nwin * 4;
+  a.nwin = nwin;
+  a.rc = rc;
+  a.rc_bytes = (long long)nwindows * W * 4;
+  a.next = W;
+  a.rem = static_cast<const float*>(rem);
+  a.ftot = static_cast<const float*>(ftot);
+  a.nvalid = n;
+  a.d = d;
+  a.base = base;
+  a.out = static_cast<float*>(out);
+  a.nout = ntaps;
+  a.src = static_cast<const int*>(src);
+  if (variant == kOneTap)
+    return (int)launch_ablation<false, 1>(a, nwindows, st);
+#define CLUSTER_CASE(NT)                                              \
+  case NT:                                                            \
+    return variant == kNoSin                                          \
+               ? (int)launch_ablation<true, NT>(a, nwindows, st)      \
+               : (int)launch_ablation<false, NT>(a, nwindows, st);
+  switch (ntaps) {
+    TAP_CASES(CLUSTER_CASE)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef CLUSTER_CASE
+}
+
+// The v1 kernel, for any lags: lags (ntaps,) int32 on the device, each
+// with lag + nwin <= W (the caller checks).
+extern "C" int ablation_taps_v1_launch(int variant, const void* win, int nwin,
+                                       const void* rc, int W, const void* rem,
+                                       const void* ftot, const void* n,
+                                       const void* lags, int ntaps,
+                                       int nwindows, void* out,
+                                       void* stream) {
   if (variant < 0 || variant > 3) return (int)cudaErrorInvalidValue;
   if (nwindows <= 0) return (int)cudaSuccess;
   const float* w = static_cast<const float*>(win);
@@ -207,24 +289,22 @@ extern "C" int ablation_taps_launch(int variant, const void* win, int nwin,
   const int* lg = static_cast<const int*>(lags);
   float* y = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define V1_CASE(NT)                                                           \
+  case NT:                                                                    \
+    return (int)dispatch_v1<NT>(variant, w, nwin, r, W, rm, ft, nv, lg,       \
+                                nwindows, y, st);
   switch (ntaps) {
-    ABLATION_TAPS_CASE(1)
-    ABLATION_TAPS_CASE(3)
-    ABLATION_TAPS_CASE(5)
-    ABLATION_TAPS_CASE(7)
-    ABLATION_TAPS_CASE(9)
-    ABLATION_TAPS_CASE(11)
-    ABLATION_TAPS_CASE(13)
-    ABLATION_TAPS_CASE(15)
-    ABLATION_TAPS_CASE(17)
-    ABLATION_TAPS_CASE(19)
-    ABLATION_TAPS_CASE(21)
-    ABLATION_TAPS_CASE(23)
-    ABLATION_TAPS_CASE(25)
+    TAP_CASES(V1_CASE)
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef V1_CASE
 }
+
+// Samples per chain and CTAs per window of the cluster kernel (for the
+// caller's records).
+extern "C" int ablation_taps_samples_per_thread() { return kJ; }
+extern "C" int ablation_taps_ctas_per_window() { return kCluster; }
 
 extern "C" const char* ablation_taps_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

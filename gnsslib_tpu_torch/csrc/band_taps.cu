@@ -79,6 +79,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -442,16 +444,12 @@ cudaError_t launch_v1(const float* block, long long nblock, const int8_t* rc,
                       const uint8_t* active, const int* offsets, int smax,
                       int nwindows, float* out, int* ok,
                       cudaStream_t stream) {
-  auto kernel = band_taps_v1_kernel<NT, IQ>;
-  if (next > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, next);
-    if (e != cudaSuccess) return e;
-  }
-  kernel<<<nwindows, kThreads, next, stream>>>(
-      block, nblock, rc, next, nwin, wstart, nvalid, rem, ftot, active,
-      offsets, smax, out, ok);
-  return cudaGetLastError();
+  static size_t opted = 0;            // this instantiation's opt-in
+  return launch_kernel(band_taps_v1_kernel<NT, IQ>, opted,
+                       dim3((unsigned)nwindows), dim3(kThreads),
+                       (size_t)next, 0, stream, block, nblock, rc, next,
+                       nwin, wstart, nvalid, rem, ftot, active, offsets,
+                       smax, out, ok);
 }
 
 template <int NT, bool IQ>
@@ -464,31 +462,10 @@ cudaError_t launch_cluster(ClusterArgs a, int nwindows, cudaStream_t stream) {
   const int want = ceil_div(a.seg / tile * a.d, 32) * 32;
   const int threads = want < kThreads ? want : kThreads;
   const size_t shm = staged_bytes(nrep);
-  auto kernel = band_taps_cluster_kernel<NT, IQ>;
-  // opt in only when a launch needs more than this instantiation already
-  // has, so that repeated launches (and graph capture) make no call
-  static size_t opted = 48 * 1024;
-  if (shm > opted) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
-    if (e != cudaSuccess) return e;
-    opted = shm;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(nwindows * kCluster));
-  cfg.blockDim = dim3((unsigned)threads);
-  cfg.dynamicSmemBytes = shm;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)kCluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, a);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
+  static size_t opted = 0;            // this instantiation's opt-in
+  return launch_kernel(band_taps_cluster_kernel<NT, IQ>, opted,
+                       dim3((unsigned)(nwindows * kCluster)),
+                       dim3((unsigned)threads), shm, kCluster, stream, a);
 }
 
 }  // namespace

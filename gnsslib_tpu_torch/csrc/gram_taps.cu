@@ -104,6 +104,7 @@
 #include <stdint.h>
 
 #include "stage_async.cuh"
+#include "launch.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -551,39 +552,10 @@ cudaError_t launch_mma(MmaArgs a, int nwindows, cudaStream_t stream) {
   const int band = band_bytes(a.smax);
   const size_t shm = (size_t)(a.kr + kLanes) * 2 * sizeof(float) +
                      (size_t)(stage > band ? stage : band);
-  auto kernel = gram_taps_mma_kernel<NN, IQ>;
-  // opt in only when a launch needs more than this instantiation already
-  // has, so that repeated launches (and graph capture) make no call; the
-  // first launch opts in whatever it needs (its static shared memory
-  // counts against the 48 KB default too)
-  static size_t opted = 0;
-  if (shm > opted) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
-    if (e != cudaSuccess) {
-      cudaGetLastError();             // leave no error for the next launch
-      return e;
-    }
-    opted = shm;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(nwindows * kCluster));
-  cfg.blockDim = dim3((unsigned)kThreads);
-  cfg.dynamicSmemBytes = shm;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)kCluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, a);
-  if (e != cudaSuccess) {
-    cudaGetLastError();
-    return e;
-  }
-  return cudaGetLastError();
+  static size_t opted = 0;            // this instantiation's opt-in
+  return launch_kernel(gram_taps_mma_kernel<NN, IQ>, opted,
+                       dim3((unsigned)(nwindows * kCluster)), dim3(kThreads),
+                       shm, kCluster, stream, a);
 }
 
 template <int NT, bool IQ>
@@ -591,19 +563,14 @@ cudaError_t launch_v1(const void* win_i, const void* win_q, int K,
                       const int8_t* rc, int next, const float* rem,
                       const float* ftot, const int* offsets, int smax,
                       int nwindows, float* out, cudaStream_t stream) {
-  auto kernel = gram_taps_v1_kernel<NT, IQ>;
   const size_t shm = (size_t)K * 2 * sizeof(float) + (size_t)K * kLanes +
                      2 * (size_t)smax;
-  if (shm > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
-    if (e != cudaSuccess) return e;
-  }
-  kernel<<<nwindows, kThreads, shm, stream>>>(
-      static_cast<const __nv_bfloat16*>(win_i),
-      static_cast<const __nv_bfloat16*>(win_q), K, rc, next, rem, ftot,
-      offsets, smax, out);
-  return cudaGetLastError();
+  static size_t opted = 0;            // this instantiation's opt-in
+  return launch_kernel(gram_taps_v1_kernel<NT, IQ>, opted,
+                       dim3((unsigned)nwindows), dim3(kThreads), shm, 0,
+                       stream, static_cast<const __nv_bfloat16*>(win_i),
+                       static_cast<const __nv_bfloat16*>(win_q), K, rc, next,
+                       rem, ftot, offsets, smax, out);
 }
 
 }  // namespace

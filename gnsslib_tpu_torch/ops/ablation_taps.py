@@ -17,9 +17,14 @@ returned as (B, 2T) float32 interleaved [cos_t, sin_t], with per variant:
 * ``aligned`` lag_t = 128 t (no unaligned offsets).
 
 ``n`` is float32, as the TPU tool passes it (its mask is ``i < n``).
-:func:`ablation_taps` launches the hand-written CUDA kernel
+:func:`ablation_taps` launches a hand-written CUDA kernel
 (``csrc/ablation_taps.cu``) for CUDA tensors and uses the variant's plain
-PyTorch version only for tensors on the CPU.
+PyTorch version only for tensors on the CPU.  The kernel ablates the
+port's K4 body, the window cluster kernel (``csrc/window_cluster.cuh``):
+lags that :func:`plan` finds in a progression (all the TPU tool's) launch
+it (``COUNTS[v].kernel``), any others the first K6 kernel (``COUNTS[v].v1``);
+the choice follows the lags, never a failure, and there is no fallback
+from a kernel to the plain version or from one kernel to the other.
 """
 from __future__ import annotations
 
@@ -29,12 +34,12 @@ import functools
 import torch
 
 from .carrier import TWO_PI
-from .kernels import (LaunchCounts, bind, check_offsets, check_tensors,
+from .kernels import (V1Counts, bind, check_offsets, check_tensors,
                       device_offsets, raise_on, route, stream_of)
 from .nco import frac
 
 VARIANTS = ("full", "nosin", "onetap", "aligned")   # kernel variant codes 0-3
-COUNTS = {v: LaunchCounts(f"ablation_taps[{v}]") for v in VARIANTS}
+COUNTS = {v: V1Counts(f"ablation_taps[{v}]") for v in VARIANTS}
 ALIGN = 128                     # the aligned variant's tap stride (samples)
 
 
@@ -43,6 +48,35 @@ def lags(variant: str, offsets, smax: int) -> tuple:
     if variant == "aligned":
         return tuple(ALIGN * t for t in range(len(offsets)))
     return tuple(smax + int(o) for o in offsets)
+
+
+@functools.lru_cache(maxsize=64)
+def plan(variant: str, offsets: tuple, smax: int):
+    """The cluster kernel's plan for ``variant``: (base, d, cols) when the
+    variant's lags, sorted, are base + m*d with d >= 1 (d = 1 for one tap),
+    else None (the v1 kernel).  ``cols[m]`` is the output tap of lag m.
+    ``onetap`` computes tap 0's lag alone, as (that lag, the d of all its
+    lags, (0,)), and the kernel writes its pair to every tap, so its chains
+    run at ``full``'s d."""
+    lg = lags(variant, offsets, smax)
+    order = sorted(range(len(lg)), key=lambda t: lg[t])
+    first = lg[order[0]]
+    d = lg[order[1]] - first if len(lg) > 1 else 1
+    if d < 1 or any(lg[t] != first + m * d for m, t in enumerate(order)):
+        return None
+    if variant == "onetap":
+        return lg[0], d, (0,)
+    return first, d, tuple(order)
+
+
+def sources(cols: tuple, ntaps: int) -> tuple:
+    """The kernel's column map: for each output tap, the lag (index into
+    the plan's lags) whose pair it takes; lag 0 where no lag names the tap
+    (onetap's plan names tap 0 alone, so its pair goes to every tap)."""
+    src = [0] * ntaps
+    for m, c in enumerate(cols):
+        src[c] = m
+    return tuple(src)
 
 
 def _mix(variant: str, win, rem, ftot, n):
@@ -137,21 +171,45 @@ def ablation_taps(win, rc, rem, ftot, n, offsets, smax: int,
         return PLAIN[variant](win, rc, rem, ftot, n, offsets, smax)
     out = torch.empty((win.shape[0], 2 * len(offsets)), dtype=torch.float32,
                       device=win.device)
-    launch(variant, win, rc, rem, ftot, n, offsets, smax, out)
-    COUNTS[variant].kernel += 1
+    which = launch(variant, win, rc, rem, ftot, n, offsets, smax, out)
+    setattr(COUNTS[variant], which, getattr(COUNTS[variant], which) + 1)
     return out
 
 
 def launch(variant: str, win, rc, rem, ftot, n, offsets, smax: int,
-           out) -> None:
+           out) -> str:
     """Launch ``variant`` on the current CUDA stream into ``out`` (B, 2T)
     float32, with no argument checks and no count: :func:`ablation_taps`
-    checks, allocates, counts and calls this.  Raises if the launch is
-    refused."""
+    checks, allocates, counts and calls this.  Lags that :func:`plan`
+    plans launch the cluster kernel, any others the v1 kernel; returns
+    which (``"kernel"`` or ``"v1"``, the counter to add to).  Raises if
+    the launch is refused."""
+    offsets = tuple(int(o) for o in offsets)
+    p = plan(variant, offsets, smax)
+    if p is None:
+        launch_v1(variant, win, rc, rem, ftot, n, offsets, smax, out)
+        return "v1"
+    base, d, cols = p
+    lib = _library()
+    src = device_offsets(sources(cols, len(offsets)), win.device)
+    with torch.cuda.device(win.device):
+        err = lib.ablation_taps_launch(
+            VARIANTS.index(variant), win.data_ptr(), win.shape[1],
+            rc.data_ptr(), rc.shape[1], rem.data_ptr(), ftot.data_ptr(),
+            n.data_ptr(), len(offsets), base, d, src.data_ptr(),
+            win.shape[0], out.data_ptr(), stream_of(win.device))
+    raise_on(lib, "ablation_taps", err)
+    return "kernel"
+
+
+def launch_v1(variant: str, win, rc, rem, ftot, n, offsets, smax: int,
+              out) -> None:
+    """Launch the v1 kernel (``ablation_taps_v1_launch``: one block per
+    window, any lags) as :func:`launch` does, with no count."""
     lib = _library()
     lg = device_offsets(lags(variant, offsets, smax), win.device)
     with torch.cuda.device(win.device):
-        err = lib.ablation_taps_launch(
+        err = lib.ablation_taps_v1_launch(
             VARIANTS.index(variant), win.data_ptr(), win.shape[1],
             rc.data_ptr(), rc.shape[1], rem.data_ptr(), ftot.data_ptr(),
             n.data_ptr(), lg.data_ptr(), lg.shape[0], win.shape[0],
@@ -159,12 +217,30 @@ def launch(variant: str, win, rc, rem, ftot, n, offsets, smax: int,
     raise_on(lib, "ablation_taps", err)
 
 
+def samples_per_thread() -> int:
+    """Samples in each thread's chain of the cluster kernel (its ``kJ``,
+    the window cluster kernel's)."""
+    return int(_library().ablation_taps_samples_per_thread())
+
+
+def ctas_per_window() -> int:
+    """CTAs, one thread-block cluster, per window of the cluster kernel
+    (its ``kCluster``, the window cluster kernel's)."""
+    return int(_library().ablation_taps_ctas_per_window())
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     """Build (first use) and bind ``csrc/ablation_taps.cu``."""
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    return bind("ablation_taps", "ablation_taps_launch", [
-        i32, vp, i32, vp, i32, vp, vp, vp, vp, i32, i32, vp, vp])
+    lib = bind("ablation_taps", "ablation_taps_launch", [
+        i32, vp, i32, vp, i32, vp, vp, vp, i32, i32, i32, vp, i32, vp, vp])
+    lib.ablation_taps_v1_launch.argtypes = [
+        i32, vp, i32, vp, i32, vp, vp, vp, vp, i32, i32, vp, vp]
+    lib.ablation_taps_v1_launch.restype = i32
+    lib.ablation_taps_samples_per_thread.restype = i32
+    lib.ablation_taps_ctas_per_window.restype = i32
+    return lib
 
 
 def load_kernel() -> None:

@@ -160,10 +160,11 @@ def apply_variant(src: str, replacements, label: str) -> str:
 
 
 def variant_source(name: str) -> str:
-    """``csrc/band_taps.cu`` with variant ``name``'s replacements, built
-    for 13 taps only; raises if a replaced line is not in the source."""
-    src = (cuda_build.CSRC / "band_taps.cu").read_text()
-    return apply_variant(src, VARIANTS[name] + [(TAPS_ALL, TAPS13)],
+    """``csrc/band_taps.cu`` (with ``csrc/launch.cuh`` inlined) with
+    variant ``name``'s replacements, built for 13 taps only; raises if a
+    replaced line is not in the source."""
+    return apply_variant(cuda_build.source("band_taps"),
+                         VARIANTS[name] + [(TAPS_ALL, TAPS13)],
                          f"profile_band: variant {name}")
 
 

@@ -9,8 +9,12 @@ The shapes are the TPU tool's: B = 320 windows of nwin = 16493 samples,
 float32 replica rows of W = nwin + 2*36 + 1664 = 18229 samples, 13 taps at
 ``range(-18, 19, 3)``; the inputs come from ``numpy.random.default_rng(0)``
 as the TPU tool makes them.  Per variant (full, nosin, onetap, aligned)
-it prints the milliseconds per launch (CUDA events over back-to-back
-launches on the same inputs).  ``--scan`` adds the counterpart of the TPU
+it prints the milliseconds per wrapper call (CUDA events over back-to-back
+calls on the same inputs) and, on the card, the device time per launch
+of the cluster kernel the wrapper launches and of the v1 kernel
+(``ablation_taps_v1_launch``), each replayed from one CUDA graph with the
+inputs rotated over copies beyond the L2 cache
+(:func:`.profile_band.graph_ms`).  ``--scan`` adds the counterpart of the TPU
 tool's ``scan_test``: 100 iterations, each launching the variant on
 ``rem + c * 1e-9`` and feeding ``c += sum(taps) * 1e-30`` to the next, run
 once eagerly and once replayed from one captured CUDA graph; the gap
@@ -28,6 +32,7 @@ import numpy as np
 import torch
 
 from ..ops import ablation_taps as ab
+from .profile_band import copies_for, graph_ms
 
 B, NWIN, SMAX = 320, 16493, 36
 OFFSETS = tuple(range(-18, 19, 3))      # 13 taps, CORRD = 3 spacing
@@ -106,14 +111,32 @@ def scan(args, variant: str, device, iters: int = ITERS, reps: int = 3):
     return eager, _time(graph.replay, device, reps) / iters
 
 
+def replay_ms(args, variant: str, rounds: int = 5) -> tuple:
+    """(cluster kernel, v1 kernel) device ms per launch of ``variant`` on
+    ``args``: launches replayed from one CUDA graph, inputs rotated over
+    copies beyond the L2 cache.  Launches by :func:`ablation_taps.launch`
+    and :func:`ablation_taps.launch_v1`, which count nothing."""
+    nbytes = sum(a.numel() * a.element_size() for a in args)
+    copies = [[a.clone() for a in args] for _ in range(copies_for(nbytes))]
+    out = torch.empty((args[0].shape[0], 2 * len(OFFSETS)),
+                      dtype=torch.float32, device=args[0].device)
+    return tuple(
+        graph_ms(lambda c, fn=fn: fn(variant, *copies[c], OFFSETS, SMAX, out),
+                 len(copies), rounds=rounds)
+        for fn in (ab.launch, ab.launch_v1))
+
+
 def profile(device="cuda", reps: int = 10, scan_test: bool = True,
             B: int = B, nwin: int = NWIN, iters: int = ITERS,
             log=print) -> dict:
-    """Time every variant; returns {variant: {"ms" (per launch),
-    "eager_ms_per_iter", "graph_ms_per_iter" (None without ``scan_test``
-    or on the CPU), "launches" (kernel launches this call made, graph
-    capture included, replays not), "plain" (plain-version calls)}}.
-    Raises on the first variant that fails."""
+    """Time every variant; returns {variant: {"ms" (per wrapper call),
+    "graph_ms", "v1_graph_ms" (device ms per launch of the cluster and the
+    v1 kernel by graph replay; None on the CPU), "eager_ms_per_iter",
+    "graph_ms_per_iter" (None without ``scan_test`` or on the CPU),
+    "launches" (cluster-kernel launches of the wrapper calls this call
+    made, graph capture included, replays not), "v1" (the wrapper's v1
+    launches), "plain" (plain-version calls)}}.  Raises on the first
+    variant that fails."""
     device = torch.device(device)
     args = inputs(device, B, nwin)
     W = args[1].shape[1]
@@ -122,16 +145,21 @@ def profile(device="cuda", reps: int = 10, scan_test: bool = True,
     log(f"# {where}: B={B} nwin={nwin} W={W} taps={len(OFFSETS)}")
     out = {}
     for v in ab.VARIANTS:
-        before = (ab.COUNTS[v].kernel, ab.COUNTS[v].plain)
+        before = ab.COUNTS[v].values()
         z = ab.ablation_taps(*args, OFFSETS, SMAX, v)
         _sync(device)
         if not torch.isfinite(z).all():
             raise RuntimeError(f"{v}: non-finite taps")
         ms = _time(lambda: ab.ablation_taps(*args, OFFSETS, SMAX, v), device,
                    reps)
-        rec = {"ms": ms, "eager_ms_per_iter": None,
-               "graph_ms_per_iter": None}
-        line = f"{v:8s} {ms:8.4f} ms per {B}-window launch"
+        rec = {"ms": ms, "graph_ms": None, "v1_graph_ms": None,
+               "eager_ms_per_iter": None, "graph_ms_per_iter": None}
+        line = f"{v:8s} {ms:8.4f} ms per {B}-window wrapper call"
+        if device.type == "cuda":
+            rec["graph_ms"], rec["v1_graph_ms"] = replay_ms(args, v)
+            line += (f"; device ms per launch (graph replay, beyond L2): "
+                     f"kernel {rec['graph_ms']:.4f}, v1 "
+                     f"{rec['v1_graph_ms']:.4f}")
         if scan_test:
             rec["eager_ms_per_iter"], rec["graph_ms_per_iter"] = scan(
                 args, v, device, iters)
@@ -139,8 +167,10 @@ def profile(device="cuda", reps: int = 10, scan_test: bool = True,
                      f"{rec['eager_ms_per_iter']:.4f} ms/iter")
             if rec["graph_ms_per_iter"] is not None:
                 line += f", CUDA graph {rec['graph_ms_per_iter']:.4f} ms/iter"
-        rec["launches"] = ab.COUNTS[v].kernel - before[0]
-        rec["plain"] = ab.COUNTS[v].plain - before[1]
+        after = ab.COUNTS[v].values()
+        rec["launches"] = after["kernel"] - before["kernel"]
+        rec["v1"] = after["v1"] - before["v1"]
+        rec["plain"] = after["plain"] - before["plain"]
         log(line)
         out[v] = rec
     return out

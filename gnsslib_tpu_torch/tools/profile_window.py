@@ -12,7 +12,9 @@ The inputs are those of ``chip_smoke.py`` phase 3 (:func:`inputs`): the
 16412-element replica rows), 8-bit-valued samples, +-1 replica rows,
 valid lengths around n_nom.  K3 (``bf16``) takes bf16 windows and int8
 rows, the f32 instantiation (``f32``, K4 and K5) f32 windows and rows.
-Each variant is ``csrc/window_taps.cu`` with a few lines replaced, built
+Each variant is ``csrc/window_taps.cu`` (with its headers inlined, the
+cluster kernel's body ``csrc/window_cluster.cuh`` among them) with a few
+lines replaced, built
 for 13 taps only by nvcc (all variants in parallel, helpers of
 :mod:`.profile_band`) into ``build/gnsslib_tpu_torch/profile_window/``,
 and timed by :func:`.profile_band.graph_ms`: launches replayed from one
@@ -103,7 +105,7 @@ _L1WIN = [("    const W* x = reinterpret_cast<const W*>(           // the "
            "(long long)sizeof(W);\n"),
           ("  shm += staged_bytes(a.seg * F * (int)sizeof(W));\n", "")]
 _CHAIN = "      if (s0 < lim)\n        chain_taps<"
-_ENTRY = "  float* o = a.out + (size_t)b * NV;\n"
+_ENTRY = "  float* o = a.out + (size_t)b * width;\n"
 _CLUSTER = "constexpr int kCluster = 2;"
 _KJ = "constexpr int kJ = 33;"
 _NOSTAGE = [(_STAGE, _STAGE.replace("v < (head", "v < 0 * (head"))]

@@ -649,9 +649,9 @@ def test_fetch_backends_reject_bad_inputs(dev):
 @pytest.mark.parametrize("variant", ab.VARIANTS)
 def test_ablation_taps_kernel_matches_plain(dev, variant):
     """K6's four variants against their plain versions on the card at the
-    profiler's shapes (B = 320, nwin = 16493, W = 18229, 13 taps): f32,
-    only summation order and sincosf rounding differ, 1e-5 of each
-    window's L1 norm."""
+    profiler's shapes (B = 320, nwin = 16493, W = 18229, 13 taps), each
+    one cluster-kernel launch: f32, only summation order and the carrier's
+    rounding differ, 1e-5 of each window's L1 norm."""
     args = profile_kernel.inputs(dev)
     ab.COUNTS[variant].reset()
     zk = ab.ablation_taps(*args, profile_kernel.OFFSETS,
@@ -659,7 +659,7 @@ def test_ablation_taps_kernel_matches_plain(dev, variant):
     zp = ab.PLAIN[variant](*args, profile_kernel.OFFSETS,
                            profile_kernel.SMAX)
     torch.cuda.synchronize()
-    assert ab.COUNTS[variant].kernel == 1 and ab.COUNTS[variant].plain == 0
+    assert ab.COUNTS[variant].values() == {"kernel": 1, "v1": 0, "plain": 0}
     l1 = args[0].abs().sum(dim=1)
     err = (zk - zp).abs().max(dim=1).values
     assert bool(torch.all(err <= 1e-5 * l1)), float(err.max())
@@ -684,6 +684,230 @@ def test_ablation_taps_in_cuda_graph(dev):
     graph.replay()
     torch.cuda.synchronize()
     assert float(c_out) == pytest.approx(float(eager), rel=1e-6)
+
+
+def _ab_run(variant, args, offsets, smax):
+    """K6's wrapper taps, the plain version's, and the counters' change."""
+    counts = ab.COUNTS[variant]
+    counts.reset()
+    zk = ab.ablation_taps(*args, offsets, smax, variant)
+    zp = ab.PLAIN[variant](*args, offsets, smax)
+    torch.cuda.synchronize()
+    return zk, zp, (counts.kernel, counts.v1, counts.plain)
+
+
+def _ab_ok(zk, zp, win):
+    """Within 1e-5 of each window's L1 norm (phase 3's K6 tolerance)."""
+    err = (zk - zp).abs().max(dim=1).values
+    return bool(torch.all(err <= 1e-5 * win.abs().sum(dim=1)))
+
+
+@pytest.mark.cuda
+def test_ablation_taps_full_is_k4_bit_for_bit(dev):
+    """K6's full variant is K4's f32 cluster instantiation: at K6's
+    ascending offsets its taps equal correlate_windows8's at
+    tap_offsets(6, 3) (the same lags) bit for bit, columns permuted, with
+    K4's int bound ceil(n) (the same samples, i < n)."""
+    args = profile_kernel.inputs(dev)
+    win, rc, rem, ftot, n = args
+    offs, smax = profile_kernel.OFFSETS, profile_kernel.SMAX
+    k4 = tuple(int(o) for o in tap_offsets(6, 3))
+    z4 = wt.correlate_windows8(win, rc, rem, ftot,
+                               torch.ceil(n).to(torch.int32), k4, smax)
+    z6 = ab.ablation_taps(*args, offs, smax, "full")
+    torch.cuda.synchronize()
+    cols = [2 * k4.index(o) + c for o in offs for c in (0, 1)]
+    assert torch.equal(z6.view(torch.int32),
+                       z4[:, cols].contiguous().view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ab.VARIANTS)
+def test_ablation_taps_bit_identical_and_graph_replay(dev, variant):
+    """Two launches of each variant give bit-identical taps (a fixed
+    reduction order, no atomics), and a launch captured in a CUDA graph
+    and replayed gives the eager launch's bits."""
+    args = profile_kernel.inputs(dev)
+    offs, smax = profile_kernel.OFFSETS, profile_kernel.SMAX
+    z1 = ab.ablation_taps(*args, offs, smax, variant)
+    z2 = ab.ablation_taps(*args, offs, smax, variant)
+    torch.cuda.synchronize()
+    assert torch.equal(z1.view(torch.int32), z2.view(torch.int32))
+    out = torch.empty_like(z1)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):              # warm-up before capture
+        ab.launch(variant, *args, offs, smax, out)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        assert ab.launch(variant, *args, offs, smax, out) == "kernel"
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), z1.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offsets", [(0, -1, 2), (0, -2, 2, -4, 5),
+                                     (0, 0, 3)])
+@pytest.mark.parametrize("variant", ["full", "nosin", "onetap"])
+def test_ablation_taps_non_progression_goes_to_v1(dev, variant, offsets):
+    """Lags that sorted form no progression launch the v1 kernel,
+    counted in v1 (not kernel), and match the plain version."""
+    args = profile_kernel.inputs(dev, B=16, nwin=3000)
+    zk, zp, counts = _ab_run(variant, args, offsets, 6)
+    assert counts == (0, 1, 0)
+    assert _ab_ok(zk, zp, args[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offsets,smax", [
+    ((0,), 4), ((-3, 0, 3), 3), (tuple(range(-36, 37, 3)), 36),
+    (tuple(int(o) for o in tap_offsets(6, 2)), 12)])
+@pytest.mark.parametrize("variant", ab.VARIANTS)
+def test_ablation_taps_odd_shapes(dev, variant, offsets, smax):
+    """B = 7 windows of 2999 samples (no multiple of any tile), valid
+    bounds 0, negative, fractional, at a segment's edges and beyond nwin,
+    at 1, 3, 13 (tap_offsets order) and 25 taps: one cluster-kernel launch
+    each, within 1e-5 of each window's L1 norm, zero taps where n <= 0."""
+    B, nwin = 7, 2999
+    args = list(profile_kernel.inputs(dev, B=B, nwin=nwin, smax=smax))
+    # rows as long as the variant's lags reach (aligned's 128 t, 25 taps)
+    W = nwin + max(ab.lags(variant, offsets, smax)) + 3
+    rng = np.random.default_rng(len(offsets))
+    args[1] = torch.from_numpy(rng.choice([-1.0, 1.0], (B, W)).astype(
+        np.float32)).to(dev)
+    d = ab.plan(variant, offsets, smax)[1]
+    tile = ab.samples_per_thread() * d
+    seg = -(-(-(-nwin // ab.ctas_per_window())) // tile) * tile
+    n = torch.tensor([0.0, -2.5, 0.3, 1234.5, seg - 0.5, seg + 0.25,
+                      nwin + 7.0], dtype=torch.float32, device=dev)
+    args[4] = n
+    zk, zp, counts = _ab_run(variant, args, offsets, smax)
+    assert counts == (1, 0, 0) and zk.shape == (B, 2 * len(offsets))
+    assert _ab_ok(zk, zp, args[0])
+    assert torch.all(zk[:2] == 0)
+
+
+@pytest.mark.cuda
+def test_ablation_taps_chain_constants(dev):
+    """K6's cluster kernel is the window cluster kernel: the same chain
+    length and CTAs per window (the CPU decomposition test models 33 and
+    2)."""
+    assert ab.samples_per_thread() == wt.samples_per_thread() == 33
+    assert ab.ctas_per_window() == wt.ctas_per_window() == 2
+
+
+# --- every launch opts in the shared memory it uses (csrc/launch.cuh) ---- #
+# Static shared memory counts against the 48 KB default, so a launch whose
+# dynamic bytes fit in 48 KB (49152) but whose dynamic plus static bytes do
+# not is refused unless its kernel is opted in.  Each case below takes a
+# shape in that gap for one launch site; the static bytes are the kernel's
+# __shared__ arrays at the case's tap count.  A v1 kernel's (part[kWarps]
+# [2 * taps] floats, 192 bytes at 3 taps, 832 at 13) are above zero, so
+# a v1 launch with exactly 48 KB of dynamic bytes is in its gap.
+GAP = 48 * 1024
+STATIC_CLUSTER_13 = 8 * 32 * 4 + 2 * 26 * 4   # part + gather, 13 taps
+
+
+def _staged(count):                   # csrc/stage_async.cuh's staged_bytes
+    return (count + 30) // 16 * 16
+
+
+def _cluster_bytes(nwin, d, ntaps, wbytes, rbytes):
+    """The window cluster kernel's dynamic bytes (launch_cluster): the
+    segment's replica values and window samples, staged at any head."""
+    tile = 33 * d
+    seg = -(-(-(-nwin // 2)) // tile) * tile
+    return _staged((seg + (ntaps - 1) * d) * rbytes) + _staged(seg * wbytes)
+
+
+def _gap_nwin(nbytes, static):
+    """The window length whose dynamic bytes ``nbytes(nwin)`` come closest
+    below 48 KB; asserts that they and ``static`` exceed it together."""
+    nwin = max((w for w in range(1000, 100000, 7) if nbytes(w) <= GAP),
+               key=nbytes)
+    assert nbytes(nwin) <= GAP < nbytes(nwin) + static
+    return nwin
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["kernel", "v1"])
+def test_ablation_taps_opt_in_gap(dev, route):
+    """K6 at shapes in its gap: the cluster kernel at 13 taps (f32 window
+    and replica segments), and the v1 kernel (an f32 row of W values) for
+    lags with no progression."""
+    if route == "kernel":
+        offsets, smax = profile_kernel.OFFSETS, profile_kernel.SMAX
+        nwin = _gap_nwin(lambda w: _cluster_bytes(w, 3, 13, 4, 4),
+                         STATIC_CLUSTER_13)
+        args = profile_kernel.inputs(dev, B=8, nwin=nwin)
+    else:
+        offsets, smax = (0, -1, 2), 2               # W * 4 = 48 KB exactly
+        args = list(profile_kernel.inputs(dev, B=8, nwin=12000, smax=smax))
+        args[1] = args[1][:, :GAP // 4].contiguous()
+    zk, zp, counts = _ab_run("full", args, offsets, smax)
+    assert counts == ((1, 0, 0) if route == "kernel" else (0, 1, 0))
+    assert _ab_ok(zk, zp, args[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["kernel", "v1"])
+def test_band_taps_opt_in_gap(dev, route):
+    """K1 at shapes in its gap: the cluster kernel (the main path's
+    launch site) at 13 taps with int8 replica segments near 48 KB, and
+    the v1 kernel with a 49152-byte row."""
+    if route == "kernel":
+        offsets, smax = tap_offsets(6, 3), 18
+        nwin = _gap_nwin(lambda w: _staged(-(-(-(-w // 2)) // 99) * 99
+                                           + 36), STATIC_CLUSTER_13)
+    else:
+        offsets, smax = (0, -1, 2), 2
+        nwin = GAP - 2 * smax                       # next = 48 KB
+    host, args = _band_inputs(8, False, 5, dev, smax, nn=nwin - 8,
+                              nwin=nwin)
+    bt.COUNTS.reset()
+    zk, okk = bt.band_taps(*args, offsets, smax)
+    zp, okp = bt.band_taps_plain(*args, offsets, smax)
+    torch.cuda.synchronize()
+    assert (bt.COUNTS.kernel, bt.COUNTS.v1) == ((1, 0) if route == "kernel"
+                                                else (0, 1))
+    assert bool(okk) and bool(okp)
+    assert float((zk - zp).abs().max()) <= profile_band.tolerance(host, nwin)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["kernel", "v1"])
+@pytest.mark.parametrize("kind", ["bf16", "f32"])
+def test_window_taps_opt_in_gap(dev, kind, route):
+    """K3-K5 at shapes in their gap: the cluster kernel at 13 taps, and
+    the v1 kernel with a 48 KB row (12288 f32 or 49152 int8 values)."""
+    wbytes, rbytes = (2, 1) if kind == "bf16" else (4, 4)
+    if route == "kernel":
+        offsets, smax = tap_offsets(6, 3), 18
+        nwin = _gap_nwin(lambda w: _cluster_bytes(w, 3, 13, wbytes, rbytes),
+                         STATIC_CLUSTER_13)
+    else:
+        offsets, smax = (0, -1, 2), 2
+        nwin = GAP // rbytes - 2 * smax
+    win, n, args = _win_inputs(kind, 8, False, 7, dev, smax, nwin=nwin,
+                               nn=nwin - 8)
+    zk, zp, counts = _win_run(kind, args, offsets, smax)
+    assert counts == ((1, 0, 0) if route == "kernel" else (0, 1, 0))
+    assert float((zk - zp).abs().max()) <= _win_tol(kind, win, n)
+
+
+@pytest.mark.cuda
+def test_gram_taps_v1_opt_in_gap(dev):
+    """K2's v1 kernel (361 rows: more than the banded Gram takes) at
+    361 * (8 + 128) + 2 * 28 = 49152 dynamic bytes."""
+    K, smax = 361, 28
+    assert K * (8 + 128) + 2 * smax == GAP
+    tol, args = _gram_inputs(4, K, False, 9, dev, smax)
+    zk, zp, counts = _gram_run(args, tap_offsets(6, 4), smax)
+    assert counts == (0, 1, 0)
+    assert float((zk - zp).abs().max()) <= tol
 
 
 @pytest.mark.cuda

@@ -1,7 +1,9 @@
 """The helpers the port's kernel wrappers share (ops/kernels.py), on the
 CPU: the tap-offset progression test that routes offsets to the cluster
 kernels (K1, K3-K5) or their v1 kernels, and the window wrappers'
-counters."""
+counters; and, in the kernels' sources, the one launch helper that opts
+every launch in to its shared memory and the lines the profilers'
+variants replace."""
 import numpy as np
 import pytest
 import torch
@@ -10,6 +12,7 @@ from gnsslib_tpu_torch.ops import band_taps as bt
 from gnsslib_tpu_torch.ops import kernels
 from gnsslib_tpu_torch.ops import window_taps as wt
 from gnsslib_tpu_torch.ops.correlator import tap_offsets
+from gnsslib_tpu_torch.tools import profile_band, profile_window
 
 
 @pytest.mark.parametrize("offsets,d", [
@@ -82,3 +85,38 @@ def test_gram_counts_on_cpu():
         z = gt.gram_taps(win, None, rc, rem, ftot, offsets, smax)
         assert z.shape == (B, 6)
     assert counts.values() == {"kernel": 0, "plain": 2, "v1": 0}
+
+
+@pytest.mark.parametrize("name", ["band_taps", "window_taps", "gram_taps",
+                                  "ablation_taps"])
+def test_every_launch_opts_in_through_the_helper(name):
+    """Each kernel source, with its csrc/ headers inlined as the build
+    hashes and the profilers edit it, includes no header left unread, has
+    no launch that opts in only above 48 KB (static shared memory counts
+    against that default too), and sets the shared-memory attribute and
+    launches only in csrc/launch.cuh's launch_kernel."""
+    from gnsslib_tpu_torch import cuda_build
+    src = cuda_build.source(name)
+    assert '#include "' not in src
+    assert "48 * 1024" not in src and "<<<nwindows" not in src
+    assert src.count("cudaFuncSetAttribute(") == 1
+    assert src.count("cudaLaunchKernelEx(") == 1
+    assert src.count("static size_t opted = 0;") >= 2
+
+
+@pytest.mark.parametrize("tool,variant", [
+    (t.__name__.rsplit(".", 1)[1], v) for t in (profile_band, profile_window)
+    for v in t.VARIANTS])
+def test_profiler_variant_sources(tool, variant):
+    """Every variant of tools/profile_band.py and tools/profile_window.py
+    finds the lines it replaces in its kernel's source with the csrc/
+    headers inlined (K3-K5's cluster kernel body now lives in
+    window_cluster.cuh) and builds 13 taps only; only the kernel itself
+    (and the cluster size it has) is the source unchanged."""
+    mod = {"profile_band": profile_band, "profile_window": profile_window}[
+        tool]
+    src = mod.variant_source(variant)
+    assert '#include "' not in src
+    assert "#define TAP_CASES(X) X(13)\n" in src
+    base = mod.variant_source("kernel")
+    assert (src == base) == (variant in ("kernel", "S2"))
