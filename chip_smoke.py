@@ -13,7 +13,8 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    print ptxas's registers and spills of the 13-tap instantiations (both
    entry points of K1-K6; K2's banded Gram at the 7 n-tiles of 13 taps
    3 apart; K6's one-tap chain for onetap), K1's 25-tap cluster kernel
-   and K2's 11 n-tiles (25 taps);
+   and K2's 11 n-tiles (25 taps), and fail unless K1's 13-tap I/Q
+   instantiation has no stack frame and no spill;
 3. each kernel vs its plain PyTorch version at the main path's shapes (320
    windows of 16376 samples, 16412-sample replica rows, 13 taps; K2 on
    (320, 128, 128) bf16 rows; K6's four variants at the profiler's 320 x
@@ -24,19 +25,25 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    on the tensor cores, and each as its v1 kernel, each checked for
    bit-identical repeat launches and timed cold (beyond L2; K1-K5 warm
    too) by launches replayed from a CUDA graph, and cold by eager
-   launches.
+   launches; K1 on I/Q input beside the same source capped at 64
+   registers, where it spills.
    Then ``gnsslib_tpu_torch.tools.profile_window`` and ``profile_gram``:
    the window kernel's build steps, cluster sizes and ablations for K3 and
    the f32 instantiation, and K2's, real and I/Q, each checked against the
    plain version and timed by graph replay;
-4. synthesize both captures in one process pool: the slice's (4 visible
+4. synthesize every capture in one process pool: the slice's (4 visible
    GPS L1CA PRNs with LNAV bit streams) and the positioning run's (7
    satellites above 15 degrees for a known receiver position, one dark
-   in [26, 28) s), 16.368 Msps real int8 at a 4.092 MHz IF;
+   in [26, 28) s), 16.368 Msps real int8 at a 4.092 MHz IF, and phase
+   11's two front ends: FE1 real (the slice's 4 GPS PRNs and an SBAS
+   satellite with MT12 messages), FE2 I/Q at IF 0 (3 GLONASS G1
+   satellites, each with its slot in string 4);
 5. the block programs (CUDA graphs of a tracking block) replayed against
    the eager loop, bit for bit, for pull-in and the band, pallas, fused
    and xla backends; FastTracker.run_block on the card vs on the CPU from
-   one state, with the band, pallas (K3) and fused (K2) backends;
+   one state, with the band, pallas (K3) and fused (K2) backends; then
+   the same (pull-in and band) for phase 11's SBAS group (L = 2) and G1
+   group (I/Q);
 6. the slice: ``Receiver.run_seconds`` from INI files with 32 L1CA
    channels, its pull-in and steady blocks replayed from the graphs
    captured when the receiver was built, checked for acquisition, bit
@@ -59,12 +66,23 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    against the true position, the faded satellite's loss of lock and
    restart, the .pos file, CRC-valid RTCM 1019/1077 frames read by a TCP
    client, track logs; then ``--checkpoint`` at 14 s and ``--resume`` on
-   the CLI against an uninterrupted run.
+   the CLI against an uninterrupted run;
+11. the multi-GNSS receiver from INI files on the CLI: 32 GPS L1CA and 3
+   SBAS channels on FE1, 14 GLONASS G1 channels on the I/Q FE2, in three
+   channel groups (GPS, SBAS at L = 2, G1) with one output hub, RINEX,
+   RTCM and SBAS output read by TCP clients: acquisition, bit sync and
+   decode of every visible satellite, the G1 slots, G/R/S satellites in
+   the RINEX epochs, cross-system pseudoranges against the truth (SBAS's
+   within its code period), G and R nav records, CRC-valid RTCM
+   1019/1020/1077/1087 and NovAtel RAWSBASFRAME frames; every group's K1
+   launches counted through its graph replays (the I/Q group's on a line
+   of their own).
 
-Phases 5-10 each print the graph captures they made (count, seconds
+Phases 5-11 each print the graph captures they made (count, seconds
 recording and instantiating, pool memory), and a line before the kernels
-line totals them.  The last two lines are a JSON object describing the
-kernels and the ``{"ok": true, "device": {...}}`` line.  This script
+line totals them.  The band_taps row's launches are phase 6's and phase
+11's (the main paths).  The last two lines are a JSON object describing
+the kernels and the ``{"ok": true, "device": {...}}`` line.  This script
 imports no JAX.
 """
 import json
@@ -106,6 +124,19 @@ POS_T_OBS = 25.0
 POS_FADE = (26.0, 28.0)
 POS_FADED = 27                                  # the PRN that goes dark
 CKPT_SECONDS = 14.0
+# phase 11, the multi-GNSS receiver: FE1 (real, 4.092 MHz IF) carries GPS
+# L1CA (the slice's TRUTH) and SBAS, FE2 (I/Q, IF 0, CF 1602 MHz) GLONASS
+# G1, both 16.368 Msps int8 on one sample clock.  (MG_TOW - 42) % 30 == 0:
+# a GLONASS frame starts 24 s before the capture (its first 12 strings are
+# left out) and the next one 6 s into it, so G1 decodes ~16 s in
+MG_SECONDS = 30.0
+MG_TOW = 352812.0
+MG_SBAS_PRNS = (129, 133, 138)
+MG_SBAS = {129: (5000, -120.0)}        # visible PRN -> (delay, Doppler)
+MG_G1_FCNS = tuple(range(-7, 7))
+# visible FDMA number -> (slot in string 4, delay in samples, Doppler)
+MG_G1 = {-5: (3, 3000, -1400.0), 1: (13, 8000, 2100.0),
+         4: (20, 12500, 600.0)}
 
 
 def log(msg: str) -> None:
@@ -127,10 +158,91 @@ def pos_geometry():
     return geo, {e.prn: e for e in cands}
 
 
+def _sbas_symbols(nmsgs: int, tow: float):
+    """SBAS line symbols, 2 ms each: 250-bit messages (1 s each), MT12
+    with the time of week every third, preambles cycling 53/9A/C6, rate-1/2
+    convolutionally encoded (the JAX package's test_receiver_sbas.py
+    stream)."""
+    from gnsslib_tpu_torch.nav.sbas import encode_sbas_message
+    from gnsslib_tpu_torch.nav.viterbi import conv27_encode
+    preambles = [0x53, 0x9A, 0xC6]
+    rng = np.random.default_rng(12)
+    msgs = []
+    for k in range(nmsgs):
+        if k % 3 == 0:
+            payload = np.zeros(212, np.int64)
+            # the framer decodes the oldest of 3 buffered messages and the
+            # decoder adds 1 s: the field is the message start + 2
+            tow_field = int(tow) + k + 2
+            for i in range(20):
+                payload[107 - 14 + i] = (tow_field >> (19 - i)) & 1
+            wk = (2200 - 1024) & 0x3FF
+            for i in range(10):
+                payload[127 - 14 + i] = (wk >> (9 - i)) & 1
+            msgs.append(encode_sbas_message(12, payload, preambles[k % 3]))
+        else:
+            msgs.append(encode_sbas_message(63, rng.integers(0, 2, 212),
+                                            preambles[k % 3]))
+    bits01 = ((1 - np.concatenate(msgs)) // 2).astype(np.int64)
+    return np.where(conv27_encode(bits01) == 0, 1, -1).astype(np.int8)
+
+
+def _multi_chunk(kind, t0, n, f_sf, f_if, truth) -> bytes:
+    """Samples [t0, t0+n) of phase 11's front end ``kind`` ("fe1": the
+    GPS PRNs of ``truth["gps"]`` and the SBAS ones of ``truth["sbas"]``,
+    real; "fe2": the G1 satellites of ``truth["g1"]``, I/Q) as int8
+    bytes."""
+    from gnsslib_tpu_torch import sim
+    from gnsslib_tpu_torch.constants import (CodeType, DFRQ1_GLO, DType,
+                                             FREQ1_GLO)
+    from gnsslib_tpu_torch.gtime import gpst2time
+    tow, seconds = truth["tow"], truth["seconds"]
+    pad = np.concatenate([np.tile([1, -1], 149), [1, 1]]).astype(np.int8)
+    chans = []
+    if kind == "fe1":
+        for prn, (d, dop) in truth["gps"].items():
+            eph = sim.example_eph(prn=prn, week=2200, toe_tow=tow)
+            chans.append(sim.SimChannel(
+                prn=prn, doppler=dop, code_phase=-d * 1.023e6 / f_sf,
+                carr_phase=0.1 * prn, nav_bits=np.concatenate(
+                    [pad, sim.lnav_bit_stream(eph, tow + 6.0, nframes=2)])))
+        for prn, (d, dop) in truth["sbas"].items():
+            chans.append(sim.SimChannel(
+                prn=prn, ctype=CodeType.L1SBAS, doppler=dop,
+                code_phase=-d * 1.023e6 / f_sf, carr_phase=0.9, nav_ms=2.0,
+                nav_bits=_sbas_symbols(int(seconds) + 2, tow)))
+        dtype = DType.REAL
+    else:
+        for fcn, (slot, d, dop) in truth["g1"].items():
+            # the frame before the capture's, its first 24 s left out
+            sym = sim.g1_symbol_stream(gpst2time(2200, tow - 24.0),
+                                       nframes=2, iode=44, slot=slot)[2400:]
+            chans.append(sim.SimChannel(
+                prn=fcn, ctype=CodeType.G1, doppler=dop,
+                code_phase=-d * 0.511e6 / f_sf, carr_phase=0.3 + 0.1 * slot,
+                nav_bits=sym, nav_ms=10.0,
+                f_cf=FREQ1_GLO + fcn * DFRQ1_GLO, foffset=fcn * DFRQ1_GLO))
+        dtype = DType.IQ
+    noise = sim.noise_std_for_cn0(1.0, CN0, f_sf, dtype)
+    x = sim.synthesize(chans, f_sf, f_if, dtype, n, noise_std=noise,
+                       seed=(3000 if kind == "fe1" else 4000) + t0, t0=t0)
+    return sim.quantize_int8(x, QUANT).tobytes()
+
+
+def multi_truth() -> dict:
+    """Phase 11's satellites and timing (module constants), for the
+    synthesis workers."""
+    return dict(gps=TRUTH, sbas=MG_SBAS, g1=MG_G1, tow=MG_TOW,
+                seconds=MG_SECONDS)
+
+
 def _synth_chunk(args):
-    """Samples [t0, t0+n) of capture ``kind`` ("slice" or "pos") as int8
-    bytes (a pool worker; everything it needs comes in ``args``)."""
+    """Samples [t0, t0+n) of capture ``kind`` ("slice", "pos", "fe1" or
+    "fe2") as int8 bytes (a pool worker; everything it needs comes in
+    ``args``)."""
     kind, t0, n, f_sf, f_if, truth = args
+    if kind in ("fe1", "fe2"):
+        return kind, _multi_chunk(kind, t0, n, f_sf, f_if, truth)
     from gnsslib_tpu_torch import sim
     from gnsslib_tpu_torch.constants import DType
     pad = np.concatenate([np.tile([1, -1], 149), [1, 1]]).astype(np.int8)
@@ -320,6 +432,19 @@ def phase_kernel(dev, iq: bool):
                                                 ok), 1)
             for k, fn in runs.items()}
     eager = {k: cold_ms(on_copy(fn), len(copies)) for k, fn in runs.items()}
+    spill_ms = None
+    if iq:
+        # the same source with I/Q held to real input's 64 registers, where
+        # its 13-tap instantiation spills (the build before the repair)
+        fn64 = pb.launcher(pb.build(["iq64"])["iq64"], offsets, smax, out,
+                           ok)
+        spill_ms = pb.graph_ms(lambda c: fn64(copies[c]), len(copies))
+        log(f"[3] band_taps iq: {card_line()}; cluster kernel "
+            f"{cold['kernel']:.4f} ms (80 registers, no spill: phase 2); "
+            f"the same source capped at 64 registers "
+            f"({pb.usage_text(pb.usage(pb._LIBS['iq64'][1], True))}) "
+            f"{spill_ms:.4f} ms in this run; 0.0220 ms in the records "
+            f"before the repair (PERF.md)")
     log(f"[3] band_taps {kind:4s}: {card_line()}; cluster kernel S="
         f"{bt.ctas_per_window()} CTAs per window, J="
         f"{bt.samples_per_thread()} samples per thread: cold "
@@ -335,7 +460,7 @@ def phase_kernel(dev, iq: bool):
                 warm_ms=warm["kernel"], v1_ms=cold["v1"],
                 v1_warm_ms=warm["v1"], eager_ms=eager["kernel"],
                 plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                timing="graph_replay")
+                timing="graph_replay", spill64_ms=spill_ms)
 
 
 def phase_window_kernels(dev, iq: bool) -> dict:
@@ -695,14 +820,19 @@ def phase_ablation_kernel(dev) -> dict:
 
 
 def phase_synth(paths: dict) -> float:
-    """Both captures ({"slice": path, "pos": path}), 1 s chunks of each
-    in one spawn pool."""
+    """Every capture ({"slice", "pos", "fe1", "fe2": path}, the last two
+    phase 11's front ends), 1 s chunks of each in one spawn pool."""
     import multiprocessing as mp
     step = int(F_SF)
     chunks = []
-    for kind, seconds in (("slice", SECONDS), ("pos", POS_SECONDS)):
+    for kind, seconds, f_if, truth in (
+            ("slice", SECONDS, F_IF, TRUTH), ("pos", POS_SECONDS, F_IF, TRUTH),
+            ("fe1", MG_SECONDS, F_IF, multi_truth()),
+            ("fe2", MG_SECONDS, 0.0, multi_truth())):
+        if kind not in paths:
+            continue
         n = int(seconds * F_SF)
-        chunks += [(kind, t0, min(step, n - t0), F_SF, F_IF, TRUTH)
+        chunks += [(kind, t0, min(step, n - t0), F_SF, f_if, truth)
                    for t0 in range(0, n, step)]
     t0 = time.time()
     ctx = mp.get_context("spawn")
@@ -715,9 +845,11 @@ def phase_synth(paths: dict) -> float:
         for f in files.values():
             f.close()
     dt = time.time() - t0
-    log(f"[4] synthesized {SECONDS:.0f} s x {len(TRUTH)} PRNs and "
-        f"{POS_SECONDS:.0f} s x {len(pos_geometry()[0])} PRNs at "
-        f"{F_SF/1e6:.3f} Msps in {dt:.1f} s -> {paths}")
+    log(f"[4] synthesized {SECONDS:.0f} s x {len(TRUTH)} PRNs, "
+        f"{POS_SECONDS:.0f} s x {len(pos_geometry()[0])} PRNs and phase 11's "
+        f"{MG_SECONDS:.0f} s x ({len(TRUTH)} GPS + {len(MG_SBAS)} SBAS real, "
+        f"{len(MG_G1)} G1 I/Q) at {F_SF/1e6:.3f} Msps in {dt:.1f} s -> "
+        f"{paths}")
     return dt
 
 
@@ -760,11 +892,13 @@ def _replay_vs_eager(tag: str, eng, st, block, nsteps: int) -> None:
         raise AssertionError(f"{tag}: replay differs from the eager loop")
 
 
-def phase_fast_vs_cpu(dev, path: str):
+def phase_fast_vs_cpu(dev, path: str, fe1: str = None, fe2: str = None):
     """The block programs replayed against the eager loop on the card (pull-
     in, and every backend from a synced state), then FastTracker on the
     card vs on the CPU (plain correlator) from one state: 4 locked + 4
-    idle channels after a 1000-period pull-in."""
+    idle channels after a 1000-period pull-in.  With phase 11's front ends
+    ``fe1`` and ``fe2``, the same for its other two channel groups (band
+    backend): SBAS (L = 2) and GLONASS G1 on I/Q samples."""
     import torch
     from gnsslib_tpu_torch.constants import CodeType, DType
     from gnsslib_tpu_torch.track import (FastTracker, TrackConfig, Tracker,
@@ -794,14 +928,62 @@ def phase_fast_vs_cpu(dev, path: str):
     # ~15-18 s per 600 steps of the script's time
     for corr, nsteps in (("band", 600), ("pallas", 300), ("fused", 300)):
         _fast_vs_cpu(corr, nsteps, trks, blocks, snap, dev, len(prns))
+    if fe1 is not None:
+        _group_programs(dev, fe1, fe2)
+
+
+def _group_programs(dev, fe1: str, fe2: str) -> None:
+    """Phase 11's SBAS group (3 channels, PRN 129 visible; loop every 2
+    periods) on FE1 and G1 group (14 FDMA channels, 3 visible; I/Q, IF 0)
+    on FE2: the pull-in and band programs replayed against the eager loop
+    bit for bit, then the band FastTracker on the card vs the CPU from one
+    state after a 1000-period pull-in (SBAS 120 steps, G1 300: 60 and 30
+    loop updates, before the closed loops' last-bit differences can grow,
+    as in tests/test_torch_fast.py)."""
+    import torch
+    from gnsslib_tpu_torch.constants import (CodeType, DFRQ1_GLO, DType,
+                                             FREQ1_GLO)
+    from gnsslib_tpu_torch.track import (FastTracker, TrackConfig, Tracker,
+                                         state_to_numpy)
+    nn = int(round(F_SF / 1000))
+    cpu = torch.device("cpu")
+    sbas = list(MG_SBAS) + [p for p in MG_SBAS_PRNS if p not in MG_SBAS]
+    g1 = list(MG_G1) + [f for f in MG_G1_FCNS if f not in MG_G1]
+    groups = (
+        ("SBAS", fe1, sbas, CodeType.L1SBAS, F_IF, DType.REAL,
+         [MG_SBAS[p] for p in MG_SBAS], {}, 120),
+        ("G1 I/Q", fe2, g1, CodeType.G1, 0.0, DType.IQ,
+         [MG_G1[f][1:] for f in MG_G1],
+         dict(foffsets=[f * DFRQ1_GLO for f in g1],
+              f_cfs=[FREQ1_GLO + f * DFRQ1_GLO for f in g1]), 300))
+    for tag, path, prns, ctype, f_if, dtype, truth, kw, nsteps in groups:
+        comp = 2 if dtype == DType.IQ else 1
+        x = np.fromfile(path, np.int8, count=1700 * nn * comp).astype(
+            np.float32).reshape((-1, comp) if comp == 2 else (-1,))
+        trks = {d: Tracker(TrackConfig(*CORR), prns, [ctype] * len(prns),
+                           F_SF, f_if, dtype, device=d, **kw)
+                for d in (dev, cpu)}
+        blocks = {d: torch.from_numpy(x).to(d) for d in (dev, cpu)}
+        t = trks[dev]
+        nact = len(truth)
+        st = t.start_channels(t.init_state(), list(range(nact)),
+                              [d for d, _ in truth], [-f for _, f in truth])
+        _replay_vs_eager(f"{tag} pull-in", t, st, blocks[dev], 200)
+        st, _ = t.run_block_eager(st, blocks[dev], 1000)
+        for c in range(nact):
+            st = t.set_bit_sync(st, c, 0)
+        f = FastTracker(t)
+        _replay_vs_eager(f"{tag} band (L={f.L})", f, st, blocks[dev], 300)
+        _fast_vs_cpu("band", nsteps, trks, blocks, state_to_numpy(st), dev,
+                     len(prns), nact=nact, tag=tag)
 
 
 def _fast_vs_cpu(corr: str, nsteps: int, trks, blocks, snap, dev,
-                 nch: int) -> None:
+                 nch: int, nact: int = 4, tag: str = "") -> None:
     """One backend's ``nsteps`` on the card and on the CPU from ``snap``:
     loc identical, test_fast.py's inter-backend tolerances on ip/qp and
-    dcarr, and on the card the backend's kernel launched, never its plain
-    version."""
+    dcarr of the ``nact`` locked channels, and on the card the backend's
+    kernel launched, never its plain version."""
     import torch
     from gnsslib_tpu_torch.ops import band_taps, gram_taps, window_taps
     from gnsslib_tpu_torch.track import FastTracker, state_from_numpy
@@ -816,8 +998,9 @@ def _fast_vs_cpu(corr: str, nsteps: int, trks, blocks, snap, dev,
         t0 = time.time()
         _, outs[d] = f.run_block(state_from_numpy(snap, d), blocks[d],
                                  nsteps)
-        tag = "FastTracker" if corr == "band" else f"FastTracker ({corr})"
-        log(f"[5] {tag} {nsteps} steps x {nch} ch on {d.type}: "
+        name = ("FastTracker" if corr == "band" else
+                f"FastTracker ({corr})") + (f" {tag}" if tag else "")
+        log(f"[5] {name} {nsteps} steps x {nch} ch on {d.type}: "
             f"{time.time() - t0:.2f} s wall; kernel launches "
             f"{counts.kernel}, plain calls {counts.plain}")
         if d.type == "cuda" and (counts.kernel <= 0 or counts.plain != 0):
@@ -825,7 +1008,7 @@ def _fast_vs_cpu(corr: str, nsteps: int, trks, blocks, snap, dev,
                                  f"{counts.kernel} launches, {counts.plain} "
                                  f"plain calls")
     a, b = outs[cpu], outs[dev]
-    act = slice(0, 4)
+    act = slice(0, nact)
     if not np.array_equal(a.loc[:, act], b.loc[:, act]):
         raise AssertionError(f"FastTracker ({corr}) loc differs between card "
                              "and CPU")
@@ -836,13 +1019,15 @@ def _fast_vs_cpu(corr: str, nsteps: int, trks, blocks, snap, dev,
         med = float(np.median(d))
         corr_min = min(np.corrcoef(getattr(a, name)[:, c],
                                    getattr(b, name)[:, c])[0, 1]
-                       for c in range(4))
-        log(f"[5] {corr} {name}: outliers>5e-3*scale {outl}, median/scale "
+                       for c in range(nact))
+        log(f"[5] {corr}{' ' + tag if tag else ''} {name}: outliers>5e-3*"
+            f"scale {outl}, median/scale "
             f"{med / scale:.3g}, min corr {corr_min:.6f}")
         if outl > 3 or med >= 1e-3 * scale or corr_min <= 0.999:
             raise AssertionError(f"FastTracker ({corr}) {name} card vs CPU")
     dd = float(np.max(np.abs(a.dcarr[:, act] - b.dcarr[:, act])))
-    log(f"[5] {corr} dcarr max diff {dd:.4g} Hz; loc identical")
+    log(f"[5] {corr}{' ' + tag if tag else ''} dcarr max diff {dd:.4g} Hz; "
+        f"loc identical")
     if dd > 0.5:
         raise AssertionError(f"FastTracker ({corr}) dcarr card vs CPU")
 
@@ -888,26 +1073,37 @@ RINEXPATH={WORK}/{name}/rinex
     return ini
 
 
-def _receiver_programs(tag: str, rx, launches: int) -> None:
-    """Check that ``rx``'s blocks ran as replays of the graphs it captured
-    when it was built: one program per engine, both replayed, no capture
-    during the run, and every K1 launch counted through the replays."""
-    progs = {"pull-in": list(rx.trk.programs.values()),
-             "steady": list(rx.fast.programs.values())}
-    if any(len(p) != 1 or p[0].graph is None for p in progs.values()):
-        raise AssertionError(f"{tag}: block programs {progs}")
-    counted = sum(p.replays * p.launches.get("band_taps", {}).get(
-        "kernel", 0) for ps in progs.values() for p in ps)
-    log(f"[{tag}] block programs: " + "; ".join(
-        f"{k} {p[0].count} steps, captured in {p[0].capture_s:.3f} s + "
-        f"instantiated in {p[0].instantiate_s:.3f} s, pool "
-        f"{p[0].pool_bytes / 1e6:.1f} MB, {p[0].replays} replays of "
-        f"{p[0].launches or 'no kernel launches'}"
-        for k, p in progs.items())
-        + f"; band_taps launches counted through the replays {counted}")
-    if min(p[0].replays for p in progs.values()) <= 0 or counted != launches:
-        raise AssertionError(f"{tag}: replays or launches: counted "
-                             f"{counted}, COUNTS {launches}")
+def _receiver_programs(tag: str, rx, launches: int) -> list:
+    """Check that ``rx``'s blocks (each channel group's, for a
+    MultiReceiver) ran as replays of the graphs it captured when it was
+    built: one program per engine, both replayed, and every K1 launch
+    counted through the replays.  Returns each group's counted K1
+    launches."""
+    counted = []
+    for g in getattr(rx, "rx", [rx]):
+        progs = {"pull-in": list(g.trk.programs.values()),
+                 "steady": list(g.fast.programs.values())}
+        if any(len(p) != 1 or p[0].graph is None for p in progs.values()):
+            raise AssertionError(f"{tag}: block programs {progs}")
+        n = sum(p.replays * p.launches.get("band_taps", {}).get(
+            "kernel", 0) for ps in progs.values() for p in ps)
+        counted.append(n)
+        log(f"[{tag}] block programs" + (
+            f" of the group {sorted({c.cfg.ctype for c in g.channels})} on "
+            f"FE{g.spec.ftype} (L={g.fast.L})" if g is not rx else "")
+            + ": " + "; ".join(
+                f"{k} {p[0].count} steps, captured in {p[0].capture_s:.3f} "
+                f"s + instantiated in {p[0].instantiate_s:.3f} s, pool "
+                f"{p[0].pool_bytes / 1e6:.1f} MB, {p[0].replays} replays of "
+                f"{p[0].launches or 'no kernel launches'}"
+                for k, p in progs.items())
+            + f"; band_taps launches counted through the replays {n}")
+        if min(p[0].replays for p in progs.values()) <= 0:
+            raise AssertionError(f"{tag}: a program never replayed")
+    if sum(counted) != launches:
+        raise AssertionError(f"{tag}: launches counted {counted}, COUNTS "
+                             f"{launches}")
+    return counted
 
 
 def phase_slice(dev, capture: str) -> int:
@@ -1163,13 +1359,14 @@ def phase_kernel_profiler(dev) -> dict:
 
 
 def _rinex_epochs(path: str) -> list:
-    """[(epoch header line, {prn: P})] of a RINEX 3 obs file."""
+    """[(epoch header line, {satellite id: P})] of a RINEX 3 obs file
+    (ids as "G03", "R13", "S29")."""
     out = []
     for ln in open(path).read().splitlines():
         if ln.startswith(">"):
             out.append((ln, {}))
-        elif out and ln[:1] == "G" and ln[1:3].isdigit():
-            out[-1][1][int(ln[1:3])] = float(ln[3:17])
+        elif out and ln[:1] in "GRSJ" and ln[1:3].isdigit():
+            out[-1][1][ln[:3]] = float(ln[3:17])
     return out
 
 
@@ -1350,6 +1547,266 @@ def phase_positioning(dev, capture: str, prns=range(1, 33)) -> int:
     return launches
 
 
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def _tcp_reader(port: int, buf: bytearray):
+    """A thread that connects to ``port`` on this host (retrying until
+    the server listens) and appends everything it reads to ``buf`` until
+    the server closes."""
+    import socket
+    import threading
+
+    def run():
+        for _ in range(600):
+            try:
+                sk = socket.create_connection(("127.0.0.1", port),
+                                              timeout=0.5)
+                break
+            except OSError:
+                time.sleep(0.1)
+        else:
+            return
+        sk.settimeout(2.0)
+        while True:
+            try:
+                d = sk.recv(65536)
+            except socket.timeout:
+                continue
+            except OSError:
+                break
+            if not d:
+                break
+            buf.extend(d)
+        sk.close()
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    return th
+
+
+def _novatel_frames(buf: bytes) -> int:
+    """The NovAtel RAWSBASFRAME frames (sync AA 44 12, message id 973,
+    80 bytes with a CRC-32) in ``buf``; raises on a bad one."""
+    from gnsslib_tpu_torch.nav.bits import crc32_rtk
+    starts = [m.start() for m in re.finditer(b"\xaa\x44\x12", buf)]
+    for i in starts:
+        frame = buf[i:i + 80]
+        if len(frame) != 80 or frame[4] | (frame[5] << 8) != 973 or \
+                int.from_bytes(frame[76:80], "little") != \
+                crc32_rtk(frame[:76]):
+            raise AssertionError(f"NovAtel: bad frame at byte {i}")
+    return len(starts)
+
+
+def _write_multi_ini(fe1: str, fe2: str, gps, sbas, g1, rtcmport: int,
+                     sbasport: int) -> str:
+    """Phase 11's INI files: FE1 (real, ``F_IF``) and FE2 (I/Q, IF 0,
+    1602 MHz) of ``TYPE=FILE`` with ``FILE1``/``FILE2``; GPS L1CA channels
+    ``gps`` and SBAS ``sbas`` on FE1, G1 FDMA channels ``g1`` on FE2;
+    RINEX, RTCM and SBAS output."""
+    fend = os.path.join(WORK, "multi_fend.ini")
+    with open(fend, "w") as f:
+        f.write(f"""[FEND]
+TYPE     =FILE
+CF1      =1575.42e6
+SF1      ={F_SF}
+IF1      ={F_IF}
+DTYPE1   =1
+FILE1    ={fe1}
+CF2      =1602.0e6
+SF2      ={F_SF}
+IF2      =0.0
+DTYPE2   =2
+FILE2    ={fe2}
+[TRACK]
+CORRN    ={CORR[0]}
+CORRD    ={CORR[1]}
+CORRP    ={CORR[2]}
+""")
+    chans = ([(p, 1, 1, 1) for p in gps] + [(p, 2, 27, 1) for p in sbas]
+             + [(f, 4, 20, 2) for f in g1])
+    col = [",".join(str(c[k]) for c in chans) for k in range(4)]
+    ini = os.path.join(WORK, "multi.ini")
+    with open(ini, "w") as f:
+        f.write(f"""[RCV]
+FENDCONF ={fend}
+[CHANNEL]
+NCH      ={len(chans)}
+PRN      ={col[0]}
+SYS      ={col[1]}
+CTYPE    ={col[2]}
+FTYPE    ={col[3]}
+[OUTPUT]
+OUTMS    =400
+RINEX    =1
+RINEXPATH={WORK}/multi/rinex
+RTCM     =1
+RTCMPORT ={rtcmport}
+SBAS     =1
+SBASPORT ={sbasport}
+""")
+    return ini
+
+
+def phase_multi(dev, fe1: str, fe2: str, gps=range(1, 33),
+                sbas=MG_SBAS_PRNS, g1=MG_G1_FCNS) -> tuple:
+    """The multi-GNSS receiver from INI files on the CLI: GPS L1CA
+    channels ``gps`` and SBAS channels ``sbas`` on FE1, GLONASS G1
+    channels ``g1`` on the I/Q FE2; three channel groups (GPS L = 10, SBAS
+    L = 2, G1 L = 10) stepped in lockstep with one output hub.  TCP clients
+    read the RTCM3 and NovAtel SBAS streams.  Returns (K1 launches during
+    the run, those of the I/Q group)."""
+    import shutil
+    from gnsslib_tpu_torch.constants import (CLIGHT, DFRQ1_GLO, FREQ1,
+                                             FREQ1_GLO, PTIMING)
+    from gnsslib_tpu_torch.gtime import epoch2time, time2gpst
+    from gnsslib_tpu_torch.ops import band_taps as bt
+    from gnsslib_tpu_torch.runtime import cli
+    from gnsslib_tpu_torch.track.program import CAPTURES
+
+    shutil.rmtree(os.path.join(WORK, "multi"), ignore_errors=True)
+    ports = {"rtcm": _free_port(), "sbas": _free_port()}
+    ini = _write_multi_ini(fe1, fe2, gps, sbas, g1, ports["rtcm"],
+                           ports["sbas"])
+    bufs = {k: bytearray() for k in ports}
+    readers = [_tcp_reader(ports[k], bufs[k]) for k in ports]
+    built = []                # the receiver the CLI builds, for the checks
+    make = cli.build_receiver
+
+    def keep(*a, **kw):
+        built.append(make(*a, **kw))
+        # the counts start when the run does: the programs' eager warm-ups
+        # while the groups were built launched K1 too
+        bt.COUNTS.reset()
+        return built[-1]
+    cli.build_receiver = keep
+    captures = CAPTURES.captures
+    t0 = time.time()
+    try:
+        rc = cli.main([ini, "--device", dev.type, "--quiet"])
+    finally:
+        cli.build_receiver = make
+    wall = time.time() - t0
+    launches, v1, plain = bt.COUNTS.kernel, bt.COUNTS.v1, bt.COUNTS.plain
+    for th in readers:
+        th.join(30)
+    if rc != 0 or not built:
+        raise AssertionError(f"CLI exit {rc}")
+    rx = built[0]
+    groups = getattr(rx, "rx", [rx])
+    desc = [(g.spec.ftype, "iq" if g.spec.dtype == 2 else "real",
+             g.fast.L if g.fast else None, len(g.channels)) for g in groups]
+    log(f"[11] {len(rx.channels)} channels in {len(groups)} groups "
+        f"(FE, samples, L, channels) {desc}; CLI wall {wall:.1f} s, "
+        f"{CAPTURES.captures - captures} graph captures while building")
+    if len(groups) != 3:
+        raise AssertionError(f"groups {desc}")
+    counted = ([0] * len(groups) if dev.type != "cuda" else
+               _receiver_programs("11", rx, launches))
+    iq = sum(n for n, g in zip(counted, groups) if g.spec.dtype == 2)
+    sw = {k: sum(g.stage_wall[k] for g in groups)
+          for k in groups[0].stage_wall}
+    log(f"[11] multi-GNSS: {groups[0].base / F_SF:.1f} s of stream on 2 RF "
+        f"paths in {wall:.1f} s (CLI, building included); wall by phase "
+        f"(summed over the groups): acquire {sw['acquire']:.2f} s, pull-in "
+        f"{sw['pullin']:.2f} s, steady {sw['steady']:.2f} s; milestones "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in rx.timeline.items()
+                    if k != "t0"))
+    for g in groups:
+        log(f"[11]   group FE{g.spec.ftype} L={g.fast.L}: wall by phase "
+            + ", ".join(f"{k} {v:.2f} s" for k, v in g.stage_wall.items()))
+    log(f"[11] band_taps launches {launches}, v1 launches {v1}, plain calls "
+        f"{plain}; {rx.epochs_written} epochs, {rx.ephs_written} nav "
+        f"records")
+    log(f"[11] band_taps I/Q launches (the G1 group on FE2) {iq}")
+    for ev in rx.events:
+        if ev[0] in ("acq", "nav:bitsync") or (ev[0] == "nav:decode"
+                                               and ev[3] in (1, 4)):
+            log(f"[11]   event {ev}")
+
+    nn = groups[0].nsamp
+    visible = ([(prn, "G", TRUTH[prn][0], TRUTH[prn][1], FREQ1, f"G{prn:02d}")
+                for prn in TRUTH]
+               + [(prn, "S", d, dop, FREQ1, f"S{prn - 100:02d}")
+                  for prn, (d, dop) in MG_SBAS.items()]
+               + [(fcn, "R", d, dop, FREQ1_GLO + fcn * DFRQ1_GLO,
+                   f"R{slot:02d}") for fcn, (slot, d, dop) in MG_G1.items()])
+    letter = {1: "G", 2: "S", 4: "R"}          # SYS_GPS, SYS_SBS, SYS_GLO
+    by_key = {(letter[ch.cfg.sys], ch.cfg.prn): ch for ch in rx.channels}
+    for prn, sysc, d, dop, _, sid in visible:
+        ch = by_key[(sysc, prn)]
+        derr = abs(ch.acq_codei - d)
+        derr = min(derr, nn - derr)
+        if not (ch.locked and derr <= 2 and abs(ch.acq_dcarr + dop) <= 200.0):
+            raise AssertionError(f"{sid} ({sysc} {prn}): acquisition codei "
+                                 f"{ch.acq_codei} vs {d}, dcarr "
+                                 f"{ch.acq_dcarr} vs {-dop}")
+        if not (ch.synced and ch.nav.flagdec):
+            raise AssertionError(f"{sid}: no bit sync / decode")
+        if sysc == "R" and ch.nav.prn != int(sid[1:]):
+            raise AssertionError(f"G1 FCN {prn}: slot {ch.nav.prn}, not "
+                                 f"{sid}")
+    vis = {(s_, p) for p, s_, *_ in visible}
+    false = [k for k, ch in by_key.items() if ch.locked and k not in vis]
+    if false:
+        raise AssertionError(f"absent channels acquired: {false}")
+    if dev.type == "cuda" and (launches <= 0 or iq <= 0 or v1 != 0
+                               or plain != 0):
+        raise AssertionError(f"band_taps launches {launches} (I/Q {iq}), v1 "
+                             f"{v1}, plain {plain}")
+
+    eps = _rinex_epochs(rx.obs_writer.path)
+    head, P = eps[-1]
+    want = sorted(v[5] for v in visible)
+    if len(eps) < 10 or sorted(P) != want:
+        raise AssertionError(f"{len(eps)} RINEX epochs; the last holds "
+                             f"{sorted(P)}, not {want}")
+    tow, _ = time2gpst(epoch2time([float(v) for v in head.split()[1:7]]))
+    t = tow - PTIMING / 1000.0 - MG_TOW
+    ref = min(TRUTH)
+    d0, f0 = TRUTH[ref]
+    worst = 0.0
+    ms = CLIGHT / 1000.0
+    for prn, sysc, d, dop, f_cf, sid in visible:
+        expect = (CLIGHT / F_SF * (d - d0)
+                  + CLIGHT * (dop / f_cf - f0 / FREQ1) * t)
+        got = P[sid] - P[f"G{ref:02d}"]
+        off = got - expect
+        # SBAS: both packages' framer anchors its time a whole number of
+        # code periods away from GPS time (24 ms on this stream); the
+        # range within the code period is what is checked
+        whole = round(off / ms) if sysc == "S" else 0
+        worst = max(worst, abs(off - whole * ms))
+        log(f"[11] {sid}-G{ref:02d} pseudorange {got:.3f} m, truth "
+            f"{expect:.3f} m, diff {off:+.3f} m"
+            + (f" = {whole} ms {off - whole * ms:+.3f} m" if whole else ""))
+    if worst > 15.0:
+        raise AssertionError(f"cross-system pseudoranges off by up to "
+                             f"{worst:.1f} m")
+    nav = open(rx.nav_writer.path).read().splitlines()
+    recs = {ln[0] for ln in nav if re.match(r"[GR]\d\d \d{4} ", ln)}
+    if recs != {"G", "R"}:
+        raise AssertionError(f"nav records of systems {recs}")
+    types = {}
+    for mt, _ in _rtcm_frames(bytes(bufs["rtcm"])):
+        types[mt] = types.get(mt, 0) + 1
+    nova = _novatel_frames(bytes(bufs["sbas"]))
+    log(f"[11] RINEX: {len(eps)} epochs, last {sorted(P)}; nav records of "
+        f"{sorted(recs)}; RTCM frames by type {types} "
+        f"({len(bufs['rtcm'])} bytes); NovAtel RAWSBASFRAME frames {nova} "
+        f"({len(bufs['sbas'])} bytes); cross-system pseudoranges within "
+        f"{worst:.2f} m of the truth")
+    if any(types.get(k, 0) < 1 for k in (1019, 1020, 1077, 1087)) or \
+            nova < 1:
+        raise AssertionError(f"RTCM frames by type {types}, NovAtel frames "
+                             f"{nova}")
+    return launches, iq
+
+
 def with_graphs(tag: str, phase, *args):
     """Run ``phase(*args)`` and log the block-program captures it made."""
     from gnsslib_tpu_torch.track.program import CAPTURES
@@ -1423,6 +1880,18 @@ def main() -> int:
             else:
                 continue
             log(f"[2]   {name} {kind}: {ln.split(':', 1)[-1].strip()}")
+    # K1's 13-tap I/Q instantiation (the G1 group's) must not spill
+    from gnsslib_tpu_torch.tools import profile_band as pb
+    text = cuda_build.build_info.get("band_taps", (0.0, ""))[1]
+    if not text:                      # built by an earlier run: build again
+        pb.build(["kernel"])
+        text = pb._LIBS["kernel"][1]
+    usage = pb.usage(text, True)
+    log(f"[2] band_taps cluster T=13 iq: {pb.usage_text(usage)} (capped at "
+        f"64 registers it spilled: an 80-byte stack frame, 132 bytes of "
+        f"spill stores)")
+    if usage.get("stack") != 0 or usage.get("spill_stores") != 0:
+        raise AssertionError(f"band_taps cluster T=13 iq spills: {usage}")
 
     k = {"band_taps": [phase_kernel(dev, iq=False),
                        phase_kernel(dev, iq=True)]}
@@ -1438,18 +1907,28 @@ def main() -> int:
         r["err"] for r in ablation.values()))]
 
     os.makedirs(WORK, exist_ok=True)
-    capture = os.path.join(WORK, "capture_l1ca_int8.bin")
-    capture_pos = os.path.join(WORK, "capture_pos_int8.bin")
-    phase_synth({"slice": capture, "pos": capture_pos})
+    paths = {k: os.path.join(WORK, f"capture_{k}_int8.bin")
+             for k in ("slice", "pos", "fe1", "fe2")}
+    capture, capture_pos = paths["slice"], paths["pos"]
+    phase_synth(paths)
     CAPTURES.reset()
-    with_graphs("5", phase_fast_vs_cpu, dev, capture)
+    with_graphs("5", phase_fast_vs_cpu, dev, capture, paths["fe1"],
+                paths["fe2"])
     launches = {"band_taps": with_graphs("6", phase_slice, dev, capture)}
     with_graphs("7", phase_throughput, dev)
     prof = with_graphs("8", phase_profiler, dev)
     launches.update({n: prof[n] for n in prof if n != "band_taps"})
     launches["ablation_taps"] = phase_kernel_profiler(dev)["launches"]
     with_graphs("10", phase_positioning, dev, capture_pos)
-    log(f"[graphs] phases 5-10: {CAPTURES.captures} block-program captures "
+    # the multi-GNSS path: its K1 launches (three groups, one of them I/Q)
+    # join the slice's in the band_taps row
+    multi, multi_iq = with_graphs("11", phase_multi, dev, paths["fe1"],
+                                  paths["fe2"])
+    log(f"[11] band_taps launches on the main paths: slice (phase 6) "
+        f"{launches['band_taps']}, multi-GNSS (phase 11) {multi}, of which "
+        f"I/Q {multi_iq}")
+    launches["band_taps"] += multi
+    log(f"[graphs] phases 5-11: {CAPTURES.captures} block-program captures "
         f"(the CLI runs' included), {CAPTURES.capture_s:.2f} s recording, "
         f"{CAPTURES.instantiate_s:.2f} s instantiating, pools "
         f"{CAPTURES.pool_bytes / 1e6:.1f} MB reserved in all; device memory "

@@ -334,9 +334,13 @@ __device__ __forceinline__ void chain_taps(float (&ac)[NT], float (&as)[NT],
   }
 }
 
-// 64 registers up to 13 taps (4 CTAs of 256 threads per SM), 128 above
+// Registers: up to 13 taps, 64 for real input (4 CTAs of 256 threads per
+// SM) and 80 for I/Q input (3 CTAs per SM): an I/Q chain step holds both
+// sample components and four products for the mix, and capped at 64 the
+// 13-tap I/Q instantiation spilled (an 80-byte stack frame, 132 bytes of
+// spill stores); 128 above 13 taps.
 template <int NT, bool IQ>
-__global__ void __launch_bounds__(kThreads, NT <= 13 ? 4 : 2)
+__global__ void __launch_bounds__(kThreads, NT <= 13 ? (IQ ? 3 : 4) : 2)
 band_taps_cluster_kernel(const ClusterArgs a) {
   constexpr int C = (NT - 1) / 2;            // corrn
   constexpr int F = IQ ? 2 : 1;              // floats per sample

@@ -29,8 +29,8 @@ def _narrow(x: np.ndarray) -> np.ndarray:
 
 class DeviceBlockCache:
     """``get(start, n)`` -> float32 device tensor of samples
-    [start, start+n), zero-padded past the end of the capture like
-    ``FileFrontend.read``."""
+    [start, start+n), zero-padded before the start of the capture (a
+    negative ``start``) and past its end, like ``FileFrontend.read``."""
 
     def __init__(self, frontend, block_len: int, *, device):
         self.fe = frontend
@@ -54,10 +54,14 @@ class DeviceBlockCache:
             return self._last[1]
         if self._data is None:
             self._data = self._load()
-        seg = self._data[start:start + n].to(torch.float32)
+        lo = max(int(start), 0)
+        seg = self._data[lo:max(start + n, lo)].to(torch.float32)
         if seg.shape[0] < n:
-            pad = torch.zeros((n - seg.shape[0],) + tuple(seg.shape[1:]),
-                              dtype=torch.float32, device=self.device)
-            seg = torch.cat([seg, pad])
+            def zeros(k):
+                return torch.zeros((k,) + tuple(self._data.shape[1:]),
+                                   dtype=torch.float32, device=self.device)
+            head = min(lo - start, n)
+            seg = torch.cat([zeros(head), seg,
+                             zeros(n - head - seg.shape[0])])
         self._last = (start, seg)
         return seg

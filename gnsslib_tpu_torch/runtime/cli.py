@@ -2,8 +2,14 @@
 
 Usage:
     python -m gnsslib_tpu_torch <config.ini> [--device {cuda,cpu}]
-        [--seconds N] [--nsteps N] [--quiet] [--spp]
+        [--seconds N] [--nsteps N] [--ftype {0,1,2}] [--quiet] [--spp]
         [--checkpoint PATH] [--resume PATH]
+
+Every RF path with configured channels is processed (``--ftype`` picks
+one): one file front end per path (``TYPE=FILE`` with ``FILE1``/``FILE2``,
+or a packed two-path format such as ``FILESTEREO`` whose paths both read
+``FILE1``), and the channels grouped by path and loop cadence
+(:func:`~.receiver.build_receiver`).
 
 ``--device cuda`` (the default) requires a CUDA card and never falls back
 to the CPU.  SIGINT, SIGTERM and 'q' on a terminal stop the run at the
@@ -25,11 +31,11 @@ import torch
 from ..io.frontend import FileFrontend
 from ..obs.spp import ecef2llh
 from .config import load_ini
-from .receiver import Receiver
+from .receiver import build_receiver
 
 # flags of `python -m gnsslib_tpu` that the port does not carry yet
-UNPORTED_FLAGS = ("--devices", "--ftype", "--spec", "--watch",
-                  "--watch-html", "--profile")
+UNPORTED_FLAGS = ("--devices", "--spec", "--watch", "--watch-html",
+                  "--profile")
 
 
 def _install_stop_handlers(rx, quiet: bool):
@@ -103,6 +109,9 @@ def main(argv=None) -> int:
                     help="limit processing to the first N stream seconds")
     ap.add_argument("--nsteps", type=int, default=400,
                     help="code periods per device block")
+    ap.add_argument("--ftype", type=int, default=0,
+                    help="front-end RF path to process (1 or 2; default "
+                         "0 = every path with configured channels)")
     ap.add_argument("--quiet", action="store_true")
     ap.add_argument("--spp", action="store_true",
                     help="solve single-point positions per obs epoch "
@@ -133,15 +142,33 @@ def main(argv=None) -> int:
         print("error: config has no front end ([FEND] missing?)",
               file=sys.stderr)
         return 1
-    ftype = cfg.channels[0].ftype if cfg.channels else 1
-    path = cfg.files[ftype - 1] if len(cfg.files) >= ftype else ""
-    if not path:
-        print("error: no IF file configured (FILE1/FILE2)", file=sys.stderr)
+    if args.ftype and not 1 <= args.ftype <= len(cfg.fends):
+        print(f"error: --ftype {args.ftype} but config defines "
+              f"{len(cfg.fends)} front-end path(s)", file=sys.stderr)
         return 1
-    fe = FileFrontend(path, cfg.fends[ftype - 1])
-    rx = Receiver(cfg, fe, device=device, nsteps_per_block=args.nsteps)
+    ch_ftypes = sorted({c.ftype for c in cfg.channels
+                        if c.ftype <= len(cfg.fends)})
+    use_ftypes = ([args.ftype] if args.ftype else ch_ftypes) or [1]
+    paths = {}
+    for ft in use_ftypes:
+        path = cfg.files[ft - 1] if len(cfg.files) >= ft else ""
+        # a packed two-path format carries both RF paths in FILE1
+        paths[ft] = path or (cfg.files[0] if cfg.files else "")
+        if not paths[ft]:
+            print("error: no IF file configured (FILE1/FILE2)",
+                  file=sys.stderr)
+            return 1
+    fes = {ft: FileFrontend(p, cfg.fends[ft - 1]) for ft, p in paths.items()}
+    try:
+        rx = build_receiver(cfg, fes, device=device,
+                            nsteps_per_block=args.nsteps)
+    except BaseException:
+        for fe in fes.values():
+            fe.close()
+        raise
     if args.resume:
         rx.load_checkpoint(args.resume)
+    fe = fes[use_ftypes[0]]
     spec = fe.spec
 
     def progress(t):
@@ -154,7 +181,9 @@ def main(argv=None) -> int:
     restore = _install_stop_handlers(rx, args.quiet)
     try:
         if not args.quiet:
-            print(f"gnsslib_tpu_torch: {len(rx.channels)} channels on "
+            print(f"gnsslib_tpu_torch: {len(rx.channels)} channels in "
+                  f"{len(getattr(rx, 'rx', [rx]))} group(s) on "
+                  f"{len(fes)} RF path(s) on "
                   f"{device}, f_sf={spec.f_sf/1e6:.3f} MHz, "
                   f"f_if={spec.f_if/1e6:.3f} MHz, "
                   f"{fe.nsamples/spec.f_sf:.1f} s of IF data", flush=True)
@@ -164,7 +193,8 @@ def main(argv=None) -> int:
     finally:
         restore()
         rx.close()
-        fe.close()
+        for f in fes.values():
+            f.close()
     if not args.quiet:
         print()
         for ev in rx.events:

@@ -186,18 +186,11 @@ def load_ini(path: str) -> ReceiverConfig:
 
 
 def unported_options(cfg: ReceiverConfig) -> list[str]:
-    """Configured options outside the port's receiver (one file-replay
-    front end, real-sampled GPS L1CA channels; RINEX, RTCM, SPP and track
-    log output; relock, hot start and acquisition confirmation), by their
-    INI names."""
-    flags = [("SBAS", cfg.sbas), ("SPEC", cfg.spec)]
-    out = [name for name, on in flags if on]
+    """Configured options outside the port's receiver (file-replay front
+    ends, one or two RF paths, real or I/Q sampling; GPS L1CA, GLONASS G1
+    and SBAS channels; RINEX, RTCM, SBAS, SPP and track log output; relock,
+    hot start and acquisition confirmation), by their INI names."""
+    out = ["SPEC"] if cfg.spec else []
     if any(f.fend in LIVE_FENDS for f in cfg.fends):
         out.append("live front end (FEND TYPE)")
-    if any(f.dtype == DType.IQ for f in cfg.fends):
-        out.append("I/Q sampling (DTYPE=2)")
-    if any(c.ctype != CodeType.L1CA for c in cfg.channels):
-        out.append("non-L1CA channels (CTYPE)")
-    if len({c.ftype for c in cfg.channels}) > 1:
-        out.append("two front-end paths (FTYPE)")
     return out

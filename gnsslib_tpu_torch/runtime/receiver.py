@@ -1,5 +1,5 @@
 """Block-streamed file-replay receiver (port of
-:mod:`gnsslib_tpu.runtime.receiver`, one front-end group, unsharded).
+:mod:`gnsslib_tpu.runtime.receiver`, unsharded).
 
 For each block of IF samples:
 
@@ -27,6 +27,15 @@ TCP, loss-of-lock detection with reacquisition (RELOCK, PULLINTMO),
 position-aided hot start (HOTSTART), the even/odd acquisition
 confirmation (ACQCONFIRM), per-channel tracking logs (LOG) and
 checkpoints.
+
+Channels are grouped by RF path and loop cadence (:func:`build_receiver`):
+GPS L1CA and GLONASS G1 channels update their loops every 10 periods after
+bit sync, SBAS channels every 2, and the steady-state FastTracker needs
+one interval.  Each group is a :class:`Receiver` with its own tracker and
+block programs; the groups of one RF path share its device sample cache,
+and a :class:`MultiReceiver` steps them in lockstep and merges their
+observables in one :class:`OutputHub` (RINEX obs/nav, RTCM3 and the
+NovAtel SBAS stream).
 """
 from __future__ import annotations
 
@@ -40,15 +49,16 @@ import time
 
 import numpy as np
 
-from ..constants import (ACQSLEEP, CLIGHT, CodeType, FREQ1, OBSINTERPN,
-                         SYS_GPS, SYS_QZS)
+from ..constants import (ACQSLEEP, CLIGHT, CodeType, DType, FREQ1,
+                         OBSINTERPN, SYS_GPS, SYS_QZS)
 from ..diag.tracklog import TrackLogger
 from ..gtime import gpst2time
 from ..nav import NavChannel
 from ..obs.epoch import ChannelObsInput, EpochAligner, SdrObs
 from ..obs.history import ObsHistory
 from ..obs.rinex import RinexNavWriter, RinexObsWriter
-from ..obs.rtcm import encode_1019, encode_1044, encode_msm7
+from ..nav.sbas import gen_novatel_sbasmsg
+from ..obs.rtcm import encode_1019, encode_1020, encode_1044, encode_msm7
 from ..obs.smooth import HatchSmoother
 from ..obs.spp import ecef2llh, predict_range, spp_solve
 from ..acquire.search import Acquirer, AcqResult
@@ -82,8 +92,11 @@ class ChannelRuntime:
 
 
 class OutputHub:
-    """RINEX obs/nav writers, the RTCM3 server, SPP with its .pos file, and
-    the common-epoch clock."""
+    """RINEX obs/nav writers, the RTCM3 and SBAS servers, SPP with its .pos
+    file, and the common-epoch clock: one per receiver, shared by its
+    channel groups, so that every RF path's pseudoranges land in the same
+    epochs (the reference's one sync thread over all channels,
+    src/sdrsync.c:49-135)."""
 
     def __init__(self, cfg: ReceiverConfig):
         self.cfg = cfg
@@ -103,6 +116,7 @@ class OutputHub:
             self.nav_writer = RinexNavWriter(
                 os.path.join(cfg.rinexpath, f"sdr_{stamp}.nav"), date)
         self.rtcm_srv = TcpServer(cfg.rtcmport) if cfg.rtcm else None
+        self.sbas_srv = TcpServer(cfg.sbasport) if cfg.sbas else None
         self.epochs_written = 0
         self.ephs_written = 0
         # single-point positioning: the receiver registers complete
@@ -189,21 +203,31 @@ class OutputHub:
             self.pos_writer.flush()
 
     def emit_nav(self, channels: list[ChannelRuntime]) -> None:
-        """Nav records (RINEX, and RTCM 1019/1044) on ephemeris update
-        (src/sdrsync.c:137-156)."""
+        """Nav records on ephemeris update (src/sdrsync.c:137-156), by code
+        type: a GLONASS G1 channel writes its ``geph`` (RINEX and RTCM
+        1020), an L1CA channel its ``eph`` (RINEX, and RTCM 1019 or 1044);
+        SBAS channels write none.  Idempotent per update flag, so each
+        channel group calls it with its own channels."""
         for ch in channels:
             eph = ch.nav.eph
             if eph.update and eph.cnt >= eph.cntth:
                 eph.cnt = 0
                 eph.update = False
                 self.ephs_written += 1
+                g1 = ch.cfg.ctype == CodeType.G1
+                l1ca = ch.cfg.ctype == CodeType.L1CA
                 if self.nav_writer:
-                    self.nav_writer.write_eph(ch.cfg.sys, ch.cfg.prn,
-                                              eph.eph)
+                    if g1:
+                        self.nav_writer.write_geph(ch.nav.prn, eph.geph)
+                    elif l1ca:
+                        self.nav_writer.write_eph(ch.cfg.sys, ch.cfg.prn,
+                                                  eph.eph)
                 if self.rtcm_srv:
-                    if ch.cfg.sys == SYS_QZS:
+                    if g1:
+                        self.rtcm_srv.send(encode_1020(ch.nav.prn, eph.geph))
+                    elif l1ca and ch.cfg.sys == SYS_QZS:
                         self.rtcm_srv.send(encode_1044(ch.cfg.prn, eph.eph))
-                    elif ch.cfg.sys == SYS_GPS:
+                    elif l1ca and ch.cfg.sys == SYS_GPS:
                         self.rtcm_srv.send(encode_1019(ch.cfg.prn, eph.eph))
 
     def close(self) -> None:
@@ -213,34 +237,45 @@ class OutputHub:
         for w in (self.obs_writer, self.nav_writer):
             if w is not None and hasattr(w, "close"):
                 w.close()
-        if self.rtcm_srv is not None:
-            self.rtcm_srv.close()
-            self.rtcm_srv = None
+        for name in ("rtcm_srv", "sbas_srv"):
+            srv = getattr(self, name)
+            if srv is not None:
+                srv.close()
+                setattr(self, name, None)
 
 
 class Receiver:
-    """The receiver for one front end replayed from a file
-    (``frontend.read(start, n)`` + ``nsamples``), on ``device``: the
-    channels of ``cfg`` (one RF path of real-sampled GPS L1CA channels;
-    anything else, and SBAS or SPEC output, raises
-    ``NotImplementedError``)."""
+    """The receiver of one channel group on one front end replayed from a
+    file (``frontend.read(start, n)`` + ``nsamples``), on ``device``: the
+    channels of RF path ``ftype`` (or ``channels``, a subset of them).
+
+    ``hub``: an :class:`OutputHub` shared with other groups (then
+    ``standalone=False``: the owner, a :class:`MultiReceiver`, emits the
+    merged epochs); by default the receiver owns its hub and emits epochs
+    itself.  ``cache``: the :class:`DeviceBlockCache` of another group on
+    the same front end, shared when its block length is this group's.
+    Live front ends and SPEC raise ``NotImplementedError``."""
 
     def __init__(self, cfg: ReceiverConfig, frontend, *, device,
-                 nsteps_per_block: int = 400):
+                 ftype: int = 1, nsteps_per_block: int = 400,
+                 hub: OutputHub | None = None, standalone: bool = True,
+                 channels=None, cache: DeviceBlockCache | None = None):
         missing = unported_options(cfg)
         if missing:
             raise NotImplementedError(
                 "not ported to gnsslib_tpu_torch yet: " + ", ".join(missing))
         if getattr(frontend, "is_live", False):
             raise NotImplementedError("live front ends are not ported")
-        if not cfg.channels:
-            raise ValueError("no channels configured")
+        chans = (list(channels) if channels is not None else
+                 [c for c in cfg.channels if c.ftype == ftype])
+        if not chans:
+            raise ValueError(f"no channels on front end {ftype}")
         self.cfg = cfg
         self.frontend = frontend
+        self.standalone = standalone
         self._pending = []            # FIFO of (getter, base, cnt0, locked0)
         self._acq_pend: list = []     # (getter, base, t_disp, pend_idx)
-        chans = cfg.channels
-        spec = cfg.fends[chans[0].ftype - 1]
+        spec = cfg.fends[ftype - 1]
         self.spec = spec
         prns = [c.prn for c in chans]
         ctypes = [c.ctype for c in chans]
@@ -252,14 +287,32 @@ class Receiver:
         self.trk = Tracker(cfg.track, prns, ctypes, spec.f_sf, spec.f_if,
                            spec.dtype, foffsets=foffsets,
                            f_cfs=[c.f_cf for c in chans], device=device)
-        self.fast = FastTracker(self.trk)
+        try:
+            # the steady state's L periods per step; a group of mixed loop
+            # cadences stays on the per-period loop (build_receiver splits
+            # such groups)
+            self.fast = FastTracker(self.trk)
+        except ValueError:
+            self.fast = None
         self.state = self.trk.init_state()
         self.nsamp = self.trk.n_nom
         self.nsteps = int(nsteps_per_block)
         self.block_len = (self.nsteps * self.nsamp + self.trk.nwin
                           + NSPAN * self.nsteps + 2 * self.nsamp + 64)
-        self.cache = DeviceBlockCache(frontend, self.block_len,
-                                      device=device)
+        # a tracking block starts one code period before ``base`` (the
+        # state's loc counts from there): a channel whose code period is
+        # shorter than nominal moves its period boundary earlier block by
+        # block, and its windows stay inside the block until the drift
+        # reaches a period (~400 s at 4 kHz of Doppler) instead of leaving
+        # it at once when its boundary passes ``base``
+        self.lead = self.nsamp
+        # the groups of one RF path share its device samples (one upload)
+        track_len = self.block_len + self.lead
+        if cache is not None and cache.block_len == track_len:
+            self.cache = cache
+        else:
+            self.cache = DeviceBlockCache(frontend, track_len,
+                                          device=device)
         self.base = 0
         self.channels = []
         for i, c in enumerate(chans):
@@ -272,7 +325,10 @@ class Receiver:
                 loop_periods=loop_interval(c.ctype), depth=depth)
             self.channels.append(ChannelRuntime(idx=i, cfg=c, nav=nav,
                                                 hist=hist))
-        self.hub = OutputHub(cfg)
+        self.hub = hub if hub is not None else OutputHub(cfg)
+        # every group's channels, set by a MultiReceiver: the SBAS week
+        # borrow (src/sdrnav_sbs.c:124-127) looks across groups
+        self.peer_channels = None
         self.loggers = {}
         if cfg.log:
             os.makedirs(cfg.logpath, exist_ok=True)
@@ -302,10 +358,17 @@ class Receiver:
         multiple of the steady loop interval, the steady one, at this
         receiver's block length: on a card one eager warm-up and one CUDA
         graph capture each, here and never per block."""
-        shape = (self.block_len,)
+        shape = (self.block_len + self.lead,) + (
+            (2,) if self.spec.dtype == DType.IQ else ())
         self.trk.program(self.nsteps, shape)
-        if self.nsteps % self.fast.L == 0:
+        if self.fast is not None and self.nsteps % self.fast.L == 0:
             self.fast.program(self.nsteps, shape)
+
+    def _block(self):
+        """The tracking block at ``base``: samples [base - lead, base +
+        block_len) on the device (the search reads it from ``lead`` on)."""
+        return self.cache.get(self.base - self.lead,
+                              self.block_len + self.lead)
 
     def _mark(self, name: str) -> None:
         if name not in self.timeline:
@@ -356,8 +419,8 @@ class Receiver:
         for ch in pend:
             ch.last_acq_attempt = t_stream
         idx = [ch.idx for ch in pend]
-        handle = self.acq.search_dev_start(
-            self.cache.get(self.base, self.block_len), idx=idx)
+        handle = self.acq.search_dev_start(self._block()[self.lead:],
+                                           idx=idx)
         self._acq_pend.append((
             functools.partial(self.acq.search_dev_collect, handle),
             self.base, t_stream, idx))
@@ -385,7 +448,7 @@ class Receiver:
             ch.cn0 = float(res.cn0[i])
             self._mark("first_lock")
             self.state = self.trk.start_channels(
-                self.state, [i], [codei], [dcarr])
+                self.state, [i], [codei + self.lead], [dcarr])
             self._cnt_host[i] = 0
             self._events.append(
                 ("acq", t_disp, ch.cfg.prn, float(res.cn0[i]),
@@ -430,8 +493,18 @@ class Receiver:
         t_rx = gpst2time(week, T_r + tau_r)      # GPS receive time at base
         remaining = []
         for ch in pend:
-            e = (hub.ephs.get((ch.cfg.sys, ch.cfg.prn))
-                 if ch.cfg.ctype == CodeType.L1CA else None)
+            if ch.cfg.ctype == CodeType.G1:
+                # GLONASS: the hub keys a geph by its slot; find the one of
+                # this channel's FDMA number (geph.frq)
+                e = next((g for (s, _), g in hub.ephs.items()
+                          if s == ch.cfg.sys
+                          and getattr(g, "frq", None) == ch.cfg.prn), None)
+                f_cf = ch.cfg.f_cf
+            elif ch.cfg.ctype == CodeType.L1CA:
+                e = hub.ephs.get((ch.cfg.sys, ch.cfg.prn))
+                f_cf = FREQ1
+            else:
+                e = None
             if e is None:
                 remaining.append(ch)
                 continue
@@ -440,9 +513,9 @@ class Receiver:
             T_tx_t = (T_r + tau_r) - tau_t
             ctime = float(self.trk.ctime[ch.idx])
             loc = int(round(((-T_tx_t) % ctime) / ti))
-            D = rate * FREQ1 + sol.clk_drift * FREQ1 / CLIGHT
+            D = rate * f_cf + sol.clk_drift * f_cf / CLIGHT
             self.state = self.trk.start_channels(
-                self.state, [ch.idx], [loc], [-D])
+                self.state, [ch.idx], [loc + self.lead], [-D])
             self._cnt_host[ch.idx] = 0
             ch.locked = True
             ch.t_acq = t_stream
@@ -454,6 +527,7 @@ class Receiver:
     # ------------------------------------------------------------------ #
     def _feed_nav_and_obs(self, out, cnt0: np.ndarray, base: int,
                           locked0: list[bool]) -> None:
+        origin = base - self.lead           # the block's first sample
         for ch in self.channels:
             if not (ch.locked and locked0[ch.idx]):
                 continue
@@ -461,7 +535,7 @@ class Receiver:
             was_started = int(cnt0[i])
             steps = out.ip.shape[0]
             evs = ch.nav.update(
-                out.ip[:, i], base + out.loc[:, i].astype(np.int64),
+                out.ip[:, i], origin + out.loc[:, i].astype(np.int64),
                 was_started)
             for e in evs:
                 self._events.append(("nav:" + e.kind, base / self.spec.f_sf,
@@ -471,6 +545,8 @@ class Receiver:
                                                    ch.nav.sync_offset)
                 ch.synced = True
                 self._mark("first_sync")
+            if ch.cfg.ctype == CodeType.L1SBAS and self.hub.sbas_srv:
+                self._send_sbas(ch, evs)
             if i in self.loggers:
                 self.loggers[i].log_block(out, i, ch.nav, ch.hist,
                                           int(cnt0[i]))
@@ -481,7 +557,7 @@ class Receiver:
             if ch.nav.flagdec:
                 ch.hist.update(
                     cnts=was_started + np.arange(steps),
-                    bufflocs=base + out.loc[:, i].astype(np.int64),
+                    bufflocs=origin + out.loc[:, i].astype(np.int64),
                     ns=out.n[:, i], dcarr=out.dcarr[:, i],
                     remcode=out.remcode[:, i], dcode=out.dcode[:, i],
                     sum_i=out.sum_i[:, i], remcarr=out.remcarr[:, i],
@@ -489,6 +565,23 @@ class Receiver:
                     firstsftow=ch.nav.firstsftow,
                     firstsfcnt=ch.nav.firstsfcnt,
                     flagsyncf=ch.nav.flagsyncf, polarity=ch.nav.polarity)
+
+    def _send_sbas(self, ch, evs) -> None:
+        """A decoded SBAS message as a NovAtel RAWSBASFRAME over TCP
+        (src/sdrnav_sbs.c:100-140); before the channel's own MT12 gives the
+        week, it is borrowed from a decoded channel of any group."""
+        if not any(e.kind == "decode" for e in evs):
+            return
+        sb = ch.nav.sbas
+        if sb.week == 0:
+            for other in (self.peer_channels or self.channels):
+                if other.nav.flagdec and other.nav.eph.week_gpst:
+                    sb.week = other.nav.eph.week_gpst
+                    sb.tow = other.hist.tow[0]
+                    break
+        if sb.week:
+            gen_novatel_sbasmsg(sb)
+            self.hub.sbas_srv.send(bytes(sb.novatelmsg))
 
     def _check_lock(self, ch, out, base: int) -> None:
         """Loss-of-lock test (RELOCK=1) on a bit-synced channel: the
@@ -541,10 +634,18 @@ class Receiver:
 
     def collect_obs_inputs(self) -> list[ChannelObsInput]:
         """Aligner inputs for every channel with a full, decoded history;
-        registers each channel's complete, consistent ephemeris (subframes
-        2 and 3 of one IODE) in the hub for SPP and the hot start."""
+        registers each channel's complete ephemeris in the hub for SPP and
+        the hot start: an L1CA channel's when subframes 2 and 3 agree on
+        the IODE, a G1 channel's ``geph`` under its slot once it has a
+        position, marked with the channel's FDMA number (``frq``)."""
         for ch in self.channels:
             if not ch.nav.flagdec:
+                continue
+            if ch.cfg.ctype == CodeType.G1:
+                if any(ch.nav.eph.geph.pos):
+                    ch.nav.eph.geph.frq = ch.cfg.prn
+                    self.hub.ephs[(ch.cfg.sys, ch.nav.prn)] = \
+                        ch.nav.eph.geph
                 continue
             e = ch.nav.eph.eph
             if e.A > 0.0 and e.i0 != 0.0 and e.toe.time and \
@@ -560,11 +661,13 @@ class Receiver:
             hist=ch.hist, sys=ch.cfg.sys, prn=ch.nav.prn,
             week=ch.nav.eph.week_gpst, nsamp=self.nsamp,
             ctime=float(self.trk.ctime[ch.idx]), ti=self.trk.ti,
-            firstsf=ch.nav.firstsf, firstsfcnt=ch.nav.firstsfcnt, fcn=0)
+            firstsf=ch.nav.firstsf, firstsfcnt=ch.nav.firstsfcnt,
+            fcn=(ch.cfg.prn if ch.cfg.ctype == CodeType.G1 else 0))
             for ch in ready]
 
     def _emit_epochs(self) -> list[list[SdrObs]]:
-        epochs = self.hub.emit_epochs(self.collect_obs_inputs())
+        epochs = (self.hub.emit_epochs(self.collect_obs_inputs())
+                  if self.standalone else [])
         self.hub.emit_nav(self.channels)
         if self.hub.epochs_written:
             self._mark("first_epoch")
@@ -628,14 +731,14 @@ class Receiver:
             self._mark("first_block")
             self.stage_wall["acquire"] += time.time() - t0
             return
-        use_fast = (self.nsteps % self.fast.L == 0
+        use_fast = (self.fast is not None and self.nsteps % self.fast.L == 0
                     and all(ch.synced for ch in self.channels if ch.locked))
         if use_fast:
             self._mark("steady")
         eng = self.fast if use_fast else self.trk
         cnt0 = self._cnt_host.copy()
         locked0 = [ch.locked for ch in self.channels]
-        block = self.cache.get(self.base, self.block_len)
+        block = self._block()
         self.state, handle = eng.run_block_start(self.state, block,
                                                  self.nsteps)
         self._pending.append((functools.partial(eng.run_block_collect,
@@ -663,9 +766,11 @@ class Receiver:
             self._collect(*p)
 
     def close(self) -> None:
-        """Flush pending work and close output files and the RTCM server."""
+        """Flush pending work, close the track logs and, when standalone,
+        the hub's output files and servers."""
         self.flush()
-        self.hub.close()
+        if self.standalone:
+            self.hub.close()
         for lg in self.loggers.values():
             lg.close()
         self.loggers = {}
@@ -702,3 +807,210 @@ class Receiver:
                 progress(self.base / self.spec.f_sf)
         self.flush()
         return self._summary(t_start, nblocks)
+
+
+class MultiReceiver:
+    """Channel groups stepped in lockstep with one shared
+    :class:`OutputHub`, so that common epochs hold every group's channels
+    (the reference's one sync thread over all channel threads,
+    src/sdrsync.c:49-135).  Groups come from RF paths (two front ends) and
+    from loop cadences within a path (SBAS channels update every 2
+    periods, GPS and GLONASS every 10; the FastTracker needs one).
+
+    ``parts``: a list of (ftype, frontend, channels).  The groups of one
+    front end share its device sample cache; each group captures its own
+    block programs.  Every group's blocks must span the same stream time.
+    Each group keeps ``PIPELINE_DEPTH`` blocks in flight and all of them
+    step together, so after every lockstep step they have collected the
+    same blocks; the hub then merges the epochs their histories cover."""
+
+    def __init__(self, cfg: ReceiverConfig, parts: list, *, device,
+                 nsteps_per_block: int = 400):
+        self.cfg = cfg
+        self.hub = OutputHub(cfg)
+        self.rx: list[Receiver] = []
+        caches = {}
+        try:
+            for ft, fe, chans in parts:
+                r = Receiver(cfg, fe, device=device, ftype=ft,
+                             nsteps_per_block=nsteps_per_block, hub=self.hub,
+                             standalone=False, channels=chans,
+                             cache=caches.get(id(fe)))
+                caches.setdefault(id(fe), r.cache)
+                self.rx.append(r)
+            durations = {r.nsteps * r.nsamp / r.spec.f_sf for r in self.rx}
+            if max(durations) - min(durations) > 1e-12:
+                raise ValueError(f"group block durations differ "
+                                 f"({sorted(durations)}); use code periods "
+                                 "with equal duration across groups")
+        except BaseException:
+            self.hub.close()
+            raise
+        merged = self.channels
+        for r in self.rx:
+            r.peer_channels = merged
+
+    @property
+    def epochs_written(self) -> int:
+        return self.hub.epochs_written
+
+    @property
+    def ephs_written(self) -> int:
+        return self.hub.ephs_written
+
+    @property
+    def obs_writer(self):
+        return self.hub.obs_writer
+
+    @property
+    def nav_writer(self):
+        return self.hub.nav_writer
+
+    @property
+    def events(self) -> list:
+        """Every group's events in stream-time order."""
+        return sorted((e for r in self.rx for e in r.events),
+                      key=lambda e: e[1])
+
+    @property
+    def channels(self) -> list[ChannelRuntime]:
+        return [ch for r in self.rx for ch in r.channels]
+
+    @property
+    def timeline(self) -> dict:
+        """Each milestone at its first group (wall seconds since the first
+        group was built)."""
+        t0 = self.rx[0].timeline["t0"]
+        out = {"t0": t0}
+        for r in self.rx:
+            for k, v in r.timeline.items():
+                if k != "t0":
+                    v += r.timeline["t0"] - t0
+                    out[k] = min(out.get(k, v), v)
+        return out
+
+    def save_checkpoint(self, path: str) -> None:
+        """Every group's snapshot (after a flush), as a list."""
+        self.flush()
+        with open(path, "wb") as f:
+            pickle.dump([r._snapshot() for r in self.rx], f)
+
+    def load_checkpoint(self, path: str) -> None:
+        """Restore a :meth:`save_checkpoint` of the same config.  The file
+        is unpickled: load only checkpoints this program wrote."""
+        with open(path, "rb") as f:
+            snaps = pickle.load(f)
+        if len(snaps) != len(self.rx):
+            raise ValueError(f"checkpoint has {len(snaps)} groups, the "
+                             f"receiver {len(self.rx)}")
+        for r, d in zip(self.rx, snaps):
+            r._restore(d)
+
+    def close(self) -> None:
+        for r in self.rx:
+            r.close()
+        self.hub.close()
+
+    @property
+    def stop_requested(self) -> bool:
+        return any(r.stop_requested for r in self.rx)
+
+    def request_stop(self) -> None:
+        for r in self.rx:
+            r.request_stop()
+
+    def _emit(self) -> None:
+        self.hub.emit_epochs(
+            [ci for r in self.rx for ci in r.collect_obs_inputs()])
+
+    def step_block(self) -> None:
+        """One block of every group, then the epochs all of them cover."""
+        for r in self.rx:
+            r.step_block()
+        self._emit()
+
+    def flush(self) -> None:
+        for r in self.rx:
+            r.flush()
+        self._emit()
+
+    def run_seconds(self, seconds: float | None = None,
+                    progress=None) -> dict:
+        """Step every group until one reaches the end of its stream (whole
+        file by default) or a :meth:`request_stop`; returns summary
+        statistics, with ``stage_wall`` summed over the groups and
+        ``groups`` holding each group's."""
+        t_start = time.time()
+        ends = [r.end_sample(seconds) for r in self.rx]
+        nblocks = 0
+        while not self.stop_requested and \
+                all(r.can_step(e) for r, e in zip(self.rx, ends)):
+            self.step_block()
+            nblocks += 1
+            if progress:
+                progress(self.rx[0].base / self.rx[0].spec.f_sf)
+        self.flush()
+        wall = time.time() - t_start
+        samples = sum(r.base for r in self.rx)
+        groups = [r._summary(t_start, nblocks) for r in self.rx]
+        return dict(
+            samples=samples,
+            seconds=self.rx[0].base / self.rx[0].spec.f_sf,
+            wall=wall, msps=samples / 1e6 / max(wall, 1e-9),
+            blocks=nblocks,
+            locked=[p for g in groups for p in g["locked"]],
+            decoded=[p for g in groups for p in g["decoded"]],
+            epochs=self.hub.epochs_written, ephs=self.hub.ephs_written,
+            stage_wall={k: sum(g["stage_wall"][k] for g in groups)
+                        for k in groups[0]["stage_wall"]},
+            groups=groups)
+
+    def run_live(self, *args, **kwargs):
+        raise NotImplementedError("live front ends are not ported")
+
+
+class DualReceiver(MultiReceiver):
+    """Both RF paths of a dual front end (FE1 + FE2), one group per path:
+    the named two-path case of :class:`MultiReceiver`."""
+
+    def __init__(self, cfg: ReceiverConfig, frontends: list, *, device,
+                 nsteps_per_block: int = 400):
+        ftypes = sorted({c.ftype for c in cfg.channels})
+        if len(ftypes) < 2:
+            raise ValueError("DualReceiver needs channels on two FTYPEs")
+        parts = [(ft, fe, [c for c in cfg.channels if c.ftype == ft])
+                 for ft, fe in zip(ftypes, frontends)]
+        super().__init__(cfg, parts, device=device,
+                         nsteps_per_block=nsteps_per_block)
+
+
+def build_receiver(cfg: ReceiverConfig, frontends, *, device,
+                   nsteps_per_block: int = 400):
+    """The receiver for ``cfg``: channels grouped by (RF path, loop
+    cadence); a single group gets a plain :class:`Receiver`, several a
+    :class:`MultiReceiver`.
+
+    ``frontends``: a {ftype: frontend} dict, or a list paired with the
+    configured FTYPEs in sorted order (a single frontend is accepted)."""
+    if isinstance(frontends, dict):
+        fmap = dict(frontends)
+    else:
+        if not isinstance(frontends, (list, tuple)):
+            frontends = [frontends]
+        fts = sorted({c.ftype for c in cfg.channels})[:len(frontends)]
+        fmap = dict(zip(fts, frontends))
+    parts = []
+    for ft in sorted(fmap):
+        by_loop = {}
+        for c in cfg.channels:
+            if c.ftype == ft:
+                by_loop.setdefault(loop_interval(c.ctype), []).append(c)
+        parts += [(ft, fmap[ft], grp) for _, grp in sorted(by_loop.items())]
+    if not parts:
+        raise ValueError("no channels on the given front ends")
+    if len(parts) == 1:
+        ft, fe, grp = parts[0]
+        return Receiver(cfg, fe, device=device, ftype=ft,
+                        nsteps_per_block=nsteps_per_block, channels=grp)
+    return MultiReceiver(cfg, parts, device=device,
+                         nsteps_per_block=nsteps_per_block)

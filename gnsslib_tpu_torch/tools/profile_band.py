@@ -22,6 +22,9 @@ over copies beyond the L2 cache, so the time is the kernel's own:
                reused across the taps (kJ = 33), still staged one byte per
                thread (step 3 adds the 16-byte asynchronous staging)
     S1 S4 S8   the kernel with 1, 4 or 8 CTAs per window (it has 2)
+    iq64       the kernel with I/Q input held to 64 registers, as real
+               input is (4 CTAs per SM; the kernel gives I/Q 80, 3 CTAs)
+    iq128      the kernel with I/Q input given 128 registers (2 CTAs)
     nocarrier  the carrier's sincospif replaced by two multiply-adds
     nostage    no staging copies (the chain loop reads whatever shared
                memory holds for the replica)
@@ -33,13 +36,15 @@ over copies beyond the L2 cache, so the time is the kernel's own:
 The variants of SAME compute K1's function and are held against
 ``band_taps_plain`` (1e-5 of the largest window L1 norm) before they are
 timed.  Differences between lines say what each step or part costs; the
-parts overlap in time, so they need not add up.  The tool needs the card
-and nvcc.
+parts overlap in time, so they need not add up.  Each line carries
+ptxas's registers, stack frame and spill stores of the variant's 13-tap
+instantiation for the input kind.  The tool needs the card and nvcc.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
+import re
 import subprocess
 import sys
 import time
@@ -72,12 +77,15 @@ _KJ = "constexpr int kJ = 33;"
 _CLUSTER = "constexpr int kCluster = 2;"
 _NOSTAGE = [(_STAGE, _STAGE.replace("v < (head", "v < 0 * (head"))]
 _NOCHAIN = [(_CHAIN, _CHAIN.replace("s0 < lim", "s0 < 0"))]
+_BOUND = "NT <= 13 ? (IQ ? 3 : 4) : 2)"
 VARIANTS = {
     "kernel": [],
     "step1": _BYTES + [(_KJ, "constexpr int kJ = 1;")],
     "step2": _BYTES,
     **{f"S{c}": [(_CLUSTER, f"constexpr int kCluster = {c};")]
        for c in (1, 4, 8)},
+    "iq64": [(_BOUND, "NT <= 13 ? 4 : 2)")],
+    "iq128": [(_BOUND, "NT <= 13 ? (IQ ? 2 : 4) : 2)")],
     "nocarrier": [(_CARRIER, "  *sn = fmaf(f, fi, r0);\n"
                              "  *cs = fmaf(r0, fi, f);\n")],
     "nostage": _NOSTAGE,
@@ -86,7 +94,7 @@ VARIANTS = {
     "launch": [(_ENTRY, _ENTRY + "  if (a.d > 0) return;\n")],
 }
 # the variants that compute K1's function (the others take work away)
-SAME = ("kernel", "step1", "step2", "S1", "S4", "S8")
+SAME = ("kernel", "step1", "step2", "S1", "S4", "S8", "iq64", "iq128")
 # the tap counts of a source's entry points, and of a variant's (13 only)
 TAPS_ALL = ("#define TAP_CASES(X) X(1) X(3) X(5) X(7) X(9) X(11) X(13) "
             "X(15) X(17) \\\n                     X(19) X(21) X(23) X(25)")
@@ -200,19 +208,48 @@ def compile_sources(sources: dict, out, tool: str) -> dict:
             for name in sources}
 
 
-_LIBS = {}          # variant -> its loaded library, built once per process
+_LIBS = {}          # variant -> (loaded library, ptxas output), per process
 
 
 def build(names) -> dict:
     """Build every variant of ``names`` not built yet (one nvcc each, in
     parallel) and load it: {name: ctypes library}."""
     todo = {n: variant_source(n) for n in names if n not in _LIBS}
-    for name, (lib, _) in compile_sources(todo, OUT, "profile_band").items():
+    for name, (lib, text) in compile_sources(todo, OUT,
+                                             "profile_band").items():
         lib.band_taps_launch.argtypes = bt.LAUNCH_ARGTYPES
         lib.band_taps_launch.restype = ctypes.c_int
         lib.band_taps_ctas_per_window.restype = ctypes.c_int
-        _LIBS[name] = lib
-    return {name: _LIBS[name] for name in names}
+        _LIBS[name] = (lib, text)
+    return {name: _LIBS[name][0] for name in names}
+
+
+def usage(text: str, iq: bool, ntaps: int = 13, entry: str = "cluster"
+          ) -> dict:
+    """ptxas's resource lines (``-Xptxas -v`` output ``text``) of the
+    ``entry`` kernel's (``cluster`` or ``v1``) instantiation for ``ntaps``
+    taps and ``iq``: {"regs", "stack", "spill_stores", "spill_loads"}
+    (bytes; absent keys were not printed)."""
+    want = f"band_taps_{entry}_kernelILi{ntaps}ELb{int(iq)}E"
+    found, inside = {}, False
+    for ln in text.splitlines():
+        if "Compiling entry function" in ln:
+            inside = want in ln
+        elif inside:
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", ln)
+            if m:
+                found.update(stack=int(m[1]), spill_stores=int(m[2]),
+                             spill_loads=int(m[3]))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                found["regs"] = int(m[1])
+    return found
+
+
+def usage_text(u: dict) -> str:
+    return (f"{u.get('regs', '?')} regs, {u.get('stack', '?')} B stack, "
+            f"{u.get('spill_stores', '?')} B spill")
 
 
 def launcher(lib, offsets, smax: int, out, ok):
@@ -277,7 +314,7 @@ def profile(iq: bool = False, rounds: int = 5, log=print) -> dict:
         res[name] = graph_ms(lambda k: fn(copies[k]), len(copies),
                              rounds=rounds)
         log(f"{name:10s} {res[name]:8.4f} ms  ({res[name] - res['kernel']:+.4f}"
-            f" vs kernel)")
+            f" vs kernel; {usage_text(usage(_LIBS[name][1], iq))})")
     return res
 
 

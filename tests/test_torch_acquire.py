@@ -92,3 +92,24 @@ def test_search_iq_matches_jax():
     ta = Acquirer(PRNS, [CodeType.L1CA] * 4, f_sf, f_if, DType.IQ,
                   device="cpu")
     _same(ja.search(data), ta.search(data))
+
+
+@pytest.mark.parametrize("kind", ["G1", "SBAS"])
+def test_search_other_codes_match_jax(kind):
+    """GLONASS G1 (511-chip code, FDMA offsets) and SBAS channels: the
+    same decisions, code phases and Doppler bins as the JAX Acquirer; the
+    present channel is found at its code phase and Doppler."""
+    from test_torch_track import F_SF, F_IF, other_channels, other_signal
+    ctype, prns, foffsets, _ = other_channels(kind)
+    data = other_signal(kind, DType.REAL, 0.013, codei=1234, doppler=-1800.0,
+                        cn0=44.0)
+    args = (prns, [ctype] * 2, F_SF, F_IF, DType.REAL)
+    ja = JaxAcquirer(*args, foffsets=foffsets)
+    ta = Acquirer(*args, foffsets=foffsets, device="cpu")
+    rj, rt = ja.search(data), ta.search(data)
+    _same(rj, rt)
+    assert list(rt.acquired) == [True, False]
+    assert abs(rt.dcarr[0] - 1800.0) <= 100.0 + 1e-6
+    nsamp = int(F_SF / 1000)
+    derr = abs(int(rt.codei[0]) - 1234)
+    assert min(derr, nsamp - derr) <= 1

@@ -167,6 +167,55 @@ def test_band_taps_variants_match_plain(dev, iq, variant):
     assert float((out - zp).abs().max()) <= tol
 
 
+# the multi-GNSS receiver's other channel groups at 16.368 Msps, 13 taps
+# (CORRN/CORRD 6/3): (code type, channels, loop interval L, I/Q, IF)
+GROUPS = {"SBAS": (CodeType.L1SBAS, 3, 2, False, 4.092e6),
+          "G1-iq": (CodeType.G1, 14, 10, True, 0.0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("active", [1, 2, 3])
+@pytest.mark.parametrize("group", list(GROUPS))
+def test_band_taps_receiver_group_shapes(dev, group, active):
+    """The cluster kernel against the plain version at the super-step
+    shapes of the SBAS group (3 channels x L = 2: 6 windows per launch,
+    12 CTAs) and of the GLONASS G1 group on I/Q samples (14 channels x
+    L = 10, about 32 samples a chip), with ``active`` channels locked:
+    the window length, replica row and tap band of the group's Tracker."""
+    ctype, nch, L, iq, f_if = GROUPS[group]
+    prns = list(range(-7, -7 + nch)) if ctype == CodeType.G1 else \
+        [129, 133, 138]
+    trk = Tracker(TrackConfig(6, 3, 6), prns, [ctype] * nch, F_SF, f_if,
+                  DType.IQ if iq else DType.REAL, device=dev)
+    B = nch * L
+    host, args = _band_inputs(B, iq, 71 + active, dev, trk.smax,
+                              nn=trk.n_nom, nwin=trk.nwin)
+    act = np.repeat(np.arange(nch) < active, L)
+    args[6] = torch.from_numpy(act).to(dev)
+    bt.COUNTS.reset()
+    zk, okk = bt.band_taps(*args, trk.offsets, trk.smax)
+    zp, okp = bt.band_taps_plain(*args, trk.offsets, trk.smax)
+    torch.cuda.synchronize()
+    assert (bt.COUNTS.kernel, bt.COUNTS.v1, bt.COUNTS.plain) == (1, 0, 0)
+    assert bool(okk) and bool(okp)
+    tol = profile_band.tolerance(host[:6] + (act,), trk.nwin)
+    assert float((zk - zp).abs().max()) <= tol
+    assert torch.all(zk[~args[6]] == 0)
+
+
+@pytest.mark.cuda
+def test_band_taps_13_tap_iq_does_not_spill(dev):
+    """ptxas: the 13-tap I/Q instantiation of the cluster kernel (the G1
+    group's) has no stack frame and no spill; the real one (GPS and SBAS)
+    keeps its 64 registers without spill."""
+    profile_band.build(["kernel"])
+    text = profile_band._LIBS["kernel"][1]
+    iq = profile_band.usage(text, True)
+    real = profile_band.usage(text, False)
+    assert iq["stack"] == iq["spill_stores"] == iq["spill_loads"] == 0, iq
+    assert real["regs"] <= 64 and real["spill_stores"] == 0, real
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("iq", [False, True])
 def test_band_taps_bit_identical_and_graph_replay(dev, iq):

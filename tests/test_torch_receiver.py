@@ -244,14 +244,15 @@ def test_checkpoint_resume_matches_uninterrupted(both, capture, tmp_path):
     ("rtcm", True, "RTCM"), ("sbas", True, "SBAS"), ("log", True, "LOG"),
     ("spec", True, "SPEC"), ("smooth", 5, "SMOOTH")])
 def test_unported_options_raise(capture, tmp_path, key, value, name):
-    """SBAS and SPEC output still raise; the options ported since build a
-    receiver that carries them."""
+    """SPEC output still raises; the options ported since build a receiver
+    that carries them (SBAS: the hub's NovAtel stream server)."""
     _, ini = capture
     cfg = load_ini(str(ini))
     cfg.rinex, cfg.logpath, cfg.rtcmport = False, str(tmp_path), 0
+    cfg.sbasport = 0
     setattr(cfg, key, value)
     fe = FileFrontend(cfg.files[0], cfg.fends[0])
-    if name in ("SBAS", "SPEC"):
+    if name == "SPEC":
         assert unported_options(cfg) == [name]
         with pytest.raises(NotImplementedError, match=name):
             Receiver(cfg, fe, device="cpu")
@@ -262,6 +263,7 @@ def test_unported_options_raise(capture, tmp_path, key, value, name):
         carried = {"RELOCK": rx.cfg.relock, "HOTSTART": rx.cfg.hotstart,
                    "ACQCONFIRM": rx.acq.confirm, "SPP": rx.hub.spp,
                    "RTCM": rx.hub.rtcm_srv is not None,
+                   "SBAS": rx.hub.sbas_srv is not None,
                    "LOG": len(rx.loggers) == len(PRNS),
                    "SMOOTH": rx.hub.smoother is not None
                    and rx.hub.smoother.N == 5}
@@ -274,11 +276,13 @@ def test_unported_options_raise(capture, tmp_path, key, value, name):
 
 
 @pytest.mark.parametrize("flag", ["--devices", "--checkpoint", "--watch",
-                                  "--resume", "--spp"])
+                                  "--resume", "--spp", "--ftype"])
 def test_unported_cli_flags_raise(capture, tmp_path, flag):
-    """Flags the port does not carry raise; ``--checkpoint``, ``--resume``
-    and ``--spp`` (ported since) run: a checkpoint written after 2 s
-    resumes to 3 s, and ``--spp`` opens the .pos file beside RINEX."""
+    """Flags the port does not carry raise; ``--checkpoint``, ``--resume``,
+    ``--spp`` and ``--ftype`` (ported since) run: a checkpoint written
+    after 2 s resumes to 3 s, ``--spp`` opens the .pos file beside RINEX,
+    and ``--ftype 1`` runs the one configured path (``--ftype 2``, a path
+    the config does not define, is refused)."""
     _, ini = capture
     if flag in UNPORTED_FLAGS:
         with pytest.raises(NotImplementedError, match=flag):
@@ -293,6 +297,12 @@ def test_unported_cli_flags_raise(capture, tmp_path, flag):
         assert torch_cli(base + ["--seconds", "2", "--spp"]) == 0
         assert sorted(p[-3:] for p in os.listdir(tmp_path / "out")) == \
             ["nav", "obs", "pos"]
+        return
+    if flag == "--ftype":
+        assert torch_cli(base + ["--seconds", "2", "--ftype", "2"]) == 1
+        assert torch_cli(base + ["--seconds", "2", "--ftype", "1"]) == 0
+        assert sorted(p[-3:] for p in os.listdir(tmp_path / "out")) == \
+            ["nav", "obs"]
         return
     assert torch_cli(base + ["--seconds", "2", "--checkpoint", ck]) == 0
     assert os.path.getsize(ck) > 0

@@ -10,7 +10,8 @@ import jax
 import jax.numpy as jnp
 
 from gnsslib_tpu import sim
-from gnsslib_tpu.constants import CodeType, DType
+from gnsslib_tpu.constants import (DFRQ1_GLO, FREQ1, FREQ1_GLO, CodeType,
+                                   DType)
 from gnsslib_tpu.runtime.config import load_ini as jax_load_ini
 from gnsslib_tpu.track import TrackConfig as JaxTrackConfig
 from gnsslib_tpu.track import Tracker as JaxTracker
@@ -112,6 +113,93 @@ def test_tracker_run_block_matches_jax(dtype):
                                        err_msg=k)
         else:
             np.testing.assert_array_equal(v, jd[k], err_msg=k)
+
+
+# the non-L1CA channel kinds: code type, PRNs (GLONASS: FDMA channel
+# numbers), chip rate and nav symbol length (ms); the first PRN is signal,
+# the second absent
+OTHER = {"G1": (CodeType.G1, [1, -4], 0.511e6, 10.0),
+         "SBAS": (CodeType.L1SBAS, [129, 133], 1.023e6, 2.0)}
+
+
+def other_channels(kind):
+    """(ctype, prns, foffsets, f_cfs) of ``kind``'s two channels, as the
+    receiver derives them from a config (ChannelConfig.foffset_fdma and
+    f_cf)."""
+    ctype, prns, _, _ = OTHER[kind]
+    g1 = ctype == CodeType.G1
+    foffsets = [p * DFRQ1_GLO if g1 else 0.0 for p in prns]
+    f_cfs = [FREQ1_GLO + p * DFRQ1_GLO if g1 else FREQ1 for p in prns]
+    return ctype, prns, foffsets, f_cfs
+
+
+def other_pair(kind, dtype, f_sf=F_SF, cfg=(4, 2, 2)):
+    """The JAX and the port's Tracker for ``kind``'s channels."""
+    ctype, prns, foffsets, f_cfs = other_channels(kind)
+    args = (prns, [ctype] * 2, f_sf, F_IF, dtype)
+    jt = JaxTracker(JaxTrackConfig(*cfg), *args, foffsets=foffsets,
+                    f_cfs=f_cfs)
+    tt = Tracker(TrackConfig(*cfg), *args, foffsets=foffsets, f_cfs=f_cfs,
+                 device="cpu")
+    return jt, tt
+
+
+def other_signal(kind, dtype, seconds, codei=800, doppler=900.0, seed=3,
+                 cn0=45.0, f_sf=F_SF):
+    """``kind``'s first channel at ``codei`` samples and ``doppler`` Hz,
+    with random nav symbols, in noise at ``cn0`` dB-Hz (f32 samples at
+    ``f_sf``)."""
+    ctype, prns, foffsets, f_cfs = other_channels(kind)
+    _, _, crate, nav_ms = OTHER[kind]
+    rng = np.random.default_rng(5)
+    bits = (1 - 2 * rng.integers(0, 2, int(seconds * 1000 / nav_ms) + 1)
+            ).astype(np.int8)
+    ch = sim.SimChannel(prn=prns[0], ctype=ctype, doppler=doppler,
+                        code_phase=-codei * crate / f_sf, carr_phase=0.3,
+                        nav_bits=bits, nav_ms=nav_ms, f_cf=f_cfs[0],
+                        foffset=foffsets[0])
+    noise = sim.noise_std_for_cn0(1.0, cn0, f_sf, dtype)
+    return np.asarray(sim.synthesize([ch], f_sf, F_IF, dtype,
+                                     int(seconds * f_sf), noise_std=noise,
+                                     seed=seed), np.float32)
+
+
+def close_to_jax(a, b, scale):
+    """ROADMAP's North-star tolerances on one prompt series: median error
+    below 1e-3 of ``scale`` with at most 3 outliers above 5e-3, and a
+    correlation above 0.999."""
+    d = np.abs(a - b)
+    assert int(np.sum(d > 5e-3 * scale)) <= 3, float(d.max())
+    assert np.median(d) < 1e-3 * scale
+    assert np.corrcoef(a, b)[0, 1] > 0.999
+
+
+@pytest.mark.parametrize("dtype", [DType.REAL, DType.IQ],
+                         ids=["real", "iq"])
+@pytest.mark.parametrize("kind", ["G1", "SBAS"])
+def test_tracker_run_block_other_codes_match_jax(kind, dtype):
+    """Pull-in from acquisition for GLONASS G1 (FDMA offsets and carrier
+    frequencies per channel, 511-chip code) and SBAS (loop every 2
+    periods) channels, real and I/Q: ``loc``, ``n`` and the loop-update
+    flags exact, prompts at the North-star tolerances, ``dcarr`` within
+    0.5 Hz.  Channel 1 is inactive with its loc driven negative."""
+    data = other_signal(kind, dtype, 1.5)
+    jt, tt = other_pair(kind, dtype)
+    js = jt.start_channels(jt.rebase(jt.init_state(), 50000), [0], [800],
+                           [-900.0])
+    ts = state_from_numpy(
+        {f: np.asarray(getattr(js, f)) for f in js.__dataclass_fields__},
+        "cpu")
+    js, jo = jt.run_block(js, jnp.asarray(data), 1200)
+    ts, to = tt.run_block(ts, torch.from_numpy(data), 1200)
+    np.testing.assert_array_equal(to.loc[:, 0], jo.loc[:, 0])
+    np.testing.assert_array_equal(to.n[:, 0], jo.n[:, 0])
+    np.testing.assert_array_equal(to.flagloopfilter, jo.flagloopfilter)
+    assert np.any(jo.flagloopfilter[:, 0] > 0)      # the loop updated
+    scale = np.max(np.abs(jo.ip[:, 0]))
+    for a, b in ((jo.ip, to.ip), (jo.qp, to.qp)):
+        close_to_jax(b[:, 0], a[:, 0], scale)
+    np.testing.assert_allclose(to.dcarr[:, 0], jo.dcarr[:, 0], atol=0.5)
 
 
 def test_load_ini_matches_jax(tmp_path):
