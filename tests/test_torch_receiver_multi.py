@@ -338,13 +338,19 @@ def _run(pkg, ini, seconds=None):
 
 @pytest.fixture(scope="module")
 def runs(captures):
-    """{kind: {"jax": run, "torch": run}} of glo, sbas and dual."""
+    """{kind: {"jax": run, "torch": run}} of glo, sbas and dual: the JAX
+    runs on a thread beside the port's (each package's arithmetic leaves
+    the interpreter lock while it runs)."""
     tmp, paths = captures
-    return {kind: {pkg: _run(pkg, _ini(tmp, kind, paths[kind],
-                                       f"{kind}_{pkg}", "SBAS     =1\n"
-                                       if kind == "sbas" else ""))
-                   for pkg in ("jax", "torch")}
-            for kind in ("glo", "sbas", "dual")}
+    kinds = ("glo", "sbas", "dual")
+
+    def run(kind, pkg):
+        return _run(pkg, _ini(tmp, kind, paths[kind], f"{kind}_{pkg}",
+                              "SBAS     =1\n" if kind == "sbas" else ""))
+    with ThreadPoolExecutor(1) as pool:
+        jax_runs = [pool.submit(run, kind, "jax") for kind in kinds]
+        return {kind: {"torch": run(kind, "torch"), "jax": j.result()}
+                for kind, j in zip(kinds, jax_runs)}
 
 
 def _same_events(jrx, trx) -> None:
@@ -567,14 +573,13 @@ def _assistance(pkg):
 def hot(captures):
     """{pkg: (receiver, epochs)} of the hot-start run in both packages."""
     _, paths = captures
-    out = {}
-    for pkg in ("jax", "torch"):
-        cfg = _hot_config(pkg, paths["hot"])
-        rx = _build(pkg, cfg)
+
+    def run(pkg):
+        rx = _build(pkg, _hot_config(pkg, paths["hot"]))
         glo_idx = len(rx.channels) - 1
         collect = rx.acq.search_dev_collect
 
-        def suppress(handle, collect=collect, glo_idx=glo_idx):
+        def suppress(handle):
             res = collect(handle)
             res.acquired[glo_idx] = False
             return res
@@ -583,8 +588,10 @@ def hot(captures):
         epochs, _ = _record(rx)
         rx.run_seconds()
         rx.close()
-        out[pkg] = (rx, epochs)
-    return out
+        return rx, epochs
+    with ThreadPoolExecutor(1) as pool:         # JAX beside the port
+        jax_run = pool.submit(run, "jax")
+        return {"torch": run("torch"), "jax": jax_run.result()}
 
 
 def test_glonass_hot_start_matches_jax(hot):
