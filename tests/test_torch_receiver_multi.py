@@ -250,9 +250,11 @@ _CHANNELS = {"glo": ([GPS_PRN, GLO_FCN], [1, 4], [1, 20], [1, 1]),
              "dual": ([GPS_PRN, GLO_FCN], [1, 4], [1, 20], [1, 2])}
 
 
-def _ini(tmp, kind: str, path: str, name: str, extra: str = "") -> str:
+def _ini(tmp, kind: str, path: str, name: str, extra: str = "",
+         channels=None) -> str:
     """INI files of capture ``kind`` (test_receiver_*.py's), RINEX output
-    under ``tmp/name``; ``extra``: more [OUTPUT] lines."""
+    under ``tmp/name``; ``extra``: more [OUTPUT] lines; ``channels``:
+    (PRN, SYS, CTYPE, FTYPE) lists instead of the capture's."""
     fend_type, paths = _FEND[kind]
     fend = tmp / f"{name}_fend.ini"
     lines = [f"[FEND]\nTYPE     ={fend_type}"]
@@ -262,13 +264,13 @@ def _ini(tmp, kind: str, path: str, name: str, extra: str = "") -> str:
     lines.append(f"FILE1    ={path}\n[TRACK]\nCORRN    =4\nCORRD    =2\n"
                  "CORRP    =2\n")
     fend.write_text("\n".join(lines))
-    prn, sys_, ctype, ftype = (",".join(map(str, v))
-                               for v in _CHANNELS[kind])
+    channels = channels or _CHANNELS[kind]
+    prn, sys_, ctype, ftype = (",".join(map(str, v)) for v in channels)
     ini = tmp / f"{name}.ini"
     ini.write_text(f"""[RCV]
 FENDCONF ={fend}
 [CHANNEL]
-NCH      =2
+NCH      ={len(channels[0])}
 PRN      ={prn}
 SYS      ={sys_}
 CTYPE    ={ctype}
@@ -517,24 +519,39 @@ def test_multi_receiver_checkpoint_resumes(runs, captures, tmp_path):
     assert _nav_records(a) + _nav_records(b) == full["nav"]
 
 
-def test_cli_runs_two_rf_paths(captures, tmp_path):
-    """``python -m gnsslib_tpu_torch`` on the packed two-path capture
-    (FILESTEREO, FE2 I/Q) on the CPU: both paths' groups run (3 s), RINEX
-    files written; ``DualReceiver`` builds the same two groups."""
+def test_cli_runs_two_rf_paths(captures, tmp_path, monkeypatch):
+    """``python -m gnsslib_tpu_torch --device cpu`` on the packed two-path
+    capture (FILESTEREO, FE2 I/Q) with GPS L1CA and SBAS channels on FE1
+    and a G1 channel on FE2, SBAS output on: three groups (SBAS L = 2, GPS
+    L = 10, G1 L = 10) run 3 s and RINEX files are written.
+    ``DualReceiver`` makes one group per path, FE1's of mixed cadence on
+    the per-period loop (no FastTracker)."""
+    from gnsslib_tpu_torch.runtime import cli
     _, paths = captures
-    ini = _ini(tmp_path, "dual", paths["dual"], "cli")
+    chans = ([GPS_PRN, SBAS_PRN, GLO_FCN], [1, 2, 4], [1, 27, 20],
+             [1, 1, 2])
+    ini = _ini(tmp_path, "dual", paths["dual"], "cli", "SBAS     =1\n",
+               chans)
+    built = []
+    make = cli.build_receiver
+    monkeypatch.setattr(cli, "build_receiver", lambda *a, **kw: (
+        built.append(make(*a, **kw)) or built[-1]))
     assert torch_cli([ini, "--device", "cpu", "--quiet", "--seconds",
                       "3"]) == 0
     assert sorted(p[-3:] for p in os.listdir(tmp_path / "cli")) == \
         ["nav", "obs"]
+    assert [(r.spec.ftype, r.fast.L, [c.cfg.prn for c in r.channels])
+            for r in built[0].rx] == [(1, 2, [SBAS_PRN]), (1, 10, [GPS_PRN]),
+                                      (2, 10, [GLO_FCN])]
     cfg = torch_config.load_ini(ini)
-    cfg.rinex = False
+    cfg.rinex, cfg.sbas = False, False
     fes = _frontends("torch", cfg)
     rx = DualReceiver(cfg, [fes[1], fes[2]], device="cpu")
     try:
         assert [(r.spec.ftype, [c.cfg.ctype for c in r.channels])
-                for r in rx.rx] == [(1, [CodeType.L1CA]),
+                for r in rx.rx] == [(1, [CodeType.L1CA, CodeType.L1SBAS]),
                                     (2, [CodeType.G1])]
+        assert rx.rx[0].fast is None and rx.rx[1].fast.L == 10
     finally:
         rx.close()
 
