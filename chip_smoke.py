@@ -8,7 +8,9 @@ Run from the root of a checkout on a machine with one CUDA card:
 Phases (each prints its own lines; any failure raises and exits nonzero):
 
 1. refuse to run without CUDA; print the card, torch and CUDA versions;
-2. build the correlator kernels (csrc/band_taps.cu, window_taps.cu,
+2. build the native host kernels (g++; the SBAS Viterbi, CRC-24Q and the
+   sample unpackers; the script fails if they do not build) and the
+   correlator kernels (csrc/band_taps.cu, window_taps.cu,
    gram_taps.cu, ablation_taps.cu), one nvcc each, all in parallel, and
    print ptxas's registers and spills of the 13-tap instantiations (both
    entry points of K1-K6; K2's banded Gram at the 7 n-tiles of 13 taps
@@ -76,12 +78,27 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    within its code period), G and R nav records, CRC-valid RTCM
    1019/1020/1077/1087 and NovAtel RAWSBASFRAME frames; every group's K1
    launches counted through its graph replays (the I/Q group's on a line
-   of their own).
+   of their own), and the SBAS group's steady wall with the native
+   decoder beside the pure-Python decoder's recorded wall;
+12. the live receiver: (a) phase 6's capture streamed at 1x real time by
+   a pacer process through ``ProcessFrontend`` into ``Receiver.run_live``
+   (32 channels, 400-step blocks through the graphs): no overrun, and the
+   same events and epochs, bit for bit, as phase 6's file replay; the
+   largest lag behind the producer; (b) the CLI with ``TYPE=RTLSDR`` on
+   the repo's mock librtlsdr (built with gcc) streaming a 2.046 Msps I/Q
+   capture in real time: 32 channels, every visible PRN acquired, locked
+   and tracked through K1's I/Q kernel; (c) the block's edges: two
+   channels started at the edges of the fixed block (one code period
+   before the nominal cursor, nominal rebase) with +/-4 kHz of code
+   Doppler, which that design loses
+   within a few blocks, tracked by the receiver's replayed graphs to the
+   end of the capture with every window inside its block.
 
-Phases 5-11 each print the graph captures they made (count, seconds
+Phases 5-12 each print the graph captures they made (count, seconds
 recording and instantiating, pool memory), and a line before the kernels
-line totals them.  The band_taps row's launches are phase 6's and phase
-11's (the main paths).  The last two lines are a JSON object describing
+line totals them.  The band_taps row's launches are those of phases 6,
+11, 12a and 12b (the main paths: file replay, multi-GNSS, and the live
+entry point, real and I/Q).  The last two lines are a JSON object describing
 the kernels and the ``{"ok": true, "device": {...}}`` line.  This script
 imports no JAX.
 """
@@ -137,6 +154,47 @@ MG_G1_FCNS = tuple(range(-7, 7))
 # visible FDMA number -> (slot in string 4, delay in samples, Doppler)
 MG_G1 = {-5: (3, 3000, -1400.0), 1: (13, 8000, 2100.0),
          4: (20, 12500, 600.0)}
+# phase 12, the live receiver.  (a) phase 6's capture paced at LIVE_RATE x
+# real time by a capture process; (b) the CLI with TYPE=RTLSDR on the
+# repo's mock librtlsdr (tools/mock_rtlsdr.c), streaming a 2.046 Msps I/Q
+# capture of the slice's satellites in the dongle's u8 format in real time
+# (RTL_SECONDS long, the run stopped at RTL_RUN s); (c) two channels
+# started at the edges of the fixed block (EDGE samples inside it) with
+# +/-4 kHz of code Doppler (the signal's receiver-convention Doppler D:
+# PRN 7's code runs fast, PRN 13's slow), from EDGE_B0 on
+LIVE_RATE = 1.0
+RTL_SF = 2.046e6
+RTL_SECONDS = 12.0
+RTL_RUN = 10.0
+RTL_CORR = (4, 2, 2)    # 9 taps 2 samples (1 chip) apart at 2.046 Msps
+RTL_TRUTH = {prn: (d // 8, dop) for prn, (d, dop) in TRUTH.items()}
+EDGE_SECONDS = 4.8
+EDGE_DOPPLER = {7: -4000.0, 13: 4000.0}
+EDGE_NSTEPS = 400
+EDGE_B0 = 2 * EDGE_NSTEPS * 16368
+EDGE = 3
+# the pacer: replays a capture on stdout at ``rate`` x real time (against
+# the wall clock, at most one 256 KB chunk ahead) once the file ``go``
+# exists, so the receiver is built before the stream starts
+PACER = """\
+import os, sys, time
+path, bps, rate, go = sys.argv[1], int(sys.argv[2]), float(sys.argv[3]), \\
+    sys.argv[4]
+while not os.path.exists(go):
+    time.sleep(0.005)
+out, sent, t0 = sys.stdout.buffer, 0, time.monotonic()
+with open(path, "rb") as f:
+    while True:
+        d = f.read(1 << 18)
+        if not d:
+            break
+        out.write(d)
+        out.flush()
+        sent += len(d)
+        ahead = t0 + sent / bps / rate - time.monotonic()
+        if ahead > 0:
+            time.sleep(ahead)
+"""
 
 
 def log(msg: str) -> None:
@@ -246,6 +304,30 @@ def _synth_chunk(args):
     from gnsslib_tpu_torch import sim
     from gnsslib_tpu_torch.constants import DType
     pad = np.concatenate([np.tile([1, -1], 149), [1, 1]]).astype(np.int8)
+    if kind == "edge":
+        # truth: PRN -> (the sample where a code period starts, Doppler)
+        chans = []
+        for prn, (start, dop) in truth.items():
+            rate = 1.023e6 * (1.0 - dop / 1.57542e9)
+            chans.append(sim.SimChannel(
+                prn=prn, doppler=dop, carr_phase=0.1 * prn,
+                code_phase=float(np.mod(-rate * start / f_sf, 1023.0))))
+        noise = sim.noise_std_for_cn0(1.0, CN0, f_sf, DType.REAL)
+        x = sim.synthesize(chans, f_sf, f_if, DType.REAL, n, noise_std=noise,
+                           seed=6000 + t0, t0=t0)
+        return kind, sim.quantize_int8(x, QUANT).tobytes()
+    if kind == "rtl":
+        chans = [sim.SimChannel(
+            prn=prn, doppler=dop, code_phase=-d * 1.023e6 / f_sf,
+            carr_phase=0.1 * prn, nav_bits=np.concatenate(
+                [pad, sim.lnav_bit_stream(
+                    sim.example_eph(prn=prn, week=2200, toe_tow=TOW0),
+                    TOW0 + 6.0, nframes=1)]))
+            for prn, (d, dop) in truth.items()]
+        noise = sim.noise_std_for_cn0(1.0, CN0, f_sf, DType.IQ)
+        x = sim.synthesize(chans, f_sf, f_if, DType.IQ, n, noise_std=noise,
+                           seed=5000 + t0, t0=t0)
+        return kind, sim.quantize_rtlsdr(x, 8.0).tobytes()
     if kind == "pos":
         geo, ephs = pos_geometry()
         dark = POS_FADE[0] <= t0 / f_sf < POS_FADE[1]
@@ -349,20 +431,19 @@ def union_len(starts, lens) -> int:
 
 
 # --------------------------------------------------------------------- #
-def phase_kernel(dev, iq: bool):
-    """K1 at the 32-channel L1CA super-step's shapes: the cluster kernel
-    (through the wrapper and by launch) and the v1 kernel against the
-    plain version, two launches bit-identical, and warm and cold (beyond
-    L2) times of both.  Importable: after
-    ``cuda_build.build_all(("band_taps",))`` it is the kernel-only loop;
-    ``python -m gnsslib_tpu_torch.tools.profile_band`` times the cluster
-    kernel's build steps and cluster sizes."""
+def hold_k1(dev, iq: bool, tag: str, **geometry):
+    """K1 through the wrapper (one kernel launch, no v1 or plain) and by
+    launch of the cluster and v1 kernels, held against ``band_taps_plain``
+    at ``pb.tolerance``, each kernel's two launches bit-identical, on
+    :func:`profile_band.inputs` at ``geometry`` (phase 3's by default).
+    Returns (trk, host, args, plain taps, tolerance, {launch: max error},
+    {name: launch function})."""
     import torch
     from gnsslib_tpu_torch.ops import band_taps as bt
+    from gnsslib_tpu_torch.ops.kernels import progression
     from gnsslib_tpu_torch.tools import profile_band as pb
-    trk, host, args = pb.inputs(dev, iq)
-    block, rc, wstart, n, rem, ftot, act = host
-    B = rc.shape[0]
+    trk, host, args = pb.inputs(dev, iq, **geometry)
+    B = host[1].shape[0]
     offsets, smax = trk.offsets, trk.smax
     kind = "iq" if iq else "real"
     bt.COUNTS.reset()
@@ -370,23 +451,23 @@ def phase_kernel(dev, iq: bool):
     zp, okp = bt.band_taps_plain(*args, offsets, smax)
     torch.cuda.synchronize()
     if (bt.COUNTS.kernel, bt.COUNTS.v1, bt.COUNTS.plain) != (1, 0, 0):
-        raise AssertionError(f"band_taps ({kind}) wrapper: launches "
+        raise AssertionError(f"[{tag}] band_taps ({kind}) wrapper: launches "
                              f"{bt.COUNTS.kernel}, v1 {bt.COUNTS.v1}, plain "
                              f"{bt.COUNTS.plain}")
     tol = pb.tolerance(host, trk.nwin)       # 1e-5 of the window L1 norm
     # the launches compared: the cluster kernel and the v1 kernel
     runs = {"kernel": bt.launch, "v1": bt.launch_v1}
 
-    def once(fn, inputs):
+    def once(fn):
         z = torch.empty_like(zp)
         ok = torch.ones(1, dtype=torch.int32, device=dev)
-        fn(*inputs, offsets, smax, z, ok)
+        fn(*args, offsets, smax, z, ok)
         return z, ok
 
     errs = {"wrapper": float((zk - zp).abs().max())}
     bad = [] if bool(okk) and bool(okp) else ["ok flags"]
     for name, fn in runs.items():
-        z, ok = once(fn, args)
+        z, ok = once(fn)
         torch.cuda.synchronize()
         errs[name] = float((z - zp).abs().max())
         if not bool(ok[0]):
@@ -394,17 +475,37 @@ def phase_kernel(dev, iq: bool):
     bad += [f"{k} {e}" for k, e in errs.items() if not e <= tol]
     # determinism: two launches of each kernel agree bit for bit
     for name in ("kernel", "v1"):
-        z1, _ = once(runs[name], args)
-        z2, _ = once(runs[name], args)
+        z1, _ = once(runs[name])
+        z2, _ = once(runs[name])
         if not torch.equal(z1.view(torch.int32), z2.view(torch.int32)):
             bad.append(f"{name} repeat launches differ")
-    log(f"[3] band_taps {kind:4s} B={B} nwin={trk.nwin} next={trk.next} "
-        f"taps={len(offsets)}: max_abs_err "
+    log(f"[{tag}] band_taps {kind:4s} B={B} nwin={trk.nwin} next={trk.next} "
+        f"taps={len(offsets)} d={progression(tuple(map(int, offsets)))} "
+        f"at {trk.f_sf / 1e6:.3f} Msps: max_abs_err "
         + ", ".join(f"{k} {e:.4g}" for k, e in errs.items())
         + f" (tol {tol:.4g}, max|taps| {float(zp.abs().max()):.4g}); "
         f"repeat launches bit-identical: {'no' if bad else 'yes'}")
     if bad:
-        raise AssertionError(f"band_taps ({kind}) vs plain: {bad}")
+        raise AssertionError(f"[{tag}] band_taps ({kind}) vs plain: {bad}")
+    return trk, host, args, zp, tol, errs, runs
+
+
+def phase_kernel(dev, iq: bool):
+    """K1 at the 32-channel L1CA super-step's shapes: the cluster kernel
+    (through the wrapper and by launch) and the v1 kernel against the
+    plain version, two launches bit-identical (:func:`hold_k1`), and warm
+    and cold (beyond L2) times of both.  Importable: after
+    ``cuda_build.build_all(("band_taps",))`` it is the kernel-only loop;
+    ``python -m gnsslib_tpu_torch.tools.profile_band`` times the cluster
+    kernel's build steps and cluster sizes."""
+    import torch
+    from gnsslib_tpu_torch.ops import band_taps as bt
+    from gnsslib_tpu_torch.tools import profile_band as pb
+    trk, host, args, zp, _, errs, runs = hold_k1(dev, iq, "3")
+    block, rc, wstart, n, rem, ftot, act = host
+    B = rc.shape[0]
+    offsets, smax = trk.offsets, trk.smax
+    kind = "iq" if iq else "real"
 
     out = torch.empty_like(zp)
     ok = torch.ones(1, dtype=torch.int32, device=dev)
@@ -819,20 +920,26 @@ def phase_ablation_kernel(dev) -> dict:
     return res
 
 
-def phase_synth(paths: dict) -> float:
-    """Every capture ({"slice", "pos", "fe1", "fe2": path}, the last two
-    phase 11's front ends), 1 s chunks of each in one spawn pool."""
+def phase_synth(paths: dict, edge_starts: dict = None) -> float:
+    """Every capture ({"slice", "pos", "fe1", "fe2", "rtl", "edge": path},
+    "fe1"/"fe2" phase 11's front ends, "rtl" and "edge" phase 12's; the
+    edge capture's channels start periods at ``edge_starts``), 1 s chunks
+    of each in one spawn pool."""
     import multiprocessing as mp
-    step = int(F_SF)
     chunks = []
-    for kind, seconds, f_if, truth in (
-            ("slice", SECONDS, F_IF, TRUTH), ("pos", POS_SECONDS, F_IF, TRUTH),
-            ("fe1", MG_SECONDS, F_IF, multi_truth()),
-            ("fe2", MG_SECONDS, 0.0, multi_truth())):
+    edge = {p: (edge_starts[p], d) for p, d in EDGE_DOPPLER.items()} \
+        if edge_starts else None
+    for kind, seconds, f_sf, f_if, truth in (
+            ("slice", SECONDS, F_SF, F_IF, TRUTH),
+            ("pos", POS_SECONDS, F_SF, F_IF, TRUTH),
+            ("fe1", MG_SECONDS, F_SF, F_IF, multi_truth()),
+            ("fe2", MG_SECONDS, F_SF, 0.0, multi_truth()),
+            ("rtl", RTL_SECONDS, RTL_SF, 0.0, RTL_TRUTH),
+            ("edge", EDGE_SECONDS, F_SF, F_IF, edge)):
         if kind not in paths:
             continue
-        n = int(seconds * F_SF)
-        chunks += [(kind, t0, min(step, n - t0), F_SF, f_if, truth)
+        n, step = int(seconds * f_sf), int(f_sf)
+        chunks += [(kind, t0, min(step, n - t0), f_sf, f_if, truth)
                    for t0 in range(0, n, step)]
     t0 = time.time()
     ctx = mp.get_context("spawn")
@@ -848,7 +955,10 @@ def phase_synth(paths: dict) -> float:
     log(f"[4] synthesized {SECONDS:.0f} s x {len(TRUTH)} PRNs, "
         f"{POS_SECONDS:.0f} s x {len(pos_geometry()[0])} PRNs and phase 11's "
         f"{MG_SECONDS:.0f} s x ({len(TRUTH)} GPS + {len(MG_SBAS)} SBAS real, "
-        f"{len(MG_G1)} G1 I/Q) at {F_SF/1e6:.3f} Msps in {dt:.1f} s -> "
+        f"{len(MG_G1)} G1 I/Q) at {F_SF/1e6:.3f} Msps, and phase 12's "
+        f"{RTL_SECONDS:.0f} s x {len(RTL_TRUTH)} PRNs I/Q at "
+        f"{RTL_SF/1e6:.3f} Msps (RTL-SDR u8) and {EDGE_SECONDS:.1f} s x "
+        f"{len(EDGE_DOPPLER)} PRNs at the block's edges in {dt:.1f} s -> "
         f"{paths}")
     return dt
 
@@ -1106,9 +1216,24 @@ def _receiver_programs(tag: str, rx, launches: int) -> list:
     return counted
 
 
-def phase_slice(dev, capture: str) -> int:
+def _record(rx) -> list:
+    """The epochs ``rx``'s hub emits, as (prn, tow, P, L, D, S) tuples
+    (appended as the run emits them)."""
+    epochs = []
+    emit = rx.hub.emit_epochs
+
+    def record(inputs):
+        out = emit(inputs)
+        epochs.extend([(o.prn, o.tow, o.P, o.L, o.D, o.S) for o in e]
+                      for e in out)
+        return out
+    rx.hub.emit_epochs = record
+    return epochs
+
+
+def phase_slice(dev, capture: str) -> tuple:
     """The receiver's main path from an INI file; returns the kernel's
-    launch count during the run."""
+    launch count during the run, and the run's events and epochs."""
     import shutil
     from gnsslib_tpu_torch.constants import CLIGHT, PTIMING
     from gnsslib_tpu_torch.gtime import epoch2time, time2gpst
@@ -1126,6 +1251,7 @@ def phase_slice(dev, capture: str) -> int:
     log(f"[6] receiver built in {time.time() - t0:.2f} s (with its block "
         f"programs' warm-ups and captures)")
     captures = CAPTURES.captures
+    epochs = _record(rx)
     bt.COUNTS.reset()
     t0 = time.time()
     stats = rx.run_seconds()
@@ -1200,7 +1326,7 @@ def phase_slice(dev, capture: str) -> int:
                                  f"{got - expect:.1f} m")
     log(f"[6] RINEX: {len(heads)} obs epochs, {rx.ephs_written} nav records "
         f"({rx.obs_writer.path})")
-    return launches
+    return launches, rx.events, epochs
 
 
 def phase_throughput(dev) -> dict:
@@ -1273,6 +1399,24 @@ def phase_throughput(dev) -> dict:
             best[mode] = max(best.get(mode, 0.0), msps)
             log(f"[7] pass {p + 1} {mode:8s}: {wall * 1e3:.1f} ms per "
                 f"2000-step block -> {msps:.1f} Msamples/s")
+    # the receiver's block at these 2000 steps, at the fixed block's
+    # length (one period before the cursor) and at the length that
+    # follows the channels: its cut from the device cache (int8 -> f32)
+    # and the copy into the program's static block, by CUDA events
+    from gnsslib_tpu_torch.runtime.receiver import block_geometry
+    geo = block_geometry(nsteps, nsamp, trk.nwin)
+    lens = {"fixed": geo["block_len"] + nsamp, "now": geo["span"]}
+    src = torch.randint(-64, 64, (max(lens.values()),), generator=gen,
+                        device=dev).to(torch.int8)
+    dst = torch.empty(max(lens.values()), dtype=torch.float32, device=dev)
+    cost = {k: cuda_ms(lambda n=n: dst[:n].copy_(src[:n].to(torch.float32)),
+                       20) for k, n in lens.items()}
+    per_block = nsteps * nsamp / 1e6 / best["replayed"] * 1e3
+    log(f"[7] a receiver block's cut and copy at 2000 steps: fixed "
+        f"{lens['fixed']} samples {cost['fixed']:.4f} ms, now {lens['now']} "
+        f"samples {cost['now']:.4f} ms (+{cost['now'] - cost['fixed']:.4f} "
+        f"ms, {100 * (cost['now'] - cost['fixed']) / per_block:.3f}% of a "
+        f"replayed block's {per_block:.1f} ms)")
     log(f"[7] steady-state throughput, bench.py workload (32 ch, 2000-step "
         f"blocks, subset search per block, depth 2), best of {passes} "
         f"passes: replayed {best['replayed']:.1f} Msamples/s = "
@@ -1719,6 +1863,11 @@ def phase_multi(dev, fe1: str, fe2: str, gps=range(1, 33),
     for g in groups:
         log(f"[11]   group FE{g.spec.ftype} L={g.fast.L}: wall by phase "
             + ", ".join(f"{k} {v:.2f} s" for k, v in g.stage_wall.items()))
+    sbas_g = next(g for g in groups if g.fast.L == 2)
+    log(f"[11] with the native SBAS decoder: the SBAS group's steady wall "
+        f"{sbas_g.stage_wall['steady']:.2f} s (with the "
+        f"pure-Python Viterbi: 20.13 s), the phase's CLI wall {wall:.1f} s "
+        f"(then 39.3 s; NVIDIA H100 80GB HBM3, 700 W)")
     log(f"[11] band_taps launches {launches}, v1 launches {v1}, plain calls "
         f"{plain}; {rx.epochs_written} epochs, {rx.ephs_written} nav "
         f"records")
@@ -1807,6 +1956,330 @@ def phase_multi(dev, fe1: str, fe2: str, gps=range(1, 33),
     return launches, iq
 
 
+def phase_live(dev, capture: str, ref_events, ref_epochs) -> int:
+    """Phase 12 (a): the slice's capture streamed live at LIVE_RATE x real
+    time by a pacer process through ``ProcessFrontend`` into
+    ``Receiver.run_live`` (32 channels, 400-step blocks replayed from the
+    graphs), held bit for bit against phase 6's file replay of the same
+    bytes (events and epochs).  Returns K1's launches during the run."""
+    import shutil
+    from gnsslib_tpu_torch.io import ProcessFrontend
+    from gnsslib_tpu_torch.io.devcache import LiveBlockCache
+    from gnsslib_tpu_torch.ops import band_taps as bt
+    from gnsslib_tpu_torch.runtime.config import load_ini
+    from gnsslib_tpu_torch.runtime.receiver import Receiver
+    from gnsslib_tpu_torch.track.program import CAPTURES
+
+    shutil.rmtree(os.path.join(WORK, "live"), ignore_errors=True)
+    cfg = load_ini(_write_ini(capture, "live"))
+    cfg.rinex = False
+    pacer = os.path.join(WORK, "pacer.py")
+    with open(pacer, "w") as f:
+        f.write(PACER)
+    go = os.path.join(WORK, "pacer.go")
+    if os.path.exists(go):
+        os.unlink(go)
+    argv = [sys.executable, pacer, capture, str(int(F_SF)), str(LIVE_RATE),
+            go]
+    with ProcessFrontend(argv, cfg.fends[0], ring_bytes=256 << 20) as fe:
+        t0 = time.time()
+        rx = Receiver(cfg, fe, device=dev, nsteps_per_block=400)
+        if not isinstance(rx.cache, LiveBlockCache):
+            raise AssertionError(f"live cache {type(rx.cache)}")
+        log(f"[12a] receiver built in {time.time() - t0:.2f} s; block "
+            f"{rx.span} samples (origin {rx.lead} before the earliest "
+            f"channel, room {rx.room}), the pacer at {LIVE_RATE}x real time "
+            f"({F_SF / 1e6 * LIVE_RATE:.3f} MB/s through a pipe)")
+        epochs = _record(rx)
+        captures = CAPTURES.captures
+        bt.COUNTS.reset()
+        open(go, "w").close()
+        t0 = time.time()
+        stats = rx.run_live()
+        wall = time.time() - t0
+        launches, v1, plain = bt.COUNTS.kernel, bt.COUNTS.v1, bt.COUNTS.plain
+        rx.close()
+        overruns, produced = fe.overruns, fe.nsamples
+    if dev.type == "cuda":
+        _receiver_programs("12a", rx, launches)
+    sw = stats["stage_wall"]
+    log(f"[12a] live: {stats['seconds']:.1f} s of stream ({produced} samples "
+        f"produced) in {wall:.1f} s; wall by phase: acquire "
+        f"{sw['acquire']:.2f} s, pull-in {sw['pullin']:.2f} s, steady "
+        f"{sw['steady']:.2f} s; largest lag behind the producer "
+        f"{stats['lag']:.3f} s; overruns {overruns}; uploaded "
+        f"{rx.cache.uploaded_samples} samples once each")
+    log(f"[12a] locked {stats['locked']}, decoded {stats['decoded']}, "
+        f"{stats['epochs']} epochs; band_taps launches {launches}, v1 "
+        f"{v1}, plain {plain}")
+    if overruns or CAPTURES.captures != captures:
+        raise AssertionError(f"overruns {overruns}, captures during the run "
+                             f"{CAPTURES.captures - captures}")
+    if rx.events != ref_events:
+        raise AssertionError(f"live events differ from the file replay's: "
+                             f"{rx.events[:3]} vs {ref_events[:3]}")
+    if not epochs or epochs != ref_epochs:
+        bad = next((i for i, (a, b) in enumerate(zip(epochs, ref_epochs))
+                    if a != b), min(len(epochs), len(ref_epochs)))
+        raise AssertionError(f"live epochs ({len(epochs)}) differ from the "
+                             f"file replay's ({len(ref_epochs)}) at {bad}")
+    log(f"[12a] events ({len(ref_events)}) and epochs ({len(epochs)}, "
+        f"pseudoranges, phases, Dopplers, C/N0) equal phase 6's file replay "
+        f"bit for bit")
+    if launches <= 0 or v1 != 0 or plain != 0:
+        raise AssertionError(f"band_taps launches {launches}, v1 {v1}, "
+                             f"plain {plain}")
+    return launches
+
+
+def phase_live_rtlsdr(dev, capture: str) -> int:
+    """Phase 12 (b): the CLI with ``TYPE=RTLSDR`` on the mock librtlsdr
+    (built from tools/mock_rtlsdr.c with gcc), which streams ``capture``
+    (RTL-SDR u8 I/Q at RTL_SF) in real time through the in-process
+    binding; 32 L1CA channels.  Every visible PRN must be acquired,
+    locked, bit-synced and tracked through K1's I/Q kernel.  Returns K1's
+    launches during the run."""
+    import contextlib
+    import io
+    from gnsslib_tpu_torch.ops import band_taps as bt
+    from gnsslib_tpu_torch.runtime import cli
+
+    lib = os.path.join(WORK, "libmock_rtlsdr.so")
+    subprocess.run(["gcc", "-shared", "-fPIC", "-O2", "-o", lib,
+                    os.path.join(ROOT, "tools", "mock_rtlsdr.c")],
+                   check=True, capture_output=True)
+    fend = os.path.join(WORK, "rtl_fend.ini")
+    with open(fend, "w") as f:
+        f.write(f"""[FEND]
+TYPE     =RTLSDR
+CF1      =1575.42e6
+SF1      ={RTL_SF}
+IF1      =0.0
+DTYPE1   =2
+[TRACK]
+CORRN    ={RTL_CORR[0]}
+CORRD    ={RTL_CORR[1]}
+CORRP    ={RTL_CORR[2]}
+""")
+    ini = os.path.join(WORK, "rtl.ini")
+    ones = ",".join("1" for _ in range(32))
+    with open(ini, "w") as f:
+        f.write(f"""[RCV]
+FENDCONF ={fend}
+[CHANNEL]
+NCH      =32
+PRN      ={",".join(str(p) for p in range(1, 33))}
+SYS      ={ones}
+CTYPE    ={ones}
+FTYPE    ={ones}
+[OUTPUT]
+OUTMS    =400
+RINEX    =0
+""")
+    built = []
+    make = cli.build_receiver
+
+    def keep(*a, **kw):
+        built.append(make(*a, **kw))
+        bt.COUNTS.reset()          # the warm-ups while building launch K1
+        return built[-1]
+    env = {k: os.environ.get(k) for k in ("GNSSLIB_RTLSDR_LIB",
+                                          "MOCK_RTLSDR_FILE")}
+    os.environ.update(GNSSLIB_RTLSDR_LIB=lib, MOCK_RTLSDR_FILE=capture)
+    cli.build_receiver = keep
+    out = io.StringIO()
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = cli.main([ini, "--device", dev.type, "--seconds",
+                           str(RTL_RUN)])
+    finally:
+        cli.build_receiver = make
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    wall = time.time() - t0
+    launches, v1, plain = bt.COUNTS.kernel, bt.COUNTS.v1, bt.COUNTS.plain
+    text = out.getvalue()
+    if rc != 0 or not built or "live capture" not in text:
+        raise AssertionError(f"CLI exit {rc}: {text[-2000:]}")
+    rx = built[0]
+    if dev.type == "cuda":
+        _receiver_programs("12b", rx, launches)
+    done = next((ln for ln in text.splitlines() if ln.startswith("done:")),
+                "")
+    lag = next((ln for ln in text.splitlines() if ln.startswith("live:")),
+               "")
+    log(f"[12b] CLI TYPE=RTLSDR (mock librtlsdr, {RTL_SF / 1e6:.3f} Msps "
+        f"I/Q u8, real time): exit {rc}, wall {wall:.1f} s; {done}; {lag}; "
+        f"band_taps launches (I/Q) {launches}, v1 {v1}, plain {plain}")
+    by_prn = {ch.cfg.prn: ch for ch in rx.channels}
+    nn = rx.nsamp
+    for prn, (d, dop) in RTL_TRUTH.items():
+        ch = by_prn[prn]
+        derr = abs(ch.acq_codei - d)
+        derr = min(derr, nn - derr)
+        if not (ch.locked and ch.synced and derr <= 2
+                and abs(ch.acq_dcarr + dop) <= 200.0):
+            raise AssertionError(f"PRN {prn}: locked {ch.locked}, synced "
+                                 f"{ch.synced}, codei {ch.acq_codei} vs "
+                                 f"{d}, dcarr {ch.acq_dcarr} vs {-dop}")
+    false = [p for p, ch in by_prn.items() if ch.locked and p not in
+             RTL_TRUTH]
+    if false or "steady" not in rx.timeline:
+        raise AssertionError(f"absent PRNs acquired {false}; milestones "
+                             f"{rx.timeline}")
+    if launches <= 0 or v1 != 0 or plain != 0 or rx.spec.dtype != 2:
+        raise AssertionError(f"band_taps launches {launches}, v1 {v1}, "
+                             f"plain {plain}, dtype {rx.spec.dtype}")
+    log(f"[12b] visible PRNs {sorted(RTL_TRUTH)} acquired (code phase "
+        f"within 2 samples, Doppler within 200 Hz), locked and bit-synced; "
+        f"the steady state ran through K1's I/Q kernel")
+    # the instantiation this run launched (I/Q, 9 taps 2 samples apart,
+    # 2046-sample windows), held against the plain version at the run's
+    # super-step (its channels x the steady program's windows)
+    if dev.type == "cuda":
+        trk, _, _, _, _, errs, _ = hold_k1(
+            dev, True, "12b", corr=RTL_CORR, sf=RTL_SF, fif=0.0,
+            windows=rx.fast.L)
+        if (tuple(trk.offsets) != tuple(rx.trk.offsets)
+                or trk.nwin != rx.trk.nwin or len(rx.channels) != 32):
+            raise AssertionError(f"12b: held K1 at offsets {trk.offsets}, "
+                                 f"nwin {trk.nwin}; the run's "
+                                 f"{rx.trk.offsets}, {rx.trk.nwin}")
+        return launches, max(errs.values())
+    return launches, 0.0
+
+
+def edge_starts() -> dict:
+    """Phase 12 (c)'s channels: PRN -> the sample where its code period
+    starts at EDGE_B0, EDGE samples inside the fixed block's edges (the
+    block [base - nsamp, base + block_len) of the tracking geometry at
+    EDGE_NSTEPS periods): PRN 7 after its first sample, PRN 13 before the
+    latest start whose windows (``smax`` samples after their period
+    start) fit in its tail over the first block's periods."""
+    from gnsslib_tpu_torch.constants import DType
+    from gnsslib_tpu_torch.runtime.receiver import block_geometry
+    from gnsslib_tpu_torch.track import TrackConfig, Tracker
+    trk = Tracker(TrackConfig(*CORR), [7], [1], F_SF, F_IF, DType.REAL,
+                  device="cpu")
+    nsamp = trk.n_nom
+    blen = block_geometry(EDGE_NSTEPS, nsamp, trk.nwin)["block_len"]
+    late = 1023.0 / (1.023e6 * (1.0 - EDGE_DOPPLER[13] / 1.57542e9)) * F_SF
+    return {7: EDGE_B0 - nsamp + EDGE,
+            13: EDGE_B0 + blen - int(np.ceil(EDGE_NSTEPS * late)) - trk.smax
+            - EDGE}
+
+
+def phase_edge(dev, capture: str, starts: dict) -> int:
+    """Phase 12 (c): the repaired block edge on the card.  First the fixed
+    block ([base - nsamp, base + block_len), the nominal rebase) must
+    lose each channel within a few blocks (the band correlator's flag
+    raises); then the receiver, with both channels started at those
+    edges, locked and bit-synced, runs its replayed
+    steady graphs to the end of the capture, far past that block, with
+    every window inside its block and K1 flagging none.  Returns K1's
+    launches in the receiver's run."""
+    import torch
+    from gnsslib_tpu_torch.constants import DType, FrontendType
+    from gnsslib_tpu_torch.io.frontend import FileFrontend, FrontendSpec
+    from gnsslib_tpu_torch.ops import band_taps as bt
+    from gnsslib_tpu_torch.runtime.config import (ChannelConfig,
+                                                  ReceiverConfig)
+    from gnsslib_tpu_torch.runtime.receiver import Receiver, block_geometry
+    from gnsslib_tpu_torch.track import FastTracker, TrackConfig, Tracker
+
+    spec = FrontendSpec(fend=FrontendType.FILE, f_cf=1.57542e9, f_sf=F_SF,
+                        f_if=F_IF, dtype=DType.REAL)
+    raised = {}
+    for prn, dop in EDGE_DOPPLER.items():
+        fe = FileFrontend(capture, spec)
+        trk = Tracker(TrackConfig(*CORR), [prn], [1], F_SF, F_IF,
+                      DType.REAL, device=dev)
+        fast = FastTracker(trk)
+        nsamp = trk.n_nom
+        blen = block_geometry(EDGE_NSTEPS, nsamp, trk.nwin)["block_len"]
+        base = EDGE_B0
+        st = trk.start_channels(trk.init_state(), [0],
+                                [starts[prn] - (base - nsamp)], [-dop])
+        st = trk.set_bit_sync(st, 0, 0)
+        for k in range(8):
+            block = torch.from_numpy(np.ascontiguousarray(
+                fe.read(base - nsamp, blen + nsamp))).to(dev)
+            try:
+                st, _ = fast.run_block(st, block, EDGE_NSTEPS)
+            except RuntimeError as e:
+                if "outside the sample block" not in str(e):
+                    raise
+                raised[prn] = k
+                break
+            st = trk.rebase(st, EDGE_NSTEPS * nsamp)
+            base += EDGE_NSTEPS * nsamp
+        fe.close()
+    log(f"[12c] the fixed block (nominal rebase) raised at block "
+        f"{raised} (PRN: block index; 7 +4 kHz of code Doppler at its head, "
+        f"13 -4 kHz at its tail)")
+    if sorted(raised) != sorted(EDGE_DOPPLER):
+        raise AssertionError(f"the fixed block did not raise: {raised}")
+
+    cfg = ReceiverConfig(channels=[ChannelConfig(prn=p)
+                                   for p in EDGE_DOPPLER],
+                         fends=[spec], files=[capture],
+                         track=TrackConfig(*CORR), outms=400, rinex=False)
+    fe = FileFrontend(capture, spec)
+    rx = Receiver(cfg, fe, device=dev, nsteps_per_block=EDGE_NSTEPS)
+    rx.base, rx.origin = EDGE_B0, EDGE_B0 - rx.lead
+    for ch in rx.channels:
+        dop = EDGE_DOPPLER[ch.cfg.prn]
+        period = 1023.0 / (1.023e6 * (1.0 - dop / 1.57542e9)) * F_SF
+        rx._start(ch.idx, starts[ch.cfg.prn] - EDGE_B0, -dop, period)
+        rx.state = rx.trk.set_bit_sync(rx.state, ch.idx, 0)
+        ch.locked = ch.synced = True
+    blocks = []
+    feed = rx._feed_nav_and_obs
+
+    def record(out, cnt0, base, origin, locked0):
+        starts_ = origin + out.loc.astype(np.int64)
+        blocks.append((base, origin, int(starts_.min()),
+                       int((starts_ + out.n).max()),
+                       starts_[:, 0].min() < base - rx.nsamp,
+                       (starts_[:, 1] + out.n[:, 1]).max()
+                       > base + rx.block_len))
+        feed(out, cnt0, base, origin, locked0)
+    rx._feed_nav_and_obs = record
+    bt.COUNTS.reset()
+    stats = rx.run_seconds()
+    launches, v1, plain = bt.COUNTS.kernel, bt.COUNTS.v1, bt.COUNTS.plain
+    rx.close()
+    fe.close()
+    replays = sum(p.replays for p in rx.fast.programs.values())
+    inside = all(o <= lo and hi <= o + rx.span
+                 for _, o, lo, hi, *_ in blocks)
+    early = sum(b[4] for b in blocks)
+    late = sum(b[5] for b in blocks)
+    drift = (blocks[-1][1] - blocks[1][1]
+             - (len(blocks) - 2) * EDGE_NSTEPS * rx.nsamp)
+    log(f"[12c] receiver: {len(blocks)} blocks of {EDGE_NSTEPS} periods "
+        f"from {EDGE_B0 / F_SF:.1f} s, all through the replayed steady "
+        f"graph ({replays} replays); windows inside their blocks: {inside}; "
+        f"blocks with the early channel before the fixed block's first "
+        f"sample {early}, with the late one past its tail {late}; from the "
+        f"second block on the origin moved {drift:+d} samples against the "
+        f"nominal cursor; band_taps launches "
+        f"{launches}, v1 {v1}, plain {plain}; no out-of-band window")
+    if (len(blocks) < max(raised.values()) + 3 or not inside or not early
+            or not late or stats["locked"] != list(EDGE_DOPPLER)):
+        raise AssertionError(f"edge run: {len(blocks)} blocks, inside "
+                             f"{inside}, early {early}, late {late}, "
+                             f"locked {stats['locked']}")
+    if launches <= 0 or v1 != 0 or plain != 0 or replays != len(blocks):
+        raise AssertionError(f"band_taps launches {launches}, v1 {v1}, "
+                             f"plain {plain}, replays {replays}")
+    return launches
+
+
 def with_graphs(tag: str, phase, *args):
     """Run ``phase(*args)`` and log the block-program captures it made."""
     from gnsslib_tpu_torch.track.program import CAPTURES
@@ -1827,7 +2300,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     import gnsslib_tpu_torch  # noqa: F401  (fails outside a checkout)
-    from gnsslib_tpu_torch import cuda_build
+    from gnsslib_tpu_torch import cuda_build, native
     from gnsslib_tpu_torch.ops import band_taps as bt
     from gnsslib_tpu_torch.track.program import CAPTURES
 
@@ -1839,6 +2312,12 @@ def main() -> int:
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
 
+    t0 = time.time()
+    if not native.available():
+        raise RuntimeError("the native host kernels did not build (g++ on "
+                           f"{native.SOURCE})")
+    log(f"[2] native host kernels (SBAS Viterbi, CRC-24Q, unpackers) built "
+        f"by g++ in {time.time() - t0:.1f} s: {native.library_path()}")
     t0 = time.time()
     cuda_build.build_all(KERNELS)
     bt.load_kernel()
@@ -1908,13 +2387,16 @@ def main() -> int:
 
     os.makedirs(WORK, exist_ok=True)
     paths = {k: os.path.join(WORK, f"capture_{k}_int8.bin")
-             for k in ("slice", "pos", "fe1", "fe2")}
+             for k in ("slice", "pos", "fe1", "fe2", "rtl", "edge")}
     capture, capture_pos = paths["slice"], paths["pos"]
-    phase_synth(paths)
+    starts = edge_starts()
+    phase_synth(paths, starts)
     CAPTURES.reset()
     with_graphs("5", phase_fast_vs_cpu, dev, capture, paths["fe1"],
                 paths["fe2"])
-    launches = {"band_taps": with_graphs("6", phase_slice, dev, capture)}
+    slice_k1, ref_events, ref_epochs = with_graphs("6", phase_slice, dev,
+                                                   capture)
+    launches = {"band_taps": slice_k1}
     with_graphs("7", phase_throughput, dev)
     prof = with_graphs("8", phase_profiler, dev)
     launches.update({n: prof[n] for n in prof if n != "band_taps"})
@@ -1928,7 +2410,18 @@ def main() -> int:
         f"{launches['band_taps']}, multi-GNSS (phase 11) {multi}, of which "
         f"I/Q {multi_iq}")
     launches["band_taps"] += multi
-    log(f"[graphs] phases 5-11: {CAPTURES.captures} block-program captures "
+    # the live entry point: the pacer (real K1) and the RTL-SDR CLI (I/Q
+    # K1) join the band_taps row; the edge check is not a main path
+    live = with_graphs("12a", phase_live, dev, capture, ref_events,
+                       ref_epochs)
+    live_iq, err_iq = with_graphs("12b", phase_live_rtlsdr, dev,
+                                  paths["rtl"])
+    k["band_taps"].append({"err": err_iq})
+    edge = with_graphs("12c", phase_edge, dev, paths["edge"], starts)
+    log(f"[12] band_taps launches on the live paths: pacer (12a) {live}, "
+        f"RTL-SDR I/Q (12b) {live_iq}; the edge check (12c) {edge}")
+    launches["band_taps"] += live + live_iq
+    log(f"[graphs] phases 5-12: {CAPTURES.captures} block-program captures "
         f"(the CLI runs' included), {CAPTURES.capture_s:.2f} s recording, "
         f"{CAPTURES.instantiate_s:.2f} s instantiating, pools "
         f"{CAPTURES.pool_bytes / 1e6:.1f} MB reserved in all; device memory "

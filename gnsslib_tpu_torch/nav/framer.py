@@ -23,6 +23,7 @@ import dataclasses
 
 import numpy as np
 
+from .. import native
 from ..constants import (CodeType, NAVSYNCTH, NAVRATE_L1CA, NAVFLEN_L1CA,
                          NAVADDFLEN_L1CA, NAVPRELEN_L1CA, NAVEPHCNT_L1CA,
                          NAVRATE_SBAS, NAVFLEN_SBAS, NAVADDFLEN_SBAS,
@@ -34,7 +35,6 @@ from .eph import SdrEph
 from .glonass import TIMEMARK_G1, decode_g1_symbols
 from .lnav import PREAMBLE_L1CA, decode_frame_l1ca, paritycheck_l1ca
 from .sbas import PREAMBLE_SBAS, SbasMsg, check_crc_sbas, decode_l1sbas_bits
-from .viterbi import viterbi27_decode
 
 
 @dataclasses.dataclass(frozen=True)
@@ -253,14 +253,13 @@ class NavChannel:
     # ------------------------------------------------------------------ #
     def _predecodefec(self) -> None:
         """FEC predecode (src/sdrnav.c:288-318): L1CA/G1 pass through; SBAS
-        runs the K=7 r=1/2 Viterbi over the symbol buffer (the pure-Python
-        decoder of nav/viterbi.py; it gives the native decoder's bits)."""
+        runs the K=7 r=1/2 Viterbi over the symbol buffer."""
         p = self.p
         if self.ctype in (CodeType.L1CA, CodeType.G1):
             self.fbitsdec = self.fbits.copy()
             return
         sym = np.where(self.fbits == 1, 0, 255).astype(np.uint8)
-        bits = viterbi27_decode(sym, p.flen // 2)
+        bits = native.viterbi27_decode(sym, p.flen // 2)
         dec = (1 - 2 * bits.astype(np.int64))
         self.fbitsdec = np.zeros_like(self.fbits)
         self.fbitsdec[:p.flen // 2] = dec

@@ -1,4 +1,5 @@
-"""Command line of the port — file replay on a CUDA card (or the CPU).
+"""Command line of the port — file replay and live capture on a CUDA card
+(or the CPU).
 
 Usage:
     python -m gnsslib_tpu_torch <config.ini> [--device {cuda,cpu}]
@@ -9,7 +10,13 @@ Every RF path with configured channels is processed (``--ftype`` picks
 one): one file front end per path (``TYPE=FILE`` with ``FILE1``/``FILE2``,
 or a packed two-path format such as ``FILESTEREO`` whose paths both read
 ``FILE1``), and the channels grouped by path and loop cadence
-(:func:`~.receiver.build_receiver`).
+(:func:`~.receiver.build_receiver`).  A live FEND type (``TYPE=RTLSDR``,
+``BLADERF``, ``GN3SV2``, ``GN3SV3`` or ``STEREO``) opens the in-process
+driver binding of :mod:`..io` instead, its vendor library located through
+``GNSSLIB_RTLSDR_LIB``, ``GNSSLIB_BLADERF_LIB``, ``GNSSLIB_GN3S_LIB`` or
+``GNSSLIB_STEREO_LIB`` (then the system's library paths), and the run
+streams through ``run_live`` until the stream ends, ``--seconds`` or a
+stop; a binding that fails to load ends the run with exit code 1.
 
 ``--device cuda`` (the default) requires a CUDA card and never falls back
 to the CPU.  SIGINT, SIGTERM and 'q' on a terminal stop the run at the
@@ -28,14 +35,36 @@ import threading
 
 import torch
 
+from ..constants import FrontendType as FT
 from ..io.frontend import FileFrontend
 from ..obs.spp import ecef2llh
-from .config import load_ini
+from .config import LIVE_FENDS, load_ini
 from .receiver import build_receiver
 
 # flags of `python -m gnsslib_tpu` that the port does not carry yet
 UNPORTED_FLAGS = ("--devices", "--spec", "--watch", "--watch-html",
                   "--profile")
+
+
+def _make_live_frontend(spec, built: list):
+    """The in-process driver of a live FEND type (the reference's rcvinit
+    dispatch, src/sdrrcv.c:20-90).  The STEREO second RF path is a view
+    over FE1's byte stream (both paths are packed in one byte,
+    src/rcv/stereo/stereo.c:160-205)."""
+    if spec.fend == FT.STEREO:
+        from ..io.stereo import StereoFrontend
+        for fe in built:                     # FE2 rides FE1's ring
+            if isinstance(fe, StereoFrontend):
+                return fe.fe2(spec)
+        return StereoFrontend(spec)
+    if spec.fend == FT.RTLSDR:
+        from ..io.rtlsdr import RtlSdrFrontend
+        return RtlSdrFrontend(spec)
+    if spec.fend == FT.BLADERF:
+        from ..io.bladerf import BladeRfFrontend
+        return BladeRfFrontend(spec)
+    from ..io.gn3s import Gn3sFrontend
+    return Gn3sFrontend(spec)
 
 
 def _install_stop_handlers(rx, quiet: bool):
@@ -149,22 +178,37 @@ def main(argv=None) -> int:
     ch_ftypes = sorted({c.ftype for c in cfg.channels
                         if c.ftype <= len(cfg.fends)})
     use_ftypes = ([args.ftype] if args.ftype else ch_ftypes) or [1]
-    paths = {}
+    fes = {}
+
+    def close_all():
+        for f in fes.values():
+            if hasattr(f, "close"):       # a STEREO FE2 view has none
+                f.close()
     for ft in use_ftypes:
+        spec_ft = cfg.fends[ft - 1]
+        if spec_ft.fend in LIVE_FENDS:
+            try:
+                fes[ft] = _make_live_frontend(spec_ft, list(fes.values()))
+            except OSError as e:
+                close_all()
+                print(f"error: live front end: {e}", file=sys.stderr)
+                return 1
+            continue
         path = cfg.files[ft - 1] if len(cfg.files) >= ft else ""
         # a packed two-path format carries both RF paths in FILE1
-        paths[ft] = path or (cfg.files[0] if cfg.files else "")
-        if not paths[ft]:
+        path = path or (cfg.files[0] if cfg.files else "")
+        if not path:
+            close_all()
             print("error: no IF file configured (FILE1/FILE2)",
                   file=sys.stderr)
             return 1
-    fes = {ft: FileFrontend(p, cfg.fends[ft - 1]) for ft, p in paths.items()}
+        fes[ft] = FileFrontend(path, spec_ft)
+    live = any(getattr(f, "is_live", False) for f in fes.values())
     try:
         rx = build_receiver(cfg, fes, device=device,
                             nsteps_per_block=args.nsteps)
     except BaseException:
-        for fe in fes.values():
-            fe.close()
+        close_all()
         raise
     if args.resume:
         rx.load_checkpoint(args.resume)
@@ -186,15 +230,17 @@ def main(argv=None) -> int:
                   f"{len(fes)} RF path(s) on "
                   f"{device}, f_sf={spec.f_sf/1e6:.3f} MHz, "
                   f"f_if={spec.f_if/1e6:.3f} MHz, "
-                  f"{fe.nsamples/spec.f_sf:.1f} s of IF data", flush=True)
-        stats = rx.run_seconds(args.seconds, progress=progress)
+                  + ("live capture" if live else
+                     f"{fe.nsamples/spec.f_sf:.1f} s of IF data"),
+                  flush=True)
+        runner = rx.run_live if live else rx.run_seconds
+        stats = runner(args.seconds, progress=progress)
         if args.checkpoint:
             rx.save_checkpoint(args.checkpoint)
     finally:
         restore()
         rx.close()
-        for f in fes.values():
-            f.close()
+        close_all()
     if not args.quiet:
         print()
         for ev in rx.events:
@@ -206,6 +252,9 @@ def main(argv=None) -> int:
               f"steady {sw['steady']:.1f} s; locked PRNs "
               f"{stats['locked']}, decoded {stats['decoded']}, "
               f"{stats['epochs']} obs epochs, {stats['ephs']} eph records")
+        if live:
+            print(f"live: largest lag behind the producer "
+                  f"{stats['lag']:.3f} s")
         if rx.obs_writer:
             print(f"rinex obs: {rx.obs_writer.path}")
             print(f"rinex nav: {rx.nav_writer.path}")

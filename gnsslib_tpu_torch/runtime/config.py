@@ -186,11 +186,9 @@ def load_ini(path: str) -> ReceiverConfig:
 
 
 def unported_options(cfg: ReceiverConfig) -> list[str]:
-    """Configured options outside the port's receiver (file-replay front
-    ends, one or two RF paths, real or I/Q sampling; GPS L1CA, GLONASS G1
-    and SBAS channels; RINEX, RTCM, SBAS, SPP and track log output; relock,
-    hot start and acquisition confirmation), by their INI names."""
-    out = ["SPEC"] if cfg.spec else []
-    if any(f.fend in LIVE_FENDS for f in cfg.fends):
-        out.append("live front end (FEND TYPE)")
-    return out
+    """Configured options outside the port's receiver (file-replay and
+    live front ends, one or two RF paths, real or I/Q sampling; GPS L1CA,
+    GLONASS G1 and SBAS channels; RINEX, RTCM, SBAS, SPP and track log
+    output; relock, hot start and acquisition confirmation), by their INI
+    names."""
+    return ["SPEC"] if cfg.spec else []

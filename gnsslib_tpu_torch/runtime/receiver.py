@@ -28,6 +28,17 @@ position-aided hot start (HOTSTART), the even/odd acquisition
 confirmation (ACQCONFIRM), per-channel tracking logs (LOG) and
 checkpoints.
 
+A tracking block follows its channels, not the nominal stream cursor
+``base``: its first sample (``origin``) lies ``lead`` samples before the
+earliest channel's next period start, as the host estimates it from the
+blocks it has collected (:meth:`Receiver._place`), and its length
+(``span``) covers the widest spread the channels of one group reach
+(:data:`SPREAD_PERIODS`), so no window leaves the block however long the
+stream runs, for channels whose code period is shorter than nominal and
+for channels whose period is longer.  Live front ends (a capture process,
+a growing file, the in-process driver bindings) stream through
+:meth:`Receiver.run_live` and :meth:`MultiReceiver.run_live`.
+
 Channels are grouped by RF path and loop cadence (:func:`build_receiver`):
 GPS L1CA and GLONASS G1 channels update their loops every 10 periods after
 bit sync, SBAS channels every 2, and the steady-state FastTracker needs
@@ -62,7 +73,7 @@ from ..obs.rtcm import encode_1019, encode_1020, encode_1044, encode_msm7
 from ..obs.smooth import HatchSmoother
 from ..obs.spp import ecef2llh, predict_range, spp_solve
 from ..acquire.search import Acquirer, AcqResult
-from ..io.devcache import DeviceBlockCache
+from ..io.devcache import block_cache
 from ..ops.nco import NSPAN
 from ..sat import satno, satno2id
 from ..track.fast import FastTracker
@@ -72,6 +83,40 @@ from .config import ReceiverConfig, unported_options
 from .tcpout import TcpServer
 
 PIPELINE_DEPTH = 2        # blocks (and searches) in flight before collect
+# The widest spread, in code periods, between the channels of one group
+# that a tracking block covers.  A GPS satellite's range moves between
+# ~20,200 km (zenith) and ~25,800 km (horizon) over a pass: 5,600 km,
+# 18.7 ms of code, ~19 periods of 1 ms.  A rising satellite (range
+# shrinking) and a setting one (range growing) move in opposite directions,
+# so two channels may drift ~38 periods apart from where they started, and
+# they start within one period of each other (a code phase in [0, 1)):
+# 40.  GLONASS (19,100 km altitude: ~16 periods over a pass) and SBAS
+# (geostationary) stay inside it.  The receiver's clock offset moves every
+# channel alike and does not widen the spread.
+SPREAD_PERIODS = 40
+
+
+def block_geometry(nsteps: int, nsamp: int, nwin: int) -> dict:
+    """A tracking block's extents for ``nsteps`` periods of ``nsamp``
+    nominal samples and ``nwin``-sample windows:
+
+    * ``block_len``: what one block's periods need after a channel's
+      first window (nsteps periods of at most nsamp + NSPAN samples, the
+      last window, slack), and the extent the search reads from ``base``;
+    * ``margin``: the host knows each channel's position from blocks up
+      to PIPELINE_DEPTH blocks old, and a period moves a window by at most
+      NSPAN samples from nominal (``n`` is clamped there), so this bounds
+      the error of its estimate;
+    * ``lead``: the block starts one code period and the margin before
+      the earliest channel's estimated next period start;
+    * ``room``: a channel may start up to this far into the block (the
+      :data:`SPREAD_PERIODS` bound, one period, the margin on both sides);
+    * ``span``: the block's length, room + block_len."""
+    block_len = nsteps * nsamp + nwin + NSPAN * nsteps + 2 * nsamp + 64
+    margin = (PIPELINE_DEPTH + 1) * nsteps * NSPAN
+    room = (SPREAD_PERIODS + 1) * nsamp + 2 * margin
+    return dict(block_len=block_len, margin=margin, lead=nsamp + margin,
+                room=room, span=room + block_len)
 
 
 @dataclasses.dataclass
@@ -253,8 +298,8 @@ class Receiver:
     ``standalone=False``: the owner, a :class:`MultiReceiver`, emits the
     merged epochs); by default the receiver owns its hub and emits epochs
     itself.  ``cache``: the :class:`DeviceBlockCache` of another group on
-    the same front end, shared when its block length is this group's.
-    Live front ends and SPEC raise ``NotImplementedError``."""
+    the same front end.  ``frontend`` may be live (``is_live``): then
+    :meth:`run_live` streams it.  SPEC raises ``NotImplementedError``."""
 
     def __init__(self, cfg: ReceiverConfig, frontend, *, device,
                  ftype: int = 1, nsteps_per_block: int = 400,
@@ -264,8 +309,6 @@ class Receiver:
         if missing:
             raise NotImplementedError(
                 "not ported to gnsslib_tpu_torch yet: " + ", ".join(missing))
-        if getattr(frontend, "is_live", False):
-            raise NotImplementedError("live front ends are not ported")
         chans = (list(channels) if channels is not None else
                  [c for c in cfg.channels if c.ftype == ftype])
         if not chans:
@@ -297,23 +340,33 @@ class Receiver:
         self.state = self.trk.init_state()
         self.nsamp = self.trk.n_nom
         self.nsteps = int(nsteps_per_block)
-        self.block_len = (self.nsteps * self.nsamp + self.trk.nwin
-                          + NSPAN * self.nsteps + 2 * self.nsamp + 64)
-        # a tracking block starts one code period before ``base`` (the
-        # state's loc counts from there): a channel whose code period is
-        # shorter than nominal moves its period boundary earlier block by
-        # block, and its windows stay inside the block until the drift
-        # reaches a period (~400 s at 4 kHz of Doppler) instead of leaving
-        # it at once when its boundary passes ``base``
-        self.lead = self.nsamp
+        # the block follows its channels (_place), at these extents
+        geo = block_geometry(self.nsteps, self.nsamp, self.trk.nwin)
+        self.block_len, self.margin = geo["block_len"], geo["margin"]
+        self.lead, self.room, self.span = geo["lead"], geo["room"], \
+            geo["span"]
         # the groups of one RF path share its device samples (one upload)
-        track_len = self.block_len + self.lead
-        if cache is not None and cache.block_len == track_len:
+        if cache is not None and cache.fe is frontend:
             self.cache = cache
         else:
-            self.cache = DeviceBlockCache(frontend, track_len,
-                                          device=device)
+            self.cache = block_cache(frontend, device=device, span=self.span)
         self.base = 0
+        # the first sample of the next block; the state's loc counts from it
+        self.origin = -self.lead
+        # host estimate of each started channel's next period start (an
+        # absolute sample), which channels the device tracks (started and
+        # never stopped: a channel that lost its lock keeps running until
+        # it is started again), and a generation bumped at each start or
+        # move, so older telemetry no longer updates the estimate
+        C = len(chans)
+        self._pos = np.zeros(C, np.int64)
+        self._live = np.zeros(C, bool)
+        self._gen = np.zeros(C, np.int64)
+        # each channel's median prompt magnitude in its latest collected
+        # block (inf until one is collected): which channel gives way when
+        # locked channels spread beyond the bound (_place)
+        self._prompt = np.full(C, np.inf)
+        self._ndisp = 0                  # tracking blocks dispatched
         self.channels = []
         for i, c in enumerate(chans):
             nav = NavChannel(c.ctype, c.prn, sat=0, ref_week=cfg.ref_week)
@@ -358,17 +411,38 @@ class Receiver:
         multiple of the steady loop interval, the steady one, at this
         receiver's block length: on a card one eager warm-up and one CUDA
         graph capture each, here and never per block."""
-        shape = (self.block_len + self.lead,) + (
+        shape = (self.span,) + (
             (2,) if self.spec.dtype == DType.IQ else ())
         self.trk.program(self.nsteps, shape)
         if self.fast is not None and self.nsteps % self.fast.L == 0:
             self.fast.program(self.nsteps, shape)
 
     def _block(self):
-        """The tracking block at ``base``: samples [base - lead, base +
-        block_len) on the device (the search reads it from ``lead`` on)."""
-        return self.cache.get(self.base - self.lead,
-                              self.block_len + self.lead)
+        """The next tracking block: samples [origin, origin + span) on the
+        device."""
+        return self.cache.get(self.origin, self.span)
+
+    def _search_offset(self) -> int:
+        """Where the search reads the block: from ``base``, or the nearest
+        sample that leaves it ``block_len`` samples when the channels have
+        drifted far from the nominal cursor."""
+        return min(max(self.base - self.origin, 0), self.room)
+
+    def _start(self, i: int, boundary: int, dcarr: float,
+               period: float) -> None:
+        """Start channel ``i`` at its code boundary ``boundary`` samples
+        after ``base`` with carrier offset ``dcarr``; a boundary outside
+        the block moves by whole code periods of ``period`` samples into
+        its first period."""
+        loc = boundary + (self.base - self.origin)
+        if not 0 <= loc <= self.room:
+            loc = int(round((boundary + self.base - self.origin) % period))
+        self.state = self.trk.start_channels(self.state, [i], [loc], [dcarr])
+        self._cnt_host[i] = 0
+        self._pos[i] = self.origin + loc
+        self._live[i] = True
+        self._gen[i] += 1
+        self._prompt[i] = np.inf
 
     def _mark(self, name: str) -> None:
         if name not in self.timeline:
@@ -404,8 +478,8 @@ class Receiver:
                 all_pending
                 or self.base - self._acq_pend[0][1] >= PIPELINE_DEPTH * adv
                 or len(self._acq_pend) > PIPELINE_DEPTH):
-            getter, base_s, t_disp, pend_idx = self._acq_pend.pop(0)
-            self._apply_acq(getter(), base_s, t_disp, pend_idx)
+            getter, _, at, t_disp, pend_idx = self._acq_pend.pop(0)
+            self._apply_acq(getter(), at, t_disp, pend_idx)
 
     def _try_acquire(self) -> None:
         t_stream = self.base / self.spec.f_sf
@@ -419,18 +493,20 @@ class Receiver:
         for ch in pend:
             ch.last_acq_attempt = t_stream
         idx = [ch.idx for ch in pend]
-        handle = self.acq.search_dev_start(self._block()[self.lead:],
-                                           idx=idx)
+        off = self._search_offset()
+        handle = self.acq.search_dev_start(
+            self._block()[off:off + self.block_len], idx=idx)
         self._acq_pend.append((
             functools.partial(self.acq.search_dev_collect, handle),
-            self.base, t_stream, idx))
+            self.base, self.origin + off, t_stream, idx))
 
-    def _apply_acq(self, res: AcqResult, base_s: int, t_disp: float,
+    def _apply_acq(self, res: AcqResult, at: int, t_disp: float,
                    pend_idx: list[int]) -> None:
-        """Start tracking for every pending channel the search accepted;
-        a decision that arrives later than its searched block propagates
-        the code phase along the acquired code-Doppler trajectory."""
-        delta = self.base - base_s
+        """Start tracking for every pending channel the search accepted
+        (the search read the stream from sample ``at``); a decision that
+        arrives later than its searched block propagates the code phase
+        along the acquired code-Doppler trajectory."""
+        delta = self.base - at
         for i in pend_idx:
             ch = self.channels[i]
             if ch.locked or not bool(res.acquired[i]):
@@ -438,18 +514,15 @@ class Receiver:
             codei = int(res.codei[i])
             dcarr = float(res.dcarr[i])
             ch.acq_codei, ch.acq_dcarr = codei, dcarr
+            cfreq = float(self.trk.crate[i]) + dcarr * float(self.trk.aid[i])
+            tc_samp = self.trk._clens[i] / cfreq * self.spec.f_sf
             if delta:
-                cfreq = float(self.trk.crate[i]) + dcarr * float(
-                    self.trk.aid[i])
-                tc_samp = self.trk._clens[i] / cfreq * self.spec.f_sf
                 codei = int(round((codei - delta) % tc_samp))
             ch.locked = True
             ch.t_acq = self.base / self.spec.f_sf
             ch.cn0 = float(res.cn0[i])
             self._mark("first_lock")
-            self.state = self.trk.start_channels(
-                self.state, [i], [codei + self.lead], [dcarr])
-            self._cnt_host[i] = 0
+            self._start(i, codei, dcarr, tc_samp)
             self._events.append(
                 ("acq", t_disp, ch.cfg.prn, float(res.cn0[i]),
                  float(res.peakr[i])))
@@ -514,9 +587,7 @@ class Receiver:
             ctime = float(self.trk.ctime[ch.idx])
             loc = int(round(((-T_tx_t) % ctime) / ti))
             D = rate * f_cf + sol.clk_drift * f_cf / CLIGHT
-            self.state = self.trk.start_channels(
-                self.state, [ch.idx], [loc + self.lead], [-D])
-            self._cnt_host[ch.idx] = 0
+            self._start(ch.idx, loc, -D, ctime / ti)
             ch.locked = True
             ch.t_acq = t_stream
             ch.last_acq_attempt = t_stream
@@ -526,8 +597,9 @@ class Receiver:
 
     # ------------------------------------------------------------------ #
     def _feed_nav_and_obs(self, out, cnt0: np.ndarray, base: int,
-                          locked0: list[bool]) -> None:
-        origin = base - self.lead           # the block's first sample
+                          origin: int, locked0: list[bool]) -> None:
+        """Nav, relock checks, track logs and observable history of one
+        collected block, whose first sample is ``origin``."""
         for ch in self.channels:
             if not (ch.locked and locked0[ch.idx]):
                 continue
@@ -676,7 +748,8 @@ class Receiver:
     # ------------------------------------------------------------------ #
     def _snapshot(self) -> dict:
         return dict(
-            base=self.base, oldreftow=self.hub._oldreftow,
+            base=self.base, origin=self.origin, pos=self._pos.copy(),
+            live=self._live.copy(), oldreftow=self.hub._oldreftow,
             state=state_to_numpy(self.state),
             channels=[(ch.locked, ch.synced, ch.last_acq_attempt,
                        ch.cn0, ch.peak_prompt, ch.nav, ch.hist, ch.t_acq)
@@ -685,6 +758,20 @@ class Receiver:
 
     def _restore(self, d: dict) -> None:
         self.base = d["base"]
+        if "origin" in d:
+            self.origin = d["origin"]
+            self._pos = d["pos"].copy()
+            self._live = d["live"].copy()
+        else:
+            # a snapshot from before blocks followed their channels: its
+            # block started one code period before base, and the state's
+            # offsets count from there
+            self.origin = self.base - self.nsamp
+            self._live = np.asarray(d["state"]["active"], bool).copy()
+            self._pos = self.origin + np.asarray(d["state"]["loc"],
+                                                 np.int64)
+        self._gen += 1
+        self._prompt[:] = np.inf
         self.hub._oldreftow = d["oldreftow"]
         self.state = state_from_numpy(d["state"], self.trk.device)
         self._cnt_host = np.asarray(d["state"]["cnt"], np.int64).copy()
@@ -715,8 +802,17 @@ class Receiver:
             end = min(end, int(seconds * self.spec.f_sf))
         return end
 
-    def can_step(self, end_sample: int) -> bool:
-        return self.base + self.block_len <= end_sample
+    def can_step(self, end_sample: int, final: bool = True) -> bool:
+        """Whether the next block can run on a stream of ``end_sample``
+        samples.  ``final``: the stream ends there (a file, or a live
+        stream at its EOF), and a block runs while the search's extent
+        from ``base`` lies inside it; its channels' windows may reach past
+        the end, which reads zeros.  Otherwise (a live stream still
+        growing) the producer must have written the whole block."""
+        if final:
+            return self.base + self.block_len <= end_sample
+        return max(self.origin + self.span,
+                   self.base + self.block_len) <= end_sample
 
     def step_block(self) -> None:
         """Process one block: acquire, track, nav, observable history and
@@ -727,7 +823,12 @@ class Receiver:
         self._collect_acq()
         self._try_acquire()
         if not any(ch.locked for ch in self.channels):
+            # no tracking block: the next block moves with the cursor, and
+            # the channels the device still tracks (after a loss of lock)
+            # keep their block offsets, as the device saw no block
             self.base += advance
+            self.origin += advance
+            self._pos[self._live] += advance
             self._mark("first_block")
             self.stage_wall["acquire"] += time.time() - t0
             return
@@ -741,21 +842,88 @@ class Receiver:
         block = self._block()
         self.state, handle = eng.run_block_start(self.state, block,
                                                  self.nsteps)
+        self._ndisp += 1
+        self._pos[self._live] += advance
         self._pending.append((functools.partial(eng.run_block_collect,
                                                 handle),
-                              self.base, cnt0, locked0))
+                              self.base, self.origin, self._ndisp,
+                              self._gen.copy(), cnt0, locked0))
         while len(self._pending) > PIPELINE_DEPTH:
             self._collect(*self._pending.pop(0))
         self._cnt_host[np.asarray(locked0)] += self.nsteps
-        self.state = self.trk.rebase(self.state, advance)
         self.base += advance
+        self._place()
         self._mark("first_block")
         self.stage_wall["steady" if use_fast else "pullin"] += \
             time.time() - t0
 
-    def _collect(self, getter, base: int, cnt0: np.ndarray,
+    def _place(self) -> None:
+        """Choose the next block's first sample from the channels'
+        estimated next period starts and rebase the state's offsets to it.
+
+        The block starts ``lead`` samples before the earliest channel the
+        device tracks.  Should the channels that lost their lock (which
+        track noise until they are started again) stretch the group wider
+        than ``room``, the block follows the locked channels alone, and
+        each lost channel outside it moves by whole code periods to the
+        earliest locked one.  Locked channels wider apart than the
+        :data:`SPREAD_PERIODS` bound cannot all follow satellites (with
+        RELOCK=0 a channel whose satellite has set keeps tracking noise):
+        the weaker of the two outermost, by prompt magnitude, loses its
+        lock (a ``lol`` event) and is moved as a lost one, until the
+        others fit."""
+        # a tracking block ran, so some channel is live (started)
+        live, pos = self._live, self._pos
+        moved = np.zeros(len(self.channels), np.int64)
+        new = int(pos[live].min()) - self.lead
+        wide = self.room - self.margin - self.lead
+        if int(pos[live].max() - pos[live].min()) > wide:
+            # (this block's collects may have unlocked every channel)
+            locked = live & np.array([ch.locked for ch in self.channels])
+            anchor = locked if locked.any() else live
+            while int(pos[anchor].max() - pos[anchor].min()) > wide:
+                idx = np.flatnonzero(anchor)
+                ends = idx[[np.argmin(pos[idx]), np.argmax(pos[idx])]]
+                drop = ends[int(self._prompt[ends[1]]
+                                < self._prompt[ends[0]])]
+                if self.channels[drop].locked:
+                    self._reset_channel(self.channels[drop],
+                                        self.base / self.spec.f_sf)
+                anchor[drop] = False
+            lo = int(pos[anchor].min())
+            new = lo - self.lead
+            out = live & ~anchor & ((pos < new + self.margin)
+                                    | (pos > new + self.room - self.margin))
+            moved[out] = -((pos[out] - lo) // self.nsamp)
+            pos += moved * self.nsamp
+            self._gen[out] += 1
+        shift = new - self.origin
+        self.state = self.trk.rebase(
+            self.state, shift - moved * self.nsamp if moved.any() else shift)
+        self.origin = new
+
+    def _track_positions(self, out, origin: int, ndisp: int,
+                         gen0: np.ndarray) -> None:
+        """Update the estimates from a collected block (dispatched as the
+        ``ndisp``-th at ``origin``): each channel still on the same track
+        ends it at its last window plus that period's length, and has run
+        ``nsteps`` nominal periods in each block dispatched since."""
+        same = self._live & (gen0 == self._gen)
+        if not same.any():
+            return
+        end = (origin + out.loc[-1].astype(np.int64)
+               + out.n[-1].astype(np.int64))
+        later = (self._ndisp - ndisp) * self.nsteps * self.nsamp
+        self._pos[same] = end[same] + later
+        self._prompt[same] = np.median(np.abs(out.ip) + np.abs(out.qp),
+                                       axis=0)[same]
+
+    def _collect(self, getter, base: int, origin: int, ndisp: int,
+                 gen0: np.ndarray, cnt0: np.ndarray,
                  locked0: list[bool]) -> None:
-        self._feed_nav_and_obs(getter(), cnt0, base, locked0)
+        out = getter()
+        self._track_positions(out, origin, ndisp, gen0)
+        self._feed_nav_and_obs(out, cnt0, base, origin, locked0)
         self._emit_epochs()
 
     def flush(self) -> None:
@@ -792,6 +960,8 @@ class Receiver:
         'q'-key safe: just sets a flag)."""
         self.stop_requested = True
 
+    _finish = _summary
+
     def run_seconds(self, seconds: float | None = None,
                     progress=None) -> dict:
         """Process the stream (whole file by default) until its end or a
@@ -807,6 +977,51 @@ class Receiver:
                 progress(self.base / self.spec.f_sf)
         self.flush()
         return self._summary(t_start, nblocks)
+
+    def run_live(self, seconds: float | None = None, poll_s: float = 0.02,
+                 progress=None) -> dict:
+        """Stream from a live front end (a :class:`~..io.live.
+        ProcessFrontend`, :class:`~..io.live.StreamFrontend` or a driver
+        binding): step whenever the producer has written the next block,
+        sleep-poll while it catches up (the reference's sleepms(1) wait,
+        src/sdrtrk.c:30-50); stop at the producer's EOF (after the blocks
+        a file of the same bytes would run), after ``seconds`` of stream
+        time, or on :meth:`request_stop`.  The summary adds ``lag``: the
+        largest distance in seconds between the producer and ``base``
+        after a block."""
+        return _run_live(self, [self], seconds, poll_s, progress)
+
+
+def _run_live(rx, groups: list, seconds, poll_s: float, progress) -> dict:
+    """The live loop of a :class:`Receiver` or a :class:`MultiReceiver`
+    (``rx``) over its channel groups."""
+    t_start = time.time()
+    r0 = groups[0]
+    target = None if seconds is None else int(seconds * r0.spec.f_sf)
+    nblocks, lag = 0, 0.0
+    while not rx.stop_requested:
+        if target is not None and not all(r.can_step(target)
+                                          for r in groups):
+            break
+        # EOF first: once it is seen, nsamples is the stream's length
+        eof = [getattr(r.frontend, "eof", False) for r in groups]
+        avail = [int(r.frontend.nsamples) for r in groups]
+        ready = [r.can_step(n, final=e) for r, n, e in zip(groups, avail, eof)]
+        if all(ready):
+            rx.step_block()
+            nblocks += 1
+            lag = max(lag, max((int(r.frontend.nsamples) - r.base)
+                               / r.spec.f_sf for r in groups))
+            if progress:
+                progress(r0.base / r0.spec.f_sf)
+        elif any(e for e, ok in zip(eof, ready) if not ok):
+            break
+        else:
+            time.sleep(poll_s)
+    rx.flush()
+    out = rx._finish(t_start, nblocks)
+    out["lag"] = lag
+    return out
 
 
 class MultiReceiver:
@@ -950,6 +1165,17 @@ class MultiReceiver:
             if progress:
                 progress(self.rx[0].base / self.rx[0].spec.f_sf)
         self.flush()
+        return self._finish(t_start, nblocks)
+
+    def run_live(self, seconds: float | None = None, poll_s: float = 0.02,
+                 progress=None) -> dict:
+        """Live lockstep (:meth:`Receiver.run_live` for every group): step
+        all groups once every producer has written their next blocks;
+        stop when a stream ends, after ``seconds`` or on
+        :meth:`request_stop`."""
+        return _run_live(self, self.rx, seconds, poll_s, progress)
+
+    def _finish(self, t_start: float, nblocks: int) -> dict:
         wall = time.time() - t_start
         samples = sum(r.base for r in self.rx)
         groups = [r._summary(t_start, nblocks) for r in self.rx]
@@ -964,9 +1190,6 @@ class MultiReceiver:
             stage_wall={k: sum(g["stage_wall"][k] for g in groups)
                         for k in groups[0]["stage_wall"]},
             groups=groups)
-
-    def run_live(self, *args, **kwargs):
-        raise NotImplementedError("live front ends are not ported")
 
 
 class DualReceiver(MultiReceiver):

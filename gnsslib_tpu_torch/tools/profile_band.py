@@ -101,13 +101,17 @@ TAPS_ALL = ("#define TAP_CASES(X) X(1) X(3) X(5) X(7) X(9) X(11) X(13) "
 TAPS13 = "#define TAP_CASES(X) X(13)"
 
 
-def inputs(device, iq: bool):
+def inputs(device, iq: bool, corr=(6, 3, 6), sf: float = F_SF,
+           fif: float = F_IF, windows: int = WINDOWS):
     """Phase 3's super-step: (trk, host arrays (block, rc, wstart, n, rem,
-    ftot, active), the same as tensors on ``device``)."""
-    trk = Tracker(TrackConfig(6, 3, 6), [1], [CodeType.L1CA], F_SF, F_IF,
+    ftot, active), the same as tensors on ``device``).  ``corr`` (CORRN,
+    CORRD, CORRP), ``sf``, ``fif`` and ``windows`` (per channel) give
+    another front end's super-step; the carrier spans the same +-6.5 kHz
+    of Doppler at any rate."""
+    trk = Tracker(TrackConfig(*corr), [1], [CodeType.L1CA], sf, fif,
                   DType.IQ if iq else DType.REAL, device=device)
     rng = np.random.default_rng(7 + iq)
-    C, L, nn = CHANNELS, WINDOWS, trk.n_nom
+    C, L, nn = CHANNELS, windows, trk.n_nom
     B = C * L
     nblock = (L + 2) * nn + trk.next
     block = rng.integers(-128, 128, (nblock, 2) if iq else nblock
@@ -116,7 +120,8 @@ def inputs(device, iq: bool):
               + np.arange(L)[None, :] * nn).reshape(B).astype(np.int32)
     n = rng.integers(nn - 2, nn + 3, B).astype(np.int32)
     rem = rng.uniform(0, 1, B).astype(np.float32)
-    ftot = (0.25 + rng.uniform(-4e-4, 4e-4, B)).astype(np.float32)
+    ftot = (fif / sf + rng.uniform(-4e-4, 4e-4, B) * (F_SF / sf)
+            ).astype(np.float32)
     rc = rng.choice(np.asarray([-1, 1], np.int8), (B, trk.next))
     act = np.repeat(rng.uniform(size=C) < 0.75, L)
     host = (block, rc, wstart, n, rem, ftot, act)

@@ -221,10 +221,15 @@ class Tracker(BlockRunner):
             code_nco=self._set(state.code_nco, [ch], 0.0),
             code_err=self._set(state.code_err, [ch], 0.0))
 
-    def rebase(self, state: TrackState, advance: int) -> TrackState:
-        """Shift block-relative offsets after the host advances the sample
-        window by ``advance`` samples."""
-        return state.replace(loc=state.loc - int(advance))
+    def rebase(self, state: TrackState, advance) -> TrackState:
+        """Shift block-relative offsets after the host moves the block's
+        first sample ``advance`` samples later: one int for every channel,
+        or a (C,) array of each channel's shift."""
+        if np.ndim(advance) == 0:
+            return state.replace(loc=state.loc - int(advance))
+        shift = torch.as_tensor(np.asarray(advance, np.int64),
+                                device=state.loc.device)
+        return state.replace(loc=state.loc - shift.to(state.loc.dtype))
 
     # ------------------------------------------------------------------ #
     def state_to_carry(self, s: TrackState) -> dict:

@@ -1,9 +1,17 @@
 """The port's own copies of the JAX package's host-side modules (constants,
 codes, sim, nav, obs, io, the RTCM server, the track logger) against their
 originals on the same inputs: the two copies must give identical arrays,
-events, solutions and bytes, so they cannot drift apart unnoticed."""
+events, solutions and bytes, so they cannot drift apart unnoticed.  The
+native host kernels are held three ways: the port's native library, its
+pure-Python versions and the JAX package's native library must agree
+(in a child process: ctypes calls made in the test process before the
+JAX package's bladeRF binding test leave the stack words that binding's
+undeclared size_t arguments pick up)."""
 import dataclasses
+import os
 import socket
+import subprocess
+import sys
 import time
 
 import numpy as np
@@ -12,6 +20,7 @@ import pytest
 import gnsslib_tpu.codes as j_codes
 import gnsslib_tpu.constants as j_const
 import gnsslib_tpu.sim as j_sim
+import gnsslib_tpu.native as j_native
 import gnsslib_tpu_torch.codes as t_codes
 import gnsslib_tpu_torch.constants as t_const
 import gnsslib_tpu_torch.sim as t_sim
@@ -27,10 +36,15 @@ from gnsslib_tpu.obs import smooth as j_smooth
 from gnsslib_tpu.obs import spp as j_spp
 from gnsslib_tpu.runtime import tcpout as j_tcpout
 from gnsslib_tpu_torch import gtime as t_gtime
+from gnsslib_tpu_torch import native as t_native
 from gnsslib_tpu_torch.diag import tracklog as t_tracklog
+from gnsslib_tpu_torch.io import formats as t_formats
 from gnsslib_tpu_torch.io import frontend as t_fe
 from gnsslib_tpu_torch.nav import NavChannel as TNav
 from gnsslib_tpu_torch.nav import eph as t_eph
+from gnsslib_tpu_torch.nav import bits as t_bits
+from gnsslib_tpu_torch.nav import sbas as t_sbas
+from gnsslib_tpu_torch.nav import viterbi as t_viterbi
 from gnsslib_tpu_torch.obs import epoch as t_epoch
 from gnsslib_tpu_torch.obs import rinex as t_rinex
 from gnsslib_tpu_torch.obs import rtcm as t_rtcm
@@ -300,10 +314,118 @@ def _tracklog(tmp_path):
     assert texts[0] and texts[0] == texts[1]
 
 
+def _native_ready():
+    """Both native libraries built, the port's under its build directory
+    and not the JAX package's."""
+    assert t_native.available() and j_native.available()
+    assert t_native.library_path().parent.parts[-2:] == (
+        "build", "gnsslib_tpu_torch")
+    assert t_native._lib is not j_native._lib
+
+
+def _three_viterbi(sym, nbits):
+    """The port's native, its pure-Python and the JAX native decodes."""
+    _native_ready()
+    outs = [t_native.viterbi27_decode(sym, nbits),
+            t_viterbi.viterbi27_decode(sym, nbits),
+            j_native.viterbi27_decode(sym, nbits)]
+    for o in outs[1:]:
+        np.testing.assert_array_equal(np.asarray(o, np.uint8), outs[0])
+    return outs[0]
+
+
+def _native_viterbi_random_body():
+    rng = np.random.default_rng(21)
+    for nsym in (2, 64, 1000):
+        _three_viterbi(rng.integers(0, 256, nsym).astype(np.uint8),
+                       nsym // 2)
+    # soft symbols of a coded stream through noise decode to its bits
+    bits = rng.integers(0, 2, 400)
+    sym = t_viterbi.conv27_encode(bits).astype(np.float64)
+    noisy = np.clip(sym + rng.normal(0, 60, sym.shape), 0, 255)
+    out = _three_viterbi(noisy.astype(np.uint8), 390)
+    assert np.mean(out == bits[:390]) > 0.98
+
+
+def _native_viterbi_sbas_body():
+    """250-bit SBAS messages (MT12 and MT63, preambles 53/9A/C6), rate-1/2
+    coded, as the framer sees them: hard symbols 0/255, a 1000-symbol
+    buffer at every offset of a message."""
+    rng = np.random.default_rng(12)
+    msgs = [t_sbas.encode_sbas_message(12 if k % 3 == 0 else 63,
+                                       rng.integers(0, 2, 212),
+                                       (0x53, 0x9A, 0xC6)[k % 3])
+            for k in range(6)]
+    bits01 = ((1 - np.concatenate(msgs)) // 2).astype(np.int64)
+    sym = np.where(t_viterbi.conv27_encode(bits01) == 0, 0, 255)
+    sym = sym.astype(np.uint8)
+    for off in range(0, 500, 37):
+        out = _three_viterbi(sym[off:off + 1000], 500)
+        if off % 2 == 0:       # symbol pairs aligned: the message's bits
+            b = off // 2
+            np.testing.assert_array_equal(out[8:480], bits01[b + 8:b + 480])
+
+
+def _native_crc24q_body():
+    _native_ready()
+    rng = np.random.default_rng(1)
+    for n in (0, 1, 3, 29, 300, 4096):
+        data = bytes(rng.integers(0, 256, n, dtype=np.uint8))
+        c = t_native.crc24q_native(data)
+        assert c == t_bits.crc24q(data) == j_native.crc24q_native(data)
+
+
+def _native_unpackers_body():
+    _native_ready()
+    import ctypes
+    rng = np.random.default_rng(2)
+    raw = rng.integers(0, 256, 4096, dtype=np.uint8)
+    for name, per in t_native.UNPACKERS.items():
+        outs = []
+        for lib in (t_native._lib, j_native._lib):
+            out = np.empty(len(raw) * per, np.float32)
+            getattr(lib, name)(
+                raw.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+                len(raw), out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
+            outs.append(out)
+        plain = getattr(t_formats, name)(raw.tobytes())
+        np.testing.assert_array_equal(outs[0], plain.ravel())
+        np.testing.assert_array_equal(outs[0], outs[1])
+
+
+NATIVE = ("_native_viterbi_random", "_native_viterbi_sbas",
+          "_native_crc24q", "_native_unpackers")
+_native_results = {}
+
+
+def _native(name):
+    """A case that runs ``<name>_body`` of this module in a child process
+    (all four native bodies run in one child, once per test process)."""
+    def case(tmp_path):
+        if not _native_results:
+            code = ("import sys, traceback; sys.path.insert(0, %r)\n"
+                    "import test_torch_host_copies as m\n"
+                    "for n in m.NATIVE:\n"
+                    "    try:\n"
+                    "        getattr(m, n + '_body')()\n"
+                    "        print(n, 'OK')\n"
+                    "    except Exception:\n"
+                    "        traceback.print_exc()\n"
+                    % os.path.dirname(os.path.abspath(__file__)))
+            r = subprocess.run([sys.executable, "-c", code],
+                               capture_output=True, text=True, timeout=600)
+            _native_results.update(
+                (n, f"{n} OK" in r.stdout.splitlines()) for n in NATIVE)
+            _native_results["log"] = r.stdout + r.stderr[-3000:]
+        assert _native_results[name], _native_results["log"]
+    return case
+
+
 CASES = {"constants": _constants, "codes": _codes, "sim": _sim,
          "nav": _nav, "rinex": _rinex, "frontend": _frontend, "spp": _spp,
          "smooth": _smooth, "rtcm": _rtcm, "tcpout": _tcpout,
          "tracklog": _tracklog}
+CASES.update((n[1:], _native(n)) for n in NATIVE)
 
 
 @pytest.mark.parametrize("case", list(CASES))

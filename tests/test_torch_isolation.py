@@ -73,6 +73,51 @@ def test_port_imports_and_tracks_without_jax():
     assert "NOJAX OK" in r.stdout
 
 
+def test_live_and_native_modules_without_jax():
+    """The modules of the live path and the native host kernels (native,
+    io.live, the four driver bindings, the live cache) import and run with
+    ``jax`` and ``gnsslib_tpu`` blocked; the port's native library is
+    built under build/gnsslib_tpu_torch/ and the JAX package's library
+    is never loaded."""
+    code = BLOCK_JAX + textwrap.dedent("""
+        import importlib, os, sys, time, numpy as np, torch
+        torch.set_num_threads(2)
+        for m in ("native", "io.live", "io.rtlsdr", "io.bladerf",
+                  "io.gn3s", "io.stereo", "io.devcache"):
+            importlib.import_module("gnsslib_tpu_torch." + m)
+        from gnsslib_tpu_torch import native
+        from gnsslib_tpu_torch.constants import DType, FrontendType
+        from gnsslib_tpu_torch.io import ProcessFrontend
+        from gnsslib_tpu_torch.io.devcache import block_cache
+        from gnsslib_tpu_torch.io.frontend import FrontendSpec
+        assert native.available()
+        lib = native.library_path()
+        assert lib.parent == (__import__("pathlib").Path(os.getcwd())
+                              / "build" / "gnsslib_tpu_torch"), lib
+        sym = np.random.default_rng(3).integers(0, 256, 200)
+        assert native.viterbi27_decode(sym, 100).shape == (100,)
+        spec = FrontendSpec(fend=FrontendType.FILE, f_cf=1.57542e9,
+                            f_sf=4.092e6, f_if=1.023e6, dtype=DType.REAL)
+        argv = [sys.executable, "-c",
+                "import sys; sys.stdout.buffer.write(bytes(range(1, 201)))"]
+        with ProcessFrontend(argv, spec, timeout_s=5.0) as fe:
+            cache = block_cache(fe, device="cpu", span=64)
+            deadline = time.time() + 10
+            while not fe.eof and time.time() < deadline:
+                time.sleep(0.02)
+            x = cache.get(-8, 64).numpy()
+        assert (x[:8] == 0).all() and (x[8:] == np.arange(1, 57)).all()
+        maps = open("/proc/self/maps").read()
+        assert str(lib) in maps
+        assert "gnsslib_tpu/native/" not in maps
+        assert not any(_blocked(m) for m in sys.modules)
+        print("LIVE NOJAX OK")
+    """)
+    r = _run(code)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "LIVE NOJAX OK" in r.stdout
+
+
 def test_chip_smoke_imports_without_jax():
     """chip_smoke.py and every module its phases import load with ``jax``
     and ``gnsslib_tpu`` blocked (the modules are read from its source, so
