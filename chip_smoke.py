@@ -92,17 +92,31 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    before the nominal cursor, nominal rebase) with +/-4 kHz of code
    Doppler, which that design loses
    within a few blocks, tracked by the receiver's replayed graphs to the
-   end of the capture with every window inside its block.
+   end of the capture with every window inside its block;
+13. the diagnostics and the pipeline options: (a) the CLI on phase 6's
+   INI with ``--spec --watch-html``: the first second's spectrum (peak
+   at the IF) and histogram, the live spectrum monitor (one frame per
+   block, on a CUDA stream of its own), the HTML view (taps of every
+   visible PRN, ``locked 4/32``), and phase 6's acquisition decisions,
+   events and epochs bit for bit; (c) phase 6's receiver with
+   ``pipeline=False`` against ``pipeline=True`` bit for bit and at
+   pipeline depths 1 and 3 (their own spans and graphs), and phase 11's
+   front ends in a MultiReceiver with SPEC for 3 s (one monitor per front
+   end, FE2's I/Q spectrum fftshifted); (b) ``--profile`` for 10 s beside
+   the same run unprofiled: the trace's size and K1 kernels, and the
+   device's busy share over the steady blocks.
 
-Phases 5-12 each print the graph captures they made (count, seconds
+Phases 5-13 each print the graph captures they made (count, seconds
 recording and instantiating, pool memory), and a line before the kernels
 line totals them.  The band_taps row's launches are those of phases 6,
-11, 12a and 12b (the main paths: file replay, multi-GNSS, and the live
-entry point, real and I/Q).  The last two lines are a JSON object describing
+11, 12a, 12b and 13 (the main paths: file replay, multi-GNSS, the live
+entry point, real and I/Q, and the diagnostics and pipeline modes).  The
+last two lines are a JSON object describing
 the kernels and the ``{"ok": true, "device": {...}}`` line.  This script
 imports no JAX.
 """
 import json
+import math
 import os
 import re
 import subprocess
@@ -1233,7 +1247,9 @@ def _record(rx) -> list:
 
 def phase_slice(dev, capture: str) -> tuple:
     """The receiver's main path from an INI file; returns the kernel's
-    launch count during the run, and the run's events and epochs."""
+    launch count during the run, the run's events and epochs, and a dict
+    of its acquisition decisions ({prn: (codei, dcarr)}), stage walls and
+    wall."""
     import shutil
     from gnsslib_tpu_torch.constants import CLIGHT, PTIMING
     from gnsslib_tpu_torch.gtime import epoch2time, time2gpst
@@ -1326,7 +1342,14 @@ def phase_slice(dev, capture: str) -> tuple:
                                  f"{got - expect:.1f} m")
     log(f"[6] RINEX: {len(heads)} obs epochs, {rx.ephs_written} nav records "
         f"({rx.obs_writer.path})")
-    return launches, rx.events, epochs
+    ref = dict(decisions=_decisions(rx), stage_wall=dict(sw), wall=wall)
+    return launches, rx.events, epochs, ref
+
+
+def _decisions(rx) -> dict:
+    """Each channel's acquisition decision: {prn: (codei, dcarr)} as the
+    search reported them (-1, 0.0 for a channel never acquired)."""
+    return {ch.cfg.prn: (ch.acq_codei, ch.acq_dcarr) for ch in rx.channels}
 
 
 def phase_throughput(dev) -> dict:
@@ -2280,6 +2303,343 @@ def phase_edge(dev, capture: str, starts: dict) -> int:
     return launches
 
 
+def _cli_run(tag: str, argv: list) -> dict:
+    """The CLI in this process on ``argv``: its exit code, the receiver it
+    built (``rx``), the epochs it emitted, K1's launches during the run
+    (the counts reset once the receiver is built: its programs' eager
+    warm-ups launch K1 too), the CLI's wall, the run's wall and, with
+    ``--profile``, the profiler block's wall (run and trace writing)."""
+    from gnsslib_tpu_torch.ops import band_taps as bt
+    from gnsslib_tpu_torch.runtime import cli
+    out = dict(rx=None, epochs=None, run_s=0.0, profiled_s=None)
+    make, profiled = cli.build_receiver, cli._profiled
+
+    def keep(*a, **kw):
+        rx = out["rx"] = make(*a, **kw)
+        out["epochs"] = _record(rx)
+        run = rx.run_seconds
+
+        def timed(*ra, **rkw):
+            t0 = time.time()
+            stats = run(*ra, **rkw)
+            out["run_s"] = time.time() - t0
+            return stats
+        rx.run_seconds = timed
+        bt.COUNTS.reset()
+        return rx
+
+    def timed_profile(*a, **kw):
+        t0 = time.time()
+        stats = profiled(*a, **kw)
+        out["profiled_s"] = time.time() - t0
+        return stats
+    cli.build_receiver, cli._profiled = keep, timed_profile
+    t0 = time.time()
+    try:
+        out["rc"] = cli.main(argv)
+    finally:
+        cli.build_receiver, cli._profiled = make, profiled
+    out["wall"] = time.time() - t0
+    out["launches"] = (bt.COUNTS.kernel, bt.COUNTS.v1, bt.COUNTS.plain)
+    if out["rc"] != 0 or out["rx"] is None:
+        raise AssertionError(f"[{tag}] CLI exit {out['rc']}")
+    return out
+
+
+def _k1_of(tag: str, dev, run: dict, steady: bool = True) -> int:
+    """A run's K1 launches, checked on a card: every launch through the
+    cluster kernel and, for a run that reached the steady state
+    (``steady``), every one counted through the graph replays."""
+    k1, v1, plain = run["launches"]
+    if dev.type == "cuda":
+        if steady:
+            _receiver_programs(tag, run["rx"], k1)
+        if v1 != 0 or plain != 0:
+            raise AssertionError(f"[{tag}] band_taps v1 {v1}, plain {plain}")
+    return k1
+
+
+def _lobe_centre(freq, pdb, f_if: float) -> float:
+    """Where the C/A signals' main lobe sits in a real-IF spectrum: the
+    centre, on a 1 kHz grid within 0.5 MHz of ``f_if``, of the sinc^2 lobe
+    (1.023 MHz half-width) that best matches the power above the noise
+    floor (the median beyond 2.5 MHz of the IF).  At 47 dB-Hz the signals
+    lie ~16 dB under the noise per sample and lift the spectrum ~0.4 dB
+    around the IF, below one bin's scatter over 100 windows (~0.4 dB), so
+    the spectrum's own argmax is a noise bin."""
+    lin = 10.0 ** (np.asarray(pdb, np.float64) / 10.0)
+    far = (np.abs(freq - f_if) > 2.5e6) & (freq > 0.3e6) & \
+        (freq < freq[-1] - 0.3e6)
+    excess = lin / np.median(lin[far]) - 1.0
+    near = np.abs(freq - f_if) <= 2.0e6
+    cands = f_if + np.arange(-500, 501) * 1e3
+    score = [float((excess[near] * np.sinc((freq[near] - c) / 1.023e6)
+                    ** 2).sum()) for c in cands]
+    return float(cands[int(np.argmax(score))])
+
+
+def _union(intervals) -> float:
+    """The length covered by (start, end) intervals."""
+    total, end = 0.0, -math.inf
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def _busy_share(trace: dict, per_block: int) -> tuple:
+    """The device's busy share from a torch.profiler trace: the union of
+    its kernel intervals over the steady stage (first to last K1 launch)
+    and, per steady block (``per_block`` consecutive K1 launches), over
+    its span from its first to its last K1.  Returns (K1 events, the
+    stage's share, the median block share, the blocks' shares' range,
+    kernels in the trace)."""
+    kern = [(e["ts"], e["ts"] + e.get("dur", 0.0), e["name"])
+            for e in trace.get("traceEvents", [])
+            if e.get("cat") == "kernel" and "ts" in e]
+    k1 = sorted((a, b) for a, b, n in kern if "band_taps" in n)
+    if not k1:
+        return 0, None, None, None, len(kern)
+    iv = sorted((a, b) for a, b, _ in kern)
+
+    def share(lo, hi):
+        inside = [(max(a, lo), min(b, hi)) for a, b in iv
+                  if b > lo and a < hi]
+        return _union(inside) / max(hi - lo, 1e-9)
+    stage = share(k1[0][0], k1[-1][1])
+    blocks = [share(k1[i][0], k1[i + per_block - 1][1])
+              for i in range(0, len(k1) - per_block + 1, per_block)]
+    return (len(k1), stage, float(np.median(blocks)) if blocks else None,
+            (min(blocks), max(blocks)) if blocks else None, len(kern))
+
+
+def phase_diag(dev, capture: str, fe1: str, fe2: str, ref_events,
+               ref_epochs, ref) -> int:
+    """Phase 13, the diagnostics and the pipeline options at full width.
+    (a) The CLI on phase 6's INI with ``--spec --watch-html``: the first
+    second's spectrum and histogram, the live monitor (one frame per
+    block), the HTML view, and phase 6's acquisition decisions, events and
+    epochs bit for bit.  (c) Phase 6's receiver sequential against
+    pipelined (bit for bit) and at pipeline depths 1 and 3 (their own
+    spans), and phase 11's two front ends in a MultiReceiver with SPEC (one
+    monitor per front end, FE2's I/Q spectrum).  (b) ``--profile`` for
+    10 s beside the same run unprofiled: the trace, its K1 kernels and the
+    device's busy share in the steady blocks.  Returns K1's launches in
+    all of these runs."""
+    import shutil
+    from gnsslib_tpu_torch.io.frontend import FileFrontend
+    from gnsslib_tpu_torch.ops import band_taps as bt
+    from gnsslib_tpu_torch.runtime.config import load_ini
+    from gnsslib_tpu_torch.runtime.receiver import (Receiver,
+                                                    block_geometry,
+                                                    build_receiver)
+
+    for d in ("diag", "diag_b0", "diag_b1", "modes"):
+        shutil.rmtree(os.path.join(WORK, d), ignore_errors=True)
+    total = 0
+
+    # (a) the CLI with SPEC and the HTML view
+    html = os.path.join(WORK, "diag", "live.html")
+    os.makedirs(os.path.dirname(html), exist_ok=True)
+    a = _cli_run("13a", [_write_ini(capture, "diag"), "--device", dev.type,
+                         "--quiet", "--spec", "--watch-html", html])
+    rx = a["rx"]
+    total += _k1_of("13a", dev, a)
+    from gnsslib_tpu_torch.diag import welch_spectrum
+    npz = np.load(os.path.join(WORK, "diag", "rinex", "spectrum.npz"))
+    peak = float(npz["freq"][np.argmax(npz["pdb"])])
+    lobe = _lobe_centre(npz["freq"], npz["pdb"], F_IF)
+    nhist = int(npz["counts"].sum())
+    # the plain version: the same second through the same windows on the
+    # CPU
+    with open(capture, "rb") as f:
+        first = np.frombuffer(f.read(int(F_SF)), np.int8).astype(np.float32)
+    freq_c, pdb_c = welch_spectrum(first, F_SF, device="cpu")
+    spec_err = float(np.abs(npz["pdb"] - pdb_c).max())
+    mon = rx.spec_monitor
+    blocks = rx.base // (rx.nsteps * rx.nsamp)
+    page = open(html).read()
+    taps = [p for p in TRUTH if f"PRN {p} taps @" in page]
+    sw = rx.stage_wall
+    log(f"[13a] CLI --spec --watch-html: {rx.base / F_SF:.1f} s of stream, "
+        f"CLI wall {a['wall']:.1f} s, run {a['run_s']:.2f} s (phase 6's "
+        f"run: {ref['wall']:.2f} s); steady stage {sw['steady']:.3f} s "
+        f"against phase 6's {ref['stage_wall']['steady']:.3f} s (pull-in "
+        f"{sw['pullin']:.3f} against {ref['stage_wall']['pullin']:.3f} s, "
+        f"acquire {sw['acquire']:.3f} against "
+        f"{ref['stage_wall']['acquire']:.3f} s)")
+    log(f"[13a] spectrum.npz: the C/A main lobe centred at "
+        f"{lobe / 1e6:.4f} MHz (IF {F_IF / 1e6:.3f}; the largest bin, a "
+        f"noise bin, at {peak / 1e6:.4f} MHz), max {spec_err:.5f} dB from "
+        f"the plain version on the CPU (tolerance 0.01), histogram of {nhist} "
+        f"samples; the monitor made "
+        f"{mon.nframes} frames in {blocks} blocks, "
+        f"{1e3 * mon.seconds / max(mon.nframes, 1):.3f} ms per frame on its "
+        f"own CUDA stream; the page ({len(page)} bytes) shows the taps of "
+        f"PRNs {taps} and {page.count('acquisition @')} acquisition "
+        f"surface (the newest); acquisition views held for "
+        f"{sorted(rx.acq_views)}; K1 launches {a['launches'][0]}")
+    if abs(lobe - F_IF) > 0.05e6 or nhist != int(F_SF) or \
+            not np.array_equal(npz["freq"], freq_c) or spec_err > 0.01:
+        raise AssertionError(f"spectrum lobe at {lobe}, {spec_err} dB from "
+                             f"the plain version, histogram {nhist}")
+    if abs(mon.nframes - blocks) > 1 or len(mon.frames) == 0:
+        raise AssertionError(f"{mon.nframes} monitor frames, {blocks} blocks")
+    if f"locked {len(TRUTH)}/{len(rx.channels)}" not in page or \
+            sorted(taps) != sorted(TRUTH) or "acquisition @" not in page \
+            or sorted(rx.acq_views) != sorted(TRUTH):
+        raise AssertionError(f"HTML view: taps {taps}, acquisition views "
+                             f"{sorted(rx.acq_views)}")
+    if _decisions(rx) != ref["decisions"] or rx.events != ref_events or \
+            a["epochs"] != ref_epochs:
+        raise AssertionError(f"[13a] with SPEC: {len(rx.events)} events, "
+                             f"{len(a['epochs'])} epochs: decisions, events "
+                             f"or epochs differ from phase 6's")
+    log(f"[13a] SPEC on: acquisition decisions of all {len(rx.channels)} "
+        f"channels, {len(ref_events)} events and {len(ref_epochs)} epochs "
+        f"equal phase 6's bit for bit")
+
+    # (c) the pipeline modes on phase 6's receiver, and a MultiReceiver
+    cfg = load_ini(_write_ini(capture, "modes"))
+    cfg.rinex = False
+    modes = (("sequential", dict(pipeline=False, pipeline_acq=False,
+                                 pipeline_pullin=False)),
+             ("pipelined", dict(pipeline=True, pipeline_acq=False,
+                                pipeline_pullin=False)),
+             ("depth 1", dict(pipeline_depth=1)),
+             ("depth 3", dict(pipeline_depth=3)))
+    runs = {}
+    for name, kw in modes:
+        fe = FileFrontend(cfg.files[0], cfg.fends[0])
+        t0 = time.time()
+        r = Receiver(cfg, fe, device=dev, nsteps_per_block=400, **kw)
+        built = time.time() - t0
+        epochs = _record(r)
+        bt.COUNTS.reset()
+        t0 = time.time()
+        stats = r.run_seconds()
+        wall = time.time() - t0
+        run = dict(rx=r, launches=(bt.COUNTS.kernel, bt.COUNTS.v1,
+                                   bt.COUNTS.plain))
+        r.close()
+        fe.close()
+        total += _k1_of(f"13c {name}", dev, run)
+        runs[name] = (r, epochs)
+        s_ = stats["stage_wall"]
+        log(f"[13c] {name} ({kw}): block {r.span} samples, built in "
+            f"{built:.2f} s, run {wall:.2f} s (acquire {s_['acquire']:.3f}, "
+            f"pull-in {s_['pullin']:.3f}, steady {s_['steady']:.3f} s); "
+            f"{len(epochs)} epochs; K1 launches {run['launches'][0]}")
+        by = {ch.cfg.prn: ch for ch in r.channels}
+        if any(not (by[p].synced and by[p].nav.flagdec) for p in TRUTH) or \
+                any(ch.locked for p, ch in by.items() if p not in TRUTH):
+            raise AssertionError(f"[13c] {name}: locks {stats['locked']}, "
+                                 f"decoded {stats['decoded']}")
+        if _decisions(r) != ref["decisions"] or \
+                [e for e in r.events if e[0] == "acq"] != \
+                [e for e in ref_events if e[0] == "acq"]:
+            raise AssertionError(f"[13c] {name}: acquisitions differ from "
+                                 f"phase 6's")
+        depth = kw.get("pipeline_depth", 2)
+        span = block_geometry(400, r.nsamp, r.trk.nwin, depth)["span"]
+        shapes = {k[-1] for k in r.trk.programs}
+        if r.span != span or shapes != {(span,)}:
+            raise AssertionError(f"[13c] {name}: span {r.span}, programs "
+                                 f"{shapes}, expected {span}")
+    (rs, es), (rp, ep) = runs["sequential"], runs["pipelined"]
+    if rs.events != rp.events or es != ep or any(
+            not np.array_equal(a.hist.tow, b.hist.tow)
+            for a, b in zip(rs.channels, rp.channels)):
+        raise AssertionError("[13c] pipeline=False differs from "
+                             "pipeline=True")
+    log(f"[13c] pipeline=False equals pipeline=True (both without pipelined "
+        f"acquisition and pull-in): {len(rs.events)} events, {len(es)} "
+        f"epochs and the observable TOWs bit for bit")
+
+    mcfg = load_ini(_write_multi_ini(fe1, fe2, range(1, 33), MG_SBAS_PRNS,
+                                     MG_G1_FCNS, 0, 0))
+    mcfg.rinex = mcfg.rtcm = mcfg.sbas = False
+    mcfg.spec = True
+    fes = {ft: FileFrontend(mcfg.files[ft - 1], mcfg.fends[ft - 1])
+           for ft in (1, 2)}
+    t0 = time.time()
+    mrx = build_receiver(mcfg, fes, device=dev, nsteps_per_block=400)
+    built = time.time() - t0
+    bt.COUNTS.reset()
+    t0 = time.time()
+    mrx.run_seconds(3.0)
+    wall = time.time() - t0
+    run = dict(rx=mrx, launches=(bt.COUNTS.kernel, bt.COUNTS.v1,
+                                 bt.COUNTS.plain))
+    mrx.close()
+    for f in fes.values():
+        f.close()
+    # 3 s end in pull-in: no steady block, no K1 launch
+    total += _k1_of("13c multi", dev, run, steady=False)
+    groups = mrx.rx
+    mons = [(g.spec.ftype, g.spec_monitor) for g in groups
+            if g.spec_monitor is not None]
+    nblk = groups[0].base // (groups[0].nsteps * groups[0].nsamp)
+    log(f"[13c] MultiReceiver with SPEC, 3 s: {len(groups)} groups, "
+        f"monitors on FE{[ft for ft, _ in mons]}, frames "
+        f"{[m.nframes for _, m in mons]} in {nblk} blocks, "
+        f"{[round(1e3 * m.seconds / max(m.nframes, 1), 3) for _, m in mons]}"
+        f" ms per frame; built in {built:.2f} s, run {wall:.2f} s (wall by "
+        f"phase per group "
+        f"{[{k: round(v, 3) for k, v in g.stage_wall.items()} for g in groups]}"
+        f"); K1 launches {run['launches'][0]}")
+    if len(groups) != 3 or [ft for ft, _ in mons] != [1, 2] or any(
+            abs(m.nframes - nblk) > 1 for _, m in mons):
+        raise AssertionError(f"[13c] monitors {mons} for {len(groups)} "
+                             f"groups")
+    f2 = mons[1][1].latest
+    if not (f2.freq_hz[0] == -F_SF / 2 and f2.freq_hz[-1] < F_SF / 2
+            and np.all(np.diff(f2.freq_hz) > 0)
+            and f2.pspec_db.shape == (16384,)
+            and np.all(np.isfinite(f2.pspec_db))):
+        raise AssertionError(f"[13c] FE2's spectrum axis {f2.freq_hz[:2]}"
+                             f"..{f2.freq_hz[-1]}")
+    log(f"[13c] FE2's I/Q spectrum over [{f2.freq_hz[0] / 1e6:.3f}, "
+        f"{f2.freq_hz[-1] / 1e6:.3f}] MHz (fftshifted), peak "
+        f"{f2.freq_hz[np.argmax(f2.pspec_db)] / 1e6:.4f} MHz")
+
+    # (b) --profile, beside the same run unprofiled
+    b0 = _cli_run("13b", [_write_ini(capture, "diag_b0"), "--device",
+                          dev.type, "--quiet", "--seconds", "10"])
+    total += _k1_of("13b unprofiled", dev, b0)
+    prof = os.path.join(WORK, "diag_b1", "profile")
+    b1 = _cli_run("13b", [_write_ini(capture, "diag_b1"), "--device",
+                          dev.type, "--quiet", "--seconds", "10",
+                          "--profile", prof])
+    total += _k1_of("13b profiled", dev, b1)
+    traces = [os.path.join(prof, f) for f in os.listdir(prof)
+              if f.endswith(".json")]
+    if len(traces) != 1:
+        raise AssertionError(f"[13b] traces {traces}")
+    mb = os.path.getsize(traces[0]) / 1e6
+    t0 = time.time()
+    with open(traces[0]) as f:
+        trace = json.load(f)
+    parse = time.time() - t0
+    fast = b1["rx"].fast
+    n1, stage, med, rng, nk = _busy_share(trace, b1["rx"].nsteps // fast.L)
+    log(f"[13b] --profile --seconds 10: trace {mb:.1f} MB "
+        f"({os.path.basename(traces[0])}), written in "
+        f"{b1['profiled_s'] - b1['run_s']:.2f} s after the run, parsed in "
+        f"{parse:.2f} s; {nk} kernels, {n1} of them K1 (counted launches "
+        f"{b1['launches'][0]}); profiled run {b1['run_s']:.2f} s against "
+        f"{b0['run_s']:.2f} s unprofiled (CLI walls {b1['wall']:.1f} and "
+        f"{b0['wall']:.1f} s)")
+    if not n1 or med is None:
+        raise AssertionError(f"[13b] the trace names {n1} K1 kernels")
+    log(f"[13b] device busy share (union of kernel intervals): "
+        f"{100 * stage:.1f}% over the steady stage (first to last K1), "
+        f"median {100 * med:.1f}% (range {100 * rng[0]:.1f}-"
+        f"{100 * rng[1]:.1f}%) inside a steady block's K1 span")
+    return total
+
+
 def with_graphs(tag: str, phase, *args):
     """Run ``phase(*args)`` and log the block-program captures it made."""
     from gnsslib_tpu_torch.track.program import CAPTURES
@@ -2394,8 +2754,8 @@ def main() -> int:
     CAPTURES.reset()
     with_graphs("5", phase_fast_vs_cpu, dev, capture, paths["fe1"],
                 paths["fe2"])
-    slice_k1, ref_events, ref_epochs = with_graphs("6", phase_slice, dev,
-                                                   capture)
+    slice_k1, ref_events, ref_epochs, ref = with_graphs("6", phase_slice,
+                                                        dev, capture)
     launches = {"band_taps": slice_k1}
     with_graphs("7", phase_throughput, dev)
     prof = with_graphs("8", phase_profiler, dev)
@@ -2421,7 +2781,15 @@ def main() -> int:
     log(f"[12] band_taps launches on the live paths: pacer (12a) {live}, "
         f"RTL-SDR I/Q (12b) {live_iq}; the edge check (12c) {edge}")
     launches["band_taps"] += live + live_iq
-    log(f"[graphs] phases 5-12: {CAPTURES.captures} block-program captures "
+    # the diagnostics and the pipeline options: every K1 launch of their
+    # runs joins the band_taps row
+    diag = with_graphs("13", phase_diag, dev, capture, paths["fe1"],
+                       paths["fe2"], ref_events, ref_epochs, ref)
+    log(f"[13] band_taps launches of phase 13 (SPEC and --watch-html, the "
+        f"pipeline modes, the MultiReceiver with SPEC, --profile and its "
+        f"unprofiled twin): {diag}")
+    launches["band_taps"] += diag
+    log(f"[graphs] phases 5-13: {CAPTURES.captures} block-program captures "
         f"(the CLI runs' included), {CAPTURES.capture_s:.2f} s recording, "
         f"{CAPTURES.instantiate_s:.2f} s instantiating, pools "
         f"{CAPTURES.pool_bytes / 1e6:.1f} MB reserved in all; device memory "

@@ -43,6 +43,12 @@ class AcqResult:
     cn0: np.ndarray        # C/N0 estimate (dB-Hz)
     peakr: np.ndarray      # first/second peak ratio
     confirmed: np.ndarray  # even/odd-round peak agreement (bool)
+    P: torch.Tensor | None = None  # (C, F, nsamp_d) power surface on the
+                           # device, on the SEARCH grid: full-rate samples
+                           # when coarse is off, else cells of ``scale``
+                           # samples (``codei`` is always full-rate); only
+                           # with search_dev(diag=True), the pltacq view
+                           # (src/sdrmain.c:258)
 
 
 def _rot(ph: torch.Tensor) -> torch.Tensor:
@@ -247,13 +253,14 @@ class Acquirer:
         return codei, freqi, cn0, peakr
 
     def _search_rounds(self, rounds: torch.Tensor, consts: dict):
-        """(intg, 2*nsamp[, 2]) windows -> device decision vectors."""
+        """(intg, 2*nsamp[, 2]) windows -> the power surface P (C, F,
+        nsamp_d) and the device decision vectors."""
         Ph = self._power(rounds, consts)
         P = Ph[:, 0] + Ph[:, 1]
         codei, freqi, cn0, peakr = self.check_impl(P, consts["nsampchip"])
         if self.coarse:
             codei = self._refine(rounds, consts, codei, freqi)
-        return (codei, freqi, cn0, peakr,
+        return (P, codei, freqi, cn0, peakr,
                 self.confirm_impl(Ph, consts["nsampchip"]))
 
     def _rounds_from_flat(self, data: torch.Tensor) -> torch.Tensor:
@@ -267,16 +274,19 @@ class Acquirer:
                             for r in range(self.intg)])
 
     # -- receiver API --------------------------------------------------------
-    def search_dev_start(self, block: torch.Tensor, idx=None):
+    def search_dev_start(self, block: torch.Tensor, idx=None,
+                         diag: bool = False):
         """Queue a search over a device-resident float32 block (first
         (intg+1)*nsamp samples used) without reading the decisions back.
 
         ``idx``: optional pending-channel subset, padded to the next
         power-of-two bucket >= 4 (the JAX package's compile-variant bound;
         kept so both packages search the same channel sets); the others
-        come back unacquired."""
+        come back unacquired.  ``diag`` searches every channel (``idx`` is
+        ignored) and keeps the power surface on the device in the handle
+        (``AcqResult.P``)."""
         consts = self._consts
-        if idx is not None and len(idx) < self.C:
+        if idx is not None and len(idx) < self.C and not diag:
             bucket = 4
             while bucket < len(idx):
                 bucket *= 2
@@ -292,12 +302,13 @@ class Acquirer:
         else:
             idx = None
         rounds = self._rounds_from_flat(block)
-        return self._search_rounds(rounds, consts) + (idx,)
+        P, *vecs = self._search_rounds(rounds, consts)
+        return (P if diag else None, *vecs, idx)
 
     def search_dev_collect(self, handle) -> AcqResult:
         """Copy a search_dev_start handle's decision vectors to the host
-        -> AcqResult."""
-        *vecs, idx = handle
+        -> AcqResult (with the handle's device surface as ``P``)."""
+        P, *vecs, idx = handle
         codei, freqi, cn0, peakr, confirmed = [v.cpu().numpy() for v in vecs]
         if idx is not None:
             n = len(idx)
@@ -306,10 +317,14 @@ class Acquirer:
             for f, a in zip(full, (codei, freqi, cn0, peakr, confirmed)):
                 f[idx] = a[:n]           # peakr 0 elsewhere -> unacquired
             codei, freqi, cn0, peakr, confirmed = full
-        return self.postprocess(codei, freqi, cn0, peakr, confirmed)
+        res = self.postprocess(codei, freqi, cn0, peakr, confirmed)
+        res.P = P
+        return res
 
-    def search_dev(self, block: torch.Tensor, idx=None) -> AcqResult:
-        return self.search_dev_collect(self.search_dev_start(block, idx))
+    def search_dev(self, block: torch.Tensor, idx=None,
+                   diag: bool = False) -> AcqResult:
+        return self.search_dev_collect(self.search_dev_start(block, idx,
+                                                             diag))
 
     def stack_rounds(self, data: np.ndarray) -> np.ndarray:
         """(n[, 2]) samples -> (intg, 2*nsamp[, 2]) overlapping windows
@@ -342,4 +357,4 @@ class Acquirer:
         rounds = torch.from_numpy(self.stack_rounds(data)).to(self.device)
         return self.postprocess(*[
             v.cpu().numpy() for v in self._search_rounds(rounds,
-                                                         self._consts)])
+                                                         self._consts)[1:]])

@@ -4,6 +4,7 @@
 Usage:
     python -m gnsslib_tpu_torch <config.ini> [--device {cuda,cpu}]
         [--seconds N] [--nsteps N] [--ftype {0,1,2}] [--quiet] [--spp]
+        [--spec] [--watch] [--watch-html PATH] [--profile DIR]
         [--checkpoint PATH] [--resume PATH]
 
 Every RF path with configured channels is processed (``--ftype`` picks
@@ -18,17 +19,27 @@ driver binding of :mod:`..io` instead, its vendor library located through
 streams through ``run_live`` until the stream ends, ``--seconds`` or a
 stop; a binding that fails to load ends the run with exit code 1.
 
+``--spec`` (or ``[SPECTRUM] SPEC=1``) writes the spectrum and histogram
+of the first second to ``spectrum.npz`` under RINEXPATH (PNG plots too
+where matplotlib is installed) and runs the receiver's live spectrum
+monitor; ``--watch`` draws the terminal dashboard, ``--watch-html PATH``
+rewrites a self-refreshing HTML page (and implies SPEC), both at the
+SPEC_MS cadence of stream time; ``--profile DIR`` writes a
+``torch.profiler`` trace of the run (CPU and CUDA activities) into DIR
+for Chrome or TensorBoard.
+
 ``--device cuda`` (the default) requires a CUDA card and never falls back
 to the CPU.  SIGINT, SIGTERM and 'q' on a terminal stop the run at the
 next block boundary: the blocks in flight are collected, RINEX closes
 complete and ``--checkpoint`` is still written; a second signal forces the
-exit.  Options of the JAX package's CLI that the port does not carry
-yet raise ``NotImplementedError`` naming the option.
+exit.  ``--devices`` of the JAX package's CLI is not carried yet and
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import argparse
 import math
+import os
 import signal
 import sys
 import threading
@@ -42,8 +53,7 @@ from .config import LIVE_FENDS, load_ini
 from .receiver import build_receiver
 
 # flags of `python -m gnsslib_tpu` that the port does not carry yet
-UNPORTED_FLAGS = ("--devices", "--spec", "--watch", "--watch-html",
-                  "--profile")
+UNPORTED_FLAGS = ("--devices",)
 
 
 def _make_live_frontend(spec, built: list):
@@ -127,6 +137,82 @@ def _install_stop_handlers(rx, quiet: bool):
     return restore
 
 
+def _spectrum_views(rx, fe, cfg, device, quiet: bool) -> None:
+    """The reference spectrum analyzer view (src/sdrspec.c) of the first
+    second of IF data into ``spectrum.npz`` (and PNGs with matplotlib)
+    under RINEXPATH; with matplotlib, the live monitor's frames, the
+    acquisition surfaces and the correlator shapes refresh PNGs there
+    during the run (a file-based stand-in for the gnuplot windows)."""
+    import numpy as np
+    from ..diag import sample_histogram, welch_spectrum
+    from ..diag.plots import (plot_acq_surface, plot_correlator,
+                              plot_histogram, plot_spectrum)
+    spec = fe.spec
+    x = fe.read(0, min(int(spec.f_sf), fe.nsamples))
+    outdir = cfg.rinexpath
+    os.makedirs(outdir, exist_ok=True)
+    freq, pdb = welch_spectrum(x, spec.f_sf, iq=x.ndim == 2, device=device)
+    # bin width by front-end quantization: 8-bit formats get the full byte
+    # range, 2/3-bit LUT formats the reference's 3-bit view
+    nbit = 8 if spec.fend in (FT.FILE, FT.RTLSDR, FT.FRTLSDR, FT.BLADERF,
+                              FT.FBLADERF) else 3
+    edges, counts = sample_histogram(x, nbit=nbit)
+    np.savez(os.path.join(outdir, "spectrum.npz"), freq=freq, pdb=pdb,
+             edges=edges, counts=counts)
+    p1 = plot_spectrum(freq, pdb, os.path.join(outdir, "spectrum.png"))
+    p2 = plot_histogram(edges, counts, os.path.join(outdir, "histogram.png"))
+    if not quiet:
+        print(f"spectrum diagnostics: {outdir}/spectrum.npz"
+              + (f", {p1}, {p2}" if p1 else " (matplotlib absent)"))
+    parts = getattr(rx, "rx", [rx])
+    mons = [r.spec_monitor for r in parts if r.spec_monitor is not None]
+    if not (mons and p1):
+        return
+    nseen = [0]
+
+    def live_view(frame):
+        # every 5th frame (~1 s of stream)
+        nseen[0] += 1
+        if nseen[0] % 5:
+            return
+        plot_spectrum(frame.freq_hz, frame.pspec_db,
+                      os.path.join(outdir, "spectrum_live.png"))
+        plot_histogram(frame.hist_edges, frame.hist_counts,
+                       os.path.join(outdir, "histogram_live.png"))
+        # correlator tap shapes (reference plttrk, src/sdrmain.c:293-299)
+        for r in parts:
+            for prn, cv in r.corr_views.items():
+                plot_correlator(cv["offsets"], cv["mag"],
+                                os.path.join(outdir, f"corr_{prn:02d}.png"),
+                                title=f"PRN {prn} taps @ {cv['t']:.1f}s")
+    mons[0].on_frame = live_view
+
+    def acq_view(ch, view):
+        # acquisition surface at lock (reference pltacq, sdrmain.c:258-261)
+        plot_acq_surface(
+            view["surface"], view["dopp_hz"],
+            os.path.join(outdir, f"acq_{ch.cfg.prn:02d}.png"),
+            title=(f"PRN {ch.cfg.prn} acq @ {view['t']:.1f}s "
+                   f"C/N0 {view['cn0']:.1f} dB-Hz"),
+            scale=view.get("grid_scale", 1.0), codei=view.get("codei"))
+    for r in parts:
+        r.on_acq = acq_view
+
+
+def _profiled(runner, args, progress, device) -> dict:
+    """``runner`` under ``torch.profiler`` with CPU (and, on a card, CUDA)
+    activities, its trace written into ``args.profile`` for Chrome or
+    TensorBoard (the JAX CLI's ``jax.profiler.trace``)."""
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts,
+                 on_trace_ready=tensorboard_trace_handler(args.profile)):
+        return runner(args.seconds, progress=progress)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="gnsslib_tpu_torch",
@@ -146,6 +232,21 @@ def main(argv=None) -> int:
                     help="solve single-point positions per obs epoch "
                          "(also [OUTPUT] SPP=1); writes a .pos file "
                          "alongside RINEX")
+    ap.add_argument("--spec", action="store_true",
+                    help="write IF spectrum/histogram diagnostics "
+                         "(also enabled by [SPECTRUM] SPEC=1)")
+    ap.add_argument("--watch", action="store_true",
+                    help="live terminal dashboard (lock, C/N0, Doppler, "
+                         "nav, epoch table; SPEC_MS refresh) instead of "
+                         "the one-line progress counter")
+    ap.add_argument("--watch-html", metavar="PATH", default=None,
+                    help="graphical live view: rewrite a self-refreshing "
+                         "HTML page (channel table + spectrum, acq "
+                         "surface, correlator-shape SVGs) at the SPEC_MS "
+                         "cadence; implies --spec")
+    ap.add_argument("--profile", metavar="DIR", default=None,
+                    help="write a torch.profiler trace of the run (CPU and "
+                         "CUDA activities) into DIR")
     ap.add_argument("--checkpoint", metavar="PATH", default=None,
                     help="save a resumable receiver snapshot at the end")
     ap.add_argument("--resume", metavar="PATH", default=None,
@@ -167,6 +268,9 @@ def main(argv=None) -> int:
     cfg = load_ini(args.config)
     if args.spp:
         cfg.spp = True
+    if args.watch_html:
+        # the acq/correlator/spectrum views populate only with the monitor
+        cfg.spec = True
     if not cfg.fends:
         print("error: config has no front end ([FEND] missing?)",
               file=sys.stderr)
@@ -214,9 +318,25 @@ def main(argv=None) -> int:
         rx.load_checkpoint(args.resume)
     fe = fes[use_ftypes[0]]
     spec = fe.spec
+    if args.spec or cfg.spec:
+        _spectrum_views(rx, fe, cfg, device, args.quiet)
+
+    watch = htmlview = None
+    if args.watch:
+        from ..diag.watch import Watch
+        watch = Watch(rx)
+    if args.watch_html:
+        from ..diag.htmlview import HtmlView
+        htmlview = HtmlView(rx, args.watch_html)
+        if not args.quiet:
+            print(f"live view: file://{os.path.abspath(args.watch_html)}")
 
     def progress(t):
-        if not args.quiet:
+        if htmlview is not None:
+            htmlview.tick(t)
+        if watch is not None:
+            watch.tick(t)
+        elif not args.quiet:
             locked = sum(ch.locked for ch in rx.channels)
             dec = sum(ch.nav.flagdec for ch in rx.channels)
             print(f"\r  t={t:7.1f}s locked={locked} decoded={dec} "
@@ -234,9 +354,16 @@ def main(argv=None) -> int:
                      f"{fe.nsamples/spec.f_sf:.1f} s of IF data"),
                   flush=True)
         runner = rx.run_live if live else rx.run_seconds
-        stats = runner(args.seconds, progress=progress)
+        if args.profile:
+            stats = _profiled(runner, args, progress, device)
+            if not args.quiet:
+                print(f"\nprofile: {args.profile}")
+        else:
+            stats = runner(args.seconds, progress=progress)
         if args.checkpoint:
             rx.save_checkpoint(args.checkpoint)
+        if htmlview is not None:
+            htmlview.close()            # final frame with the end state
     finally:
         restore()
         rx.close()

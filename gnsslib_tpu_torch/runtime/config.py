@@ -6,9 +6,10 @@ two-level INI layout (bin/gnss-sdrcli.ini + frontend/*.ini via FENDCONF;
 reference readinifile, src/sdrinit.c:106-211) into the same fields, with
 the port's :class:`TrackConfig`.
 
-:func:`unported_options` names every configured option the port's
-receiver does not carry yet; the receiver raises ``NotImplementedError``
-for them instead of ignoring them.
+:func:`unported_options` is the one place that names a configured option
+the port's receiver does not carry; the receiver would raise
+``NotImplementedError`` for it instead of ignoring it.  Every option of
+the INI is carried today.
 """
 from __future__ import annotations
 
@@ -186,9 +187,9 @@ def load_ini(path: str) -> ReceiverConfig:
 
 
 def unported_options(cfg: ReceiverConfig) -> list[str]:
-    """Configured options outside the port's receiver (file-replay and
-    live front ends, one or two RF paths, real or I/Q sampling; GPS L1CA,
-    GLONASS G1 and SBAS channels; RINEX, RTCM, SBAS, SPP and track log
-    output; relock, hot start and acquisition confirmation), by their INI
-    names."""
-    return ["SPEC"] if cfg.spec else []
+    """Configured options outside the port's receiver, by their INI names:
+    none.  The receiver carries file-replay and live front ends, one or
+    two RF paths, real or I/Q sampling; GPS L1CA, GLONASS G1 and SBAS
+    channels; RINEX, RTCM, SBAS, SPP and track log output; relock, hot
+    start and acquisition confirmation; and the SPEC diagnostics."""
+    return []

@@ -13,13 +13,24 @@ For each block of IF samples:
 Each tracking block is one program (:mod:`..track.program`): on a card a
 CUDA graph of the pull-in or steady-state loop, captured when the receiver
 is built (the counterpart of the JAX receiver's ``_precompile``) and
-replayed per block.  Tracking blocks and searches are queued on the
-device ``PIPELINE_DEPTH`` blocks deep (the JAX receiver's defaults:
-pipelined acquisition, pull-in and steady state); a block's telemetry is
-copied to the host (``.cpu()``) only after later blocks have been queued,
-so the copy and the host nav work overlap device compute.  A search's decision therefore starts a
-channel two blocks after its searched block, with the code phase
-propagated along the acquired code-Doppler trajectory.
+replayed per block.  The JAX receiver's pipeline options carry over with
+its defaults: tracking blocks are queued ``pipeline_depth`` blocks deep in
+the steady state (``pipeline``) and in pull-in (``pipeline_pullin``), and a
+block's telemetry is copied to the host (``.cpu()``) only after later
+blocks have been queued; searches are queued too (``pipeline_acq``) and
+decided ``acq_pipeline_depth`` blocks later, the code phase propagated
+along the acquired code-Doppler trajectory.  Without them a block's or a
+search's results are read at once.  A block's telemetry feeds only the
+lock it was dispatched for: a channel reset and started again while the
+block was queued has a new lock generation.
+
+With SPEC (``[SPECTRUM] SPEC=1``) the receiver carries the diagnostics of
+the JAX receiver: a :class:`~..diag.monitor.SpectrumMonitor` on the
+stream-time SPEC_MS grid, the acquisition surface of each acquired
+channel (``acq_views``, ``on_acq``; the search then runs over every
+channel and keeps its surface on the device until a lock is applied), the
+last correlator tap shape of each channel (``corr_views``), and the host
+shadows ``dcarr_live``/``prompt_live`` that the dashboards read.
 
 The positioning options follow the JAX receiver: single-point positions
 per epoch (SPP, with RAIM and a Hatch smoother before output), RTCM3 over
@@ -73,6 +84,7 @@ from ..obs.rtcm import encode_1019, encode_1020, encode_1044, encode_msm7
 from ..obs.smooth import HatchSmoother
 from ..obs.spp import ecef2llh, predict_range, spp_solve
 from ..acquire.search import Acquirer, AcqResult
+from ..diag.monitor import SpectrumMonitor
 from ..io.devcache import block_cache
 from ..ops.nco import NSPAN
 from ..sat import satno, satno2id
@@ -82,7 +94,6 @@ from ..track.state import loop_interval, state_from_numpy, state_to_numpy
 from .config import ReceiverConfig, unported_options
 from .tcpout import TcpServer
 
-PIPELINE_DEPTH = 2        # blocks (and searches) in flight before collect
 # The widest spread, in code periods, between the channels of one group
 # that a tracking block covers.  A GPS satellite's range moves between
 # ~20,200 km (zenith) and ~25,800 km (horizon) over a pass: 5,600 km,
@@ -96,24 +107,25 @@ PIPELINE_DEPTH = 2        # blocks (and searches) in flight before collect
 SPREAD_PERIODS = 40
 
 
-def block_geometry(nsteps: int, nsamp: int, nwin: int) -> dict:
+def block_geometry(nsteps: int, nsamp: int, nwin: int,
+                   depth: int = 2) -> dict:
     """A tracking block's extents for ``nsteps`` periods of ``nsamp``
-    nominal samples and ``nwin``-sample windows:
+    nominal samples, ``nwin``-sample windows and a pipeline ``depth``:
 
     * ``block_len``: what one block's periods need after a channel's
       first window (nsteps periods of at most nsamp + NSPAN samples, the
       last window, slack), and the extent the search reads from ``base``;
-    * ``margin``: the host knows each channel's position from blocks up
-      to PIPELINE_DEPTH blocks old, and a period moves a window by at most
-      NSPAN samples from nominal (``n`` is clamped there), so this bounds
-      the error of its estimate;
+    * ``margin``: the host places a block from each channel's position in
+      the block ``depth`` blocks before it (:meth:`Receiver._place`), and
+      a period moves a window by at most NSPAN samples from nominal
+      (``n`` is clamped there), so this bounds the error of its estimate;
     * ``lead``: the block starts one code period and the margin before
       the earliest channel's estimated next period start;
     * ``room``: a channel may start up to this far into the block (the
       :data:`SPREAD_PERIODS` bound, one period, the margin on both sides);
     * ``span``: the block's length, room + block_len."""
     block_len = nsteps * nsamp + nwin + NSPAN * nsteps + 2 * nsamp + 64
-    margin = (PIPELINE_DEPTH + 1) * nsteps * NSPAN
+    margin = (depth + 1) * nsteps * NSPAN
     room = (SPREAD_PERIODS + 1) * nsamp + 2 * margin
     return dict(block_len=block_len, margin=margin, lead=nsamp + margin,
                 room=room, span=room + block_len)
@@ -134,6 +146,10 @@ class ChannelRuntime:
     t_acq: float = -1e9      # stream time the current lock started
     cn0: float = 0.0
     peak_prompt: float = 0.0
+    # host shadows of the last collected block's telemetry for the
+    # operator dashboards (diag/watch.py): never read from the device
+    dcarr_live: float = 0.0
+    prompt_live: float = 0.0
 
 
 class OutputHub:
@@ -299,12 +315,26 @@ class Receiver:
     merged epochs); by default the receiver owns its hub and emits epochs
     itself.  ``cache``: the :class:`DeviceBlockCache` of another group on
     the same front end.  ``frontend`` may be live (``is_live``): then
-    :meth:`run_live` streams it.  SPEC raises ``NotImplementedError``."""
+    :meth:`run_live` streams it.
+
+    The pipeline options are the JAX receiver's, with its defaults:
+    ``pipeline`` queues steady-state blocks and ``pipeline_pullin`` (by
+    default ``pipeline``) pull-in blocks ``pipeline_depth`` deep before
+    their telemetry is collected; ``pipeline_acq`` (by default
+    ``pipeline``) decides a search ``acq_pipeline_depth`` (by default 2)
+    blocks after it was queued, else at once through :attr:`_acq_search`
+    (the override point, :meth:`_acq_dispatch`).  The block's placement
+    uses the same estimates in every mode, so a pure scheduling change
+    gives the same bits."""
 
     def __init__(self, cfg: ReceiverConfig, frontend, *, device,
                  ftype: int = 1, nsteps_per_block: int = 400,
                  hub: OutputHub | None = None, standalone: bool = True,
-                 channels=None, cache: DeviceBlockCache | None = None):
+                 channels=None, cache: DeviceBlockCache | None = None,
+                 pipeline: bool = True, pipeline_depth: int = 2,
+                 pipeline_acq: bool | None = None,
+                 acq_pipeline_depth: int | None = None,
+                 pipeline_pullin: bool | None = None):
         missing = unported_options(cfg)
         if missing:
             raise NotImplementedError(
@@ -316,8 +346,21 @@ class Receiver:
         self.cfg = cfg
         self.frontend = frontend
         self.standalone = standalone
-        self._pending = []            # FIFO of (getter, base, cnt0, locked0)
-        self._acq_pend: list = []     # (getter, base, t_disp, pend_idx)
+        self.pipeline = bool(pipeline)
+        self.pipeline_depth = max(1, int(pipeline_depth))
+        self.pipeline_pullin = (self.pipeline if pipeline_pullin is None
+                                else bool(pipeline_pullin))
+        self.pipeline_acq = (self.pipeline if pipeline_acq is None
+                             else bool(pipeline_acq))
+        self.acq_pipeline_depth = (2 if acq_pipeline_depth is None
+                                   else max(1, int(acq_pipeline_depth)))
+        # queued tracking blocks, oldest first: (getter, base, origin,
+        # ndisp, gen0, lock0, cnt0), and the position updates of collected
+        # blocks not yet applied (_track_positions)
+        self._pending: list = []
+        self._pos_pend: list = []
+        self._acq_pend: list = []     # (getter, base, at, t_disp, pend_idx)
+        self._acq_search = self._acq_dispatch      # the override point
         spec = cfg.fends[ftype - 1]
         self.spec = spec
         prns = [c.prn for c in chans]
@@ -341,7 +384,8 @@ class Receiver:
         self.nsamp = self.trk.n_nom
         self.nsteps = int(nsteps_per_block)
         # the block follows its channels (_place), at these extents
-        geo = block_geometry(self.nsteps, self.nsamp, self.trk.nwin)
+        geo = block_geometry(self.nsteps, self.nsamp, self.trk.nwin,
+                             self.pipeline_depth)
         self.block_len, self.margin = geo["block_len"], geo["margin"]
         self.lead, self.room, self.span = geo["lead"], geo["room"], \
             geo["span"]
@@ -362,6 +406,9 @@ class Receiver:
         self._pos = np.zeros(C, np.int64)
         self._live = np.zeros(C, bool)
         self._gen = np.zeros(C, np.int64)
+        # each channel's lock generation, bumped whenever its lock starts or
+        # ends: a queued block feeds a channel only while it is unchanged
+        self._lockgen = np.zeros(C, np.int64)
         # each channel's median prompt magnitude in its latest collected
         # block (inf until one is collected): which channel gives way when
         # locked channels spread beyond the bound (_place)
@@ -404,6 +451,16 @@ class Receiver:
         # cooperative stop (the reference's keythread 'q' -> stopflag,
         # src/sdrmain.c:59-80): run_seconds ends at the next block boundary
         self.stop_requested = False
+        # live diagnostics (SPEC): the spectrum monitor on the reference
+        # spectrum-thread cadence (SPEC_MS, src/sdrspec.c:29-110), the
+        # acquisition surface per acquired PRN (pltacq) and the last
+        # correlator tap shape per PRN (plttrk, src/sdrmain.c:258-299)
+        self.spec_monitor = (SpectrumMonitor(
+            frontend, spec.f_sf, spec.dtype == DType.IQ,
+            device=self.trk.device) if cfg.spec else None)
+        self.acq_views = {}
+        self.corr_views = {}
+        self.on_acq = None
         self._precompile()
 
     def _precompile(self) -> None:
@@ -442,6 +499,7 @@ class Receiver:
         self._pos[i] = self.origin + loc
         self._live[i] = True
         self._gen[i] += 1
+        self._lockgen[i] += 1
         self._prompt[i] = np.inf
 
     def _mark(self, name: str) -> None:
@@ -470,14 +528,33 @@ class Receiver:
         return self.hub.nav_writer
 
     # ------------------------------------------------------------------ #
+    def _search_block(self):
+        """The samples a search reads (``block_len`` of them, from ``base``
+        or the nearest sample in the block, :meth:`_search_offset`) and
+        the stream sample where they start."""
+        off = self._search_offset()
+        return self._block()[off:off + self.block_len], self.origin + off
+
+    def _acq_dispatch(self) -> AcqResult:
+        """One acquisition pass over the current stream position, decided
+        at once: the single override point (tests intercept it to suppress
+        channels).  With the diagnostics monitor on, every channel is
+        searched and the power surface rides along (the pltacq view,
+        src/sdrmain.c:258-261)."""
+        block, _ = self._search_block()
+        return self.acq.search_dev(block,
+                                   diag=self.spec_monitor is not None)
+
     def _collect_acq(self, all_pending: bool = False) -> None:
-        """Apply in-flight searches dispatched at least PIPELINE_DEPTH
-        blocks ago (all of them with ``all_pending``)."""
+        """Apply in-flight searches dispatched at least
+        ``acq_pipeline_depth`` blocks ago (all of them with
+        ``all_pending``)."""
         adv = self.nsteps * self.nsamp
+        depth = self.acq_pipeline_depth
         while self._acq_pend and (
                 all_pending
-                or self.base - self._acq_pend[0][1] >= PIPELINE_DEPTH * adv
-                or len(self._acq_pend) > PIPELINE_DEPTH):
+                or self.base - self._acq_pend[0][1] >= depth * adv
+                or len(self._acq_pend) > depth):
             getter, _, at, t_disp, pend_idx = self._acq_pend.pop(0)
             self._apply_acq(getter(), at, t_disp, pend_idx)
 
@@ -493,12 +570,18 @@ class Receiver:
         for ch in pend:
             ch.last_acq_attempt = t_stream
         idx = [ch.idx for ch in pend]
-        off = self._search_offset()
+        if not (self.pipeline_acq and getattr(self._acq_search, "__func__",
+                                              None) is Receiver._acq_dispatch):
+            # decided now (tests overriding _acq_search take this path)
+            _, at = self._search_block()
+            self._apply_acq(self._acq_search(), at, t_stream, idx)
+            return
+        block, at = self._search_block()
         handle = self.acq.search_dev_start(
-            self._block()[off:off + self.block_len], idx=idx)
+            block, idx=idx, diag=self.spec_monitor is not None)
         self._acq_pend.append((
             functools.partial(self.acq.search_dev_collect, handle),
-            self.base, self.origin + off, t_stream, idx))
+            self.base, at, t_stream, idx))
 
     def _apply_acq(self, res: AcqResult, at: int, t_disp: float,
                    pend_idx: list[int]) -> None:
@@ -526,6 +609,18 @@ class Receiver:
             self._events.append(
                 ("acq", t_disp, ch.cfg.prn, float(res.cn0[i]),
                  float(res.peakr[i])))
+            if res.P is not None:
+                # only an acquired channel's surface leaves the device;
+                # grid_scale: full-rate samples per surface code-phase cell
+                # (> 1 with the coarse search): codei is full-rate
+                view = dict(surface=res.P[i].cpu().numpy(),
+                            dopp_hz=self.acq.dopp_hz,
+                            codei=ch.acq_codei,
+                            grid_scale=float(self.acq.scale),
+                            cn0=float(res.cn0[i]), t=t_disp)
+                self.acq_views[ch.cfg.prn] = view
+                if self.on_acq is not None:
+                    self.on_acq(ch, view)
 
     def _try_hotstart(self, pend: list, t_stream: float) -> list:
         """Position/ephemeris-aided handoff (HOTSTART=1): once fixes
@@ -539,7 +634,7 @@ class Receiver:
             return pend
         # the prediction anchors on the reference channel's newest history
         # record: collect the in-flight blocks first, or the anchor is
-        # PIPELINE_DEPTH blocks stale
+        # pipeline_depth blocks stale
         self.flush()
         # the flush may have applied a search that locked some of these
         pend = [ch for ch in pend if not ch.locked]
@@ -597,15 +692,21 @@ class Receiver:
 
     # ------------------------------------------------------------------ #
     def _feed_nav_and_obs(self, out, cnt0: np.ndarray, base: int,
-                          origin: int, locked0: list[bool]) -> None:
+                          origin: int, lock0: np.ndarray) -> None:
         """Nav, relock checks, track logs and observable history of one
-        collected block, whose first sample is ``origin``."""
+        collected block, whose first sample is ``origin``, for each
+        channel still on the lock it had when the block was dispatched
+        (lock generation ``lock0``): a channel that was idle then, or was
+        reset and started again while the block was queued, skips it."""
         for ch in self.channels:
-            if not (ch.locked and locked0[ch.idx]):
-                continue
             i = ch.idx
+            if not (ch.locked and lock0[i] == self._lockgen[i]):
+                continue
             was_started = int(cnt0[i])
             steps = out.ip.shape[0]
+            # the dashboards' shadows (host arrays; no device read)
+            ch.dcarr_live = float(out.dcarr[-1, i])
+            ch.prompt_live = float(np.median(np.abs(out.ip[:, i])))
             evs = ch.nav.update(
                 out.ip[:, i], origin + out.loc[:, i].astype(np.int64),
                 was_started)
@@ -622,6 +723,15 @@ class Receiver:
             if i in self.loggers:
                 self.loggers[i].log_block(out, i, ch.nav, ch.hist,
                                           int(cnt0[i]))
+            if self.spec_monitor is not None:
+                # both loop phases update the taps: show the latest update
+                upd = np.nonzero(out.flagloopfilter[:, i] > 0)[0]
+                if len(upd):
+                    k = int(upd[-1])
+                    self.corr_views[ch.cfg.prn] = dict(
+                        offsets=np.asarray(self.trk.offsets),
+                        mag=np.hypot(out.sum_i[k, i], out.sum_q[k, i]),
+                        t=base / self.spec.f_sf)
             if self.cfg.relock and ch.synced:
                 self._check_lock(ch, out, base)
             elif self.cfg.relock and not ch.synced:
@@ -694,6 +804,7 @@ class Receiver:
         ch.hist.nrec = 0
         ch.last_acq_attempt = -1e9
         ch.peak_prompt = 0.0
+        self._lockgen[ch.idx] += 1
         self._events.append(("lol", t_stream, ch.cfg.prn))
 
     def _check_pullin(self, ch, base: int) -> None:
@@ -771,6 +882,7 @@ class Receiver:
             self._pos = self.origin + np.asarray(d["state"]["loc"],
                                                  np.int64)
         self._gen += 1
+        self._lockgen += 1
         self._prompt[:] = np.inf
         self.hub._oldreftow = d["oldreftow"]
         self.state = state_from_numpy(d["state"], self.trk.device)
@@ -816,10 +928,12 @@ class Receiver:
 
     def step_block(self) -> None:
         """Process one block: acquire, track, nav, observable history and
-        epochs.  The block is only queued here; its nav/obs host work runs
-        when it matures (:meth:`flush` finalizes the rest)."""
+        epochs.  A pipelined block is only queued here; its nav/obs host
+        work runs when it matures (:meth:`flush` finalizes the rest)."""
         t0 = time.time()
         advance = self.nsteps * self.nsamp
+        if self.spec_monitor is not None:
+            self.spec_monitor.maybe_update(self.base)
         self._collect_acq()
         self._try_acquire()
         if not any(ch.locked for ch in self.channels):
@@ -837,21 +951,32 @@ class Receiver:
         if use_fast:
             self._mark("steady")
         eng = self.fast if use_fast else self.trk
+        pipelined = self.pipeline if use_fast else self.pipeline_pullin
+        if not pipelined:
+            # strict order: the queued blocks' nav work first (the queued
+            # searches stay queued)
+            self._flush_blocks()
         cnt0 = self._cnt_host.copy()
-        locked0 = [ch.locked for ch in self.channels]
+        locked0 = np.array([ch.locked for ch in self.channels])
         block = self._block()
         self.state, handle = eng.run_block_start(self.state, block,
                                                  self.nsteps)
         self._ndisp += 1
         self._pos[self._live] += advance
-        self._pending.append((functools.partial(eng.run_block_collect,
-                                                handle),
-                              self.base, self.origin, self._ndisp,
-                              self._gen.copy(), cnt0, locked0))
-        while len(self._pending) > PIPELINE_DEPTH:
-            self._collect(*self._pending.pop(0))
-        self._cnt_host[np.asarray(locked0)] += self.nsteps
+        entry = (functools.partial(eng.run_block_collect, handle),
+                 self.base, self.origin, self._ndisp, self._gen.copy(),
+                 self._lockgen.copy(), cnt0)
+        if pipelined:
+            self._pending.append(entry)
+            while len(self._pending) > self.pipeline_depth:
+                self._collect(*self._pending.pop(0))
+        else:
+            self._collect(*entry)
+        self._cnt_host[locked0] += self.nsteps
         self.base += advance
+        # the next block starts from the channels' positions as of the
+        # block dispatched pipeline_depth blocks back, in every mode
+        self._track_positions(self._ndisp - self.pipeline_depth)
         self._place()
         self._mark("first_block")
         self.stage_wall["steady" if use_fast else "pullin"] += \
@@ -902,36 +1027,44 @@ class Receiver:
             self.state, shift - moved * self.nsamp if moved.any() else shift)
         self.origin = new
 
-    def _track_positions(self, out, origin: int, ndisp: int,
-                         gen0: np.ndarray) -> None:
-        """Update the estimates from a collected block (dispatched as the
-        ``ndisp``-th at ``origin``): each channel still on the same track
-        ends it at its last window plus that period's length, and has run
-        ``nsteps`` nominal periods in each block dispatched since."""
-        same = self._live & (gen0 == self._gen)
-        if not same.any():
-            return
-        end = (origin + out.loc[-1].astype(np.int64)
-               + out.n[-1].astype(np.int64))
-        later = (self._ndisp - ndisp) * self.nsteps * self.nsamp
-        self._pos[same] = end[same] + later
-        self._prompt[same] = np.median(np.abs(out.ip) + np.abs(out.qp),
-                                       axis=0)[same]
+    def _track_positions(self, upto: int | None = None) -> None:
+        """Update the estimates from the collected blocks dispatched as the
+        ``upto``-th or earlier (all of them by default), oldest first: each
+        channel still on the same track (position generation unchanged)
+        ends the block at its last window plus that period's length, and
+        has run ``nsteps`` nominal periods in each block dispatched since.
+        Whether a block was pipelined or not, its estimate is used after
+        the same dispatches, so both modes place the same blocks."""
+        while self._pos_pend and (upto is None
+                                  or self._pos_pend[0][0] <= upto):
+            ndisp, gen0, end, prompt = self._pos_pend.pop(0)
+            same = self._live & (gen0 == self._gen)
+            later = (self._ndisp - ndisp) * self.nsteps * self.nsamp
+            self._pos[same] = end[same] + later
+            self._prompt[same] = prompt[same]
 
     def _collect(self, getter, base: int, origin: int, ndisp: int,
-                 gen0: np.ndarray, cnt0: np.ndarray,
-                 locked0: list[bool]) -> None:
+                 gen0: np.ndarray, lock0: np.ndarray,
+                 cnt0: np.ndarray) -> None:
         out = getter()
-        self._track_positions(out, origin, ndisp, gen0)
-        self._feed_nav_and_obs(out, cnt0, base, origin, locked0)
+        self._pos_pend.append((
+            ndisp, gen0,
+            origin + out.loc[-1].astype(np.int64) + out.n[-1].astype(np.int64),
+            np.median(np.abs(out.ip) + np.abs(out.qp), axis=0)))
+        self._feed_nav_and_obs(out, cnt0, base, origin, lock0)
         self._emit_epochs()
 
-    def flush(self) -> None:
-        """Apply in-flight searches, then finalize in-flight blocks."""
-        self._collect_acq(all_pending=True)
+    def _flush_blocks(self) -> None:
         pending, self._pending = self._pending, []
         for p in pending:
             self._collect(*p)
+
+    def flush(self) -> None:
+        """Apply in-flight searches, then finalize in-flight blocks and
+        take their positions."""
+        self._collect_acq(all_pending=True)
+        self._flush_blocks()
+        self._track_positions()
 
     def close(self) -> None:
         """Flush pending work, close the track logs and, when standalone,
@@ -1035,12 +1168,15 @@ class MultiReceiver:
     ``parts``: a list of (ftype, frontend, channels).  The groups of one
     front end share its device sample cache; each group captures its own
     block programs.  Every group's blocks must span the same stream time.
-    Each group keeps ``PIPELINE_DEPTH`` blocks in flight and all of them
+    Each group keeps the same number of blocks in flight and all of them
     step together, so after every lockstep step they have collected the
-    same blocks; the hub then merges the epochs their histories cover."""
+    same blocks; the hub then merges the epochs their histories cover.
+    ``pipeline`` is every group's (:class:`Receiver`).  With SPEC, the
+    groups of one front end share its one spectrum monitor (the first
+    group's)."""
 
     def __init__(self, cfg: ReceiverConfig, parts: list, *, device,
-                 nsteps_per_block: int = 400):
+                 nsteps_per_block: int = 400, pipeline: bool = True):
         self.cfg = cfg
         self.hub = OutputHub(cfg)
         self.rx: list[Receiver] = []
@@ -1050,7 +1186,10 @@ class MultiReceiver:
                 r = Receiver(cfg, fe, device=device, ftype=ft,
                              nsteps_per_block=nsteps_per_block, hub=self.hub,
                              standalone=False, channels=chans,
-                             cache=caches.get(id(fe)))
+                             cache=caches.get(id(fe)), pipeline=pipeline)
+                if id(fe) in caches:
+                    # one spectrum monitor per physical front end
+                    r.spec_monitor = None
                 caches.setdefault(id(fe), r.cache)
                 self.rx.append(r)
             durations = {r.nsteps * r.nsamp / r.spec.f_sf for r in self.rx}
@@ -1208,10 +1347,10 @@ class DualReceiver(MultiReceiver):
 
 
 def build_receiver(cfg: ReceiverConfig, frontends, *, device,
-                   nsteps_per_block: int = 400):
+                   nsteps_per_block: int = 400, pipeline: bool = True):
     """The receiver for ``cfg``: channels grouped by (RF path, loop
     cadence); a single group gets a plain :class:`Receiver`, several a
-    :class:`MultiReceiver`.
+    :class:`MultiReceiver`, each with ``pipeline``.
 
     ``frontends``: a {ftype: frontend} dict, or a list paired with the
     configured FTYPEs in sorted order (a single frontend is accepted)."""
@@ -1234,6 +1373,8 @@ def build_receiver(cfg: ReceiverConfig, frontends, *, device,
     if len(parts) == 1:
         ft, fe, grp = parts[0]
         return Receiver(cfg, fe, device=device, ftype=ft,
-                        nsteps_per_block=nsteps_per_block, channels=grp)
+                        nsteps_per_block=nsteps_per_block, channels=grp,
+                        pipeline=pipeline)
     return MultiReceiver(cfg, parts, device=device,
-                         nsteps_per_block=nsteps_per_block)
+                         nsteps_per_block=nsteps_per_block,
+                         pipeline=pipeline)

@@ -1,5 +1,6 @@
 """The port's own copies of the JAX package's host-side modules (constants,
-codes, sim, nav, obs, io, the RTCM server, the track logger) against their
+codes, sim, nav, obs, io, the RTCM server, the track logger, the sample
+histogram, the dashboards and the plots) against their
 originals on the same inputs: the two copies must give identical arrays,
 events, solutions and bytes, so they cannot drift apart unnoticed.  The
 native host kernels are held three ways: the port's native library, its
@@ -25,7 +26,11 @@ import gnsslib_tpu_torch.codes as t_codes
 import gnsslib_tpu_torch.constants as t_const
 import gnsslib_tpu_torch.sim as t_sim
 from gnsslib_tpu import gtime as j_gtime
+from gnsslib_tpu.diag import htmlview as j_htmlview
+from gnsslib_tpu.diag import plots as j_plots
+from gnsslib_tpu.diag import spectrum as j_spectrum
 from gnsslib_tpu.diag import tracklog as j_tracklog
+from gnsslib_tpu.diag import watch as j_watch
 from gnsslib_tpu.io import frontend as j_fe
 from gnsslib_tpu.nav import NavChannel as JNav
 from gnsslib_tpu.nav import eph as j_eph
@@ -37,7 +42,11 @@ from gnsslib_tpu.obs import spp as j_spp
 from gnsslib_tpu.runtime import tcpout as j_tcpout
 from gnsslib_tpu_torch import gtime as t_gtime
 from gnsslib_tpu_torch import native as t_native
+from gnsslib_tpu_torch.diag import htmlview as t_htmlview
+from gnsslib_tpu_torch.diag import plots as t_plots
+from gnsslib_tpu_torch.diag import spectrum as t_spectrum
 from gnsslib_tpu_torch.diag import tracklog as t_tracklog
+from gnsslib_tpu_torch.diag import watch as t_watch
 from gnsslib_tpu_torch.io import formats as t_formats
 from gnsslib_tpu_torch.io import frontend as t_fe
 from gnsslib_tpu_torch.nav import NavChannel as TNav
@@ -314,6 +323,120 @@ def _tracklog(tmp_path):
     assert texts[0] and texts[0] == texts[1]
 
 
+def _histogram(tmp_path):
+    rng = np.random.default_rng(4)
+    for x in (rng.integers(-128, 128, 20_000).astype(np.float32),
+              rng.normal(0, 2.5, (5_000, 2)).round().astype(np.float32)):
+        for nbit in (2, 3, 8):
+            for a, b in zip(j_spectrum.sample_histogram(x, nbit),
+                            t_spectrum.sample_histogram(x, nbit)):
+                np.testing.assert_array_equal(b, a)
+
+
+def _receiver_standin():
+    """Host-side receiver state as the dashboards read it: two channel
+    groups (a MultiReceiver's ``rx``) with locked, synced, decoded and
+    idle GPS, GLONASS and SBAS channels, events, a fix, the spectrum
+    monitor's latest frame, acquisition surfaces and tap shapes."""
+    from types import SimpleNamespace as NS
+    rng = np.random.default_rng(6)
+    CT = j_const.CodeType
+
+    def chan(prn, ctype, ftype, locked, synced, dec, tow):
+        return NS(cfg=NS(prn=prn, ctype=int(ctype), ftype=ftype),
+                  locked=locked, synced=synced, nav=NS(flagdec=dec),
+                  hist=NS(nrec=1 if tow else 0, tow=np.array([tow or 0.0])),
+                  cn0=float(rng.uniform(35, 50)),
+                  dcarr_live=float(rng.uniform(-4000, 4000)),
+                  prompt_live=float(rng.uniform(1e3, 9e3)))
+    frame = NS(freq_hz=np.arange(512) * 8e3, pspec_db=rng.normal(40, 3, 512),
+               hist_edges=np.arange(-4, 4), hist_counts=rng.integers(
+                   0, 900, 8))
+    g1 = NS(channels=[chan(3, CT.L1CA, 1, True, True, True, 352812.4),
+                      chan(11, CT.L1CA, 1, True, True, False, None),
+                      chan(19, CT.L1CA, 1, True, False, False, None),
+                      chan(30, CT.L1CA, 1, False, False, False, None)],
+            events=[("acq", 0.0, 3, 44.1, 9.8), ("nav:bitsync", 4.4, 3, 0,
+                                                  0.0)],
+            spec_monitor=NS(latest=frame),
+            acq_views={3: dict(surface=rng.random((71, 409)),
+                               dopp_hz=np.arange(-7000, 7001, 200.0),
+                               codei=1500, grid_scale=4.0, cn0=44.1, t=0.0),
+                       11: dict(surface=rng.random((71, 409)),
+                                dopp_hz=np.arange(-7000, 7001, 200.0),
+                                codei=6000, grid_scale=4.0, cn0=41.7,
+                                t=2.0)},
+            corr_views={p: dict(offsets=np.arange(-6, 7) * 3,
+                                mag=rng.random(13), t=0.4 * p)
+                        for p in (3, 11, 19)})
+    g2 = NS(channels=[chan(-5, CT.G1, 2, True, True, True, 352810.0),
+                      chan(129, CT.L1SBAS, 1, True, False, False, None)],
+            events=[("nav:decode", 6.0, -5, 1, 352806.0)],
+            spec_monitor=None, acq_views={}, corr_views={
+                -5: dict(offsets=np.arange(-6, 7) * 3, mag=rng.random(13),
+                         t=5.2)})
+    hub = NS(positions=[(2200, 352812.0, np.array(
+        [-3954844.0, 3354936.0, 3700264.0]), 1.5, 6)], ephs_written=7)
+    return NS(rx=[g1, g2], hub=hub, epochs_written=12,
+              events=sorted(g1.events + g2.events, key=lambda e: e[1]))
+
+
+def _watch(tmp_path):
+    import io
+    rx = _receiver_standin()
+    assert t_watch.channel_rows(rx.rx) == j_watch.channel_rows(rx.rx)
+    for t in (0.0, 12.34, 1234.5):
+        assert t_watch.render_text(rx, t) == j_watch.render_text(rx, t)
+    outs = []
+    for mod in (j_watch, t_watch):
+        w = mod.Watch(rx, out=io.StringIO(), interval_s=0.2)
+        for t in np.arange(0.0, 2.0, 0.1):
+            w.tick(float(t))
+        w.close()
+        outs.append(w.out.getvalue())
+    assert outs[0] == outs[1] and outs[0].count("\x1b[J") == 10
+
+
+def _htmlview(tmp_path):
+    rx = _receiver_standin()
+    for t in (0.0, 12.34):
+        assert t_htmlview.render_html(rx, t, 0.2) == \
+            j_htmlview.render_html(rx, t, 0.2)
+    pages = []
+    for tag, mod in (("j", j_htmlview), ("t", t_htmlview)):
+        path = tmp_path / f"{tag}.html"
+        view = mod.HtmlView(rx, str(path), interval_s=0.2)
+        view.tick(3.0)
+        view.close()
+        pages.append(path.read_text())
+    assert pages[0] == pages[1] and pages[0].count("<svg") >= 5
+
+
+def _plots(tmp_path):
+    """Both packages' plots (matplotlib is installed here): the same
+    returned paths, each file written."""
+    rng = np.random.default_rng(8)
+    freq, pdb = np.arange(256) * 8e3, rng.normal(40, 3, 256)
+    calls = (("plot_spectrum", (freq, pdb), {}),
+             ("plot_histogram", (np.arange(-4, 4), rng.integers(0, 99, 8)),
+              {}),
+             ("plot_acq_surface", (rng.random((71, 128)),
+                                   np.arange(-7000, 7001, 200.0)),
+              dict(scale=4.0, codei=300)),
+             ("plot_correlator", (np.arange(-6, 7) * 3, rng.random(13)),
+              {}))
+    for name, args, kw in calls:
+        got = []
+        for tag, mod in (("j", j_plots), ("t", t_plots)):
+            (tmp_path / tag).mkdir(exist_ok=True)
+            path = getattr(mod, name)(*args,
+                                      str(tmp_path / tag / f"{name}.png"),
+                                      **kw)
+            assert os.path.getsize(path) > 0
+            got.append(os.path.relpath(path, tmp_path / tag))
+        assert got[0] == got[1] == f"{name}.png"
+
+
 def _native_ready():
     """Both native libraries built, the port's under its build directory
     and not the JAX package's."""
@@ -424,7 +547,8 @@ def _native(name):
 CASES = {"constants": _constants, "codes": _codes, "sim": _sim,
          "nav": _nav, "rinex": _rinex, "frontend": _frontend, "spp": _spp,
          "smooth": _smooth, "rtcm": _rtcm, "tcpout": _tcpout,
-         "tracklog": _tracklog}
+         "tracklog": _tracklog, "histogram": _histogram, "watch": _watch,
+         "htmlview": _htmlview, "plots": _plots}
 CASES.update((n[1:], _native(n)) for n in NATIVE)
 
 

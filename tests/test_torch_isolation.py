@@ -118,6 +118,56 @@ def test_live_and_native_modules_without_jax():
     assert "LIVE NOJAX OK" in r.stdout
 
 
+def test_diag_modules_without_jax_or_matplotlib():
+    """The diagnostics (spectrum, monitor, watch, htmlview, plots) import
+    and run with ``jax``, ``gnsslib_tpu`` and ``matplotlib`` blocked (the
+    card's machine has no matplotlib): the monitor makes a frame on the
+    CPU, the dashboards render, and every plot returns None."""
+    code = BLOCK_JAX + textwrap.dedent("""
+        import importlib, io, numpy as np, torch
+        torch.set_num_threads(2)
+
+        class _NoMpl(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] == "matplotlib":
+                    raise ImportError(f"{name} is blocked in this process")
+        sys.meta_path.insert(0, _NoMpl())
+        for m in ("spectrum", "monitor", "watch", "htmlview", "plots"):
+            importlib.import_module("gnsslib_tpu_torch.diag." + m)
+        from gnsslib_tpu_torch.diag import SpectrumMonitor, plots
+        from gnsslib_tpu_torch.diag.htmlview import render_html
+        from gnsslib_tpu_torch.diag.watch import render_text
+
+        class Tone:
+            def read(self, start, n):
+                t = (start + np.arange(n)) / 16.368e6
+                return np.round(30 * np.cos(2 * np.pi * 4.092e6 * t)
+                                ).astype(np.float32)
+        mon = SpectrumMonitor(Tone(), 16.368e6, False, device="cpu")
+        mon.maybe_update(int(0.5 * 16.368e6))
+        f = mon.latest
+        assert abs(f.freq_hz[np.argmax(f.pspec_db)] - 4.092e6) < 2e3
+        rx = type("Rx", (), dict(channels=[], events=[], epochs_written=0,
+                                 spec_monitor=mon, acq_views={},
+                                 corr_views={}))()
+        assert "locked 0/0" in render_text(rx, 0.5)
+        assert "IF spectrum" in render_html(rx, 0.5, 0.2)
+        assert plots.plot_spectrum(f.freq_hz, f.pspec_db, "x.png") is None
+        assert plots.plot_histogram(f.hist_edges, f.hist_counts,
+                                    "x.png") is None
+        assert plots.plot_acq_surface(np.ones((3, 4)), np.arange(3.0),
+                                      "x.png") is None
+        assert plots.plot_correlator(np.arange(3), np.ones(3),
+                                     "x.png") is None
+        assert not any(_blocked(m) or m.startswith("matplotlib")
+                       for m in sys.modules)
+        print("DIAG NOJAX OK")
+    """)
+    r = _run(code)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "DIAG NOJAX OK" in r.stdout
+
+
 def test_chip_smoke_imports_without_jax():
     """chip_smoke.py and every module its phases import load with ``jax``
     and ``gnsslib_tpu`` blocked (the modules are read from its source, so

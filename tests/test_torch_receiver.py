@@ -244,19 +244,15 @@ def test_checkpoint_resume_matches_uninterrupted(both, capture, tmp_path):
     ("rtcm", True, "RTCM"), ("sbas", True, "SBAS"), ("log", True, "LOG"),
     ("spec", True, "SPEC"), ("smooth", 5, "SMOOTH")])
 def test_unported_options_raise(capture, tmp_path, key, value, name):
-    """SPEC output still raises; the options ported since build a receiver
-    that carries them (SBAS: the hub's NovAtel stream server)."""
+    """No configured option is refused any more: each option, ported since
+    the first slice, builds a receiver that carries it (SBAS: the hub's
+    NovAtel stream server; SPEC: the spectrum monitor on the front end)."""
     _, ini = capture
     cfg = load_ini(str(ini))
     cfg.rinex, cfg.logpath, cfg.rtcmport = False, str(tmp_path), 0
     cfg.sbasport = 0
     setattr(cfg, key, value)
     fe = FileFrontend(cfg.files[0], cfg.fends[0])
-    if name == "SPEC":
-        assert unported_options(cfg) == [name]
-        with pytest.raises(NotImplementedError, match=name):
-            Receiver(cfg, fe, device="cpu")
-        return
     assert unported_options(cfg) == []
     rx = Receiver(cfg, fe, device="cpu")
     try:
@@ -265,6 +261,8 @@ def test_unported_options_raise(capture, tmp_path, key, value, name):
                    "RTCM": rx.hub.rtcm_srv is not None,
                    "SBAS": rx.hub.sbas_srv is not None,
                    "LOG": len(rx.loggers) == len(PRNS),
+                   "SPEC": rx.spec_monitor is not None
+                   and rx.spec_monitor.fe is fe,
                    "SMOOTH": rx.hub.smoother is not None
                    and rx.hub.smoother.N == 5}
         assert carried[name]
@@ -277,12 +275,12 @@ def test_unported_options_raise(capture, tmp_path, key, value, name):
 
 @pytest.mark.parametrize("flag", ["--devices", "--checkpoint", "--watch",
                                   "--resume", "--spp", "--ftype"])
-def test_unported_cli_flags_raise(capture, tmp_path, flag):
-    """Flags the port does not carry raise; ``--checkpoint``, ``--resume``,
-    ``--spp`` and ``--ftype`` (ported since) run: a checkpoint written
-    after 2 s resumes to 3 s, ``--spp`` opens the .pos file beside RINEX,
-    and ``--ftype 1`` runs the one configured path (``--ftype 2``, a path
-    the config does not define, is refused)."""
+def test_unported_cli_flags_raise(capture, tmp_path, flag, capsys):
+    """Flags the port does not carry (``--devices``) raise; the others
+    (ported since) run: a checkpoint written after 2 s resumes to 3 s,
+    ``--spp`` opens the .pos file beside RINEX, ``--ftype 1`` runs the one
+    configured path (``--ftype 2``, a path the config does not define, is
+    refused), and ``--watch`` draws its dashboard for 2 s."""
     _, ini = capture
     if flag in UNPORTED_FLAGS:
         with pytest.raises(NotImplementedError, match=flag):
@@ -297,6 +295,11 @@ def test_unported_cli_flags_raise(capture, tmp_path, flag):
         assert torch_cli(base + ["--seconds", "2", "--spp"]) == 0
         assert sorted(p[-3:] for p in os.listdir(tmp_path / "out")) == \
             ["nav", "obs", "pos"]
+        return
+    if flag == "--watch":
+        assert torch_cli(base + ["--seconds", "2", "--watch"]) == 0
+        out = capsys.readouterr().out
+        assert "locked" in out and "\x1b[J" in out
         return
     if flag == "--ftype":
         assert torch_cli(base + ["--seconds", "2", "--ftype", "2"]) == 1
