@@ -33,13 +33,17 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    the window kernel's build steps, cluster sizes and ablations for K3 and
    the f32 instantiation, and K2's, real and I/Q, each checked against the
    plain version and timed by graph replay;
-4. synthesize every capture in one process pool: the slice's (4 visible
+4. synthesize every capture on the card in float64 (sim's signal model,
+   noise from torch's seeded generator): the slice's (4 visible
    GPS L1CA PRNs with LNAV bit streams) and the positioning run's (7
    satellites above 15 degrees for a known receiver position, one dark
    in [26, 28) s), 16.368 Msps real int8 at a 4.092 MHz IF, and phase
    11's two front ends: FE1 real (the slice's 4 GPS PRNs and an SBAS
    satellite with MT12 messages), FE2 I/Q at IF 0 (3 GLONASS G1
-   satellites, each with its slot in string 4);
+   satellites, each with its slot in string 4); then phase 14's capture
+   (``receiver_throughput.synthesize()``: 20 s x 12 satellites at
+   16.368 Msps, the tool's own bytes) by a process pool, one worker per
+   core;
 5. the block programs (CUDA graphs of a tracking block) replayed against
    the eager loop, bit for bit, for pull-in and the band, pallas, fused
    and xla backends; FastTracker.run_block on the card vs on the CPU from
@@ -104,17 +108,39 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    front ends in a MultiReceiver with SPEC for 3 s (one monitor per front
    end, FE2's I/Q spectrum fftshifted); (b) ``--profile`` for 10 s beside
    the same run unprofiled: the trace's size and K1 kernels, and the
-   device's busy share over the steady blocks.
+   device's busy share over the steady blocks;
+14. the receiver tools (``gnsslib_tpu_torch.tools``) in process at full
+   width: (a) their capture, as phase 4 wrote it; (e)
+   ``scaling_channels`` at C = 32-256 through K1, one launch per
+   super-step, ms per super-step by wall and CUDA events (C = 32's gives
+   the receiver's device cap), then K1 at C = 256 (2,560 windows) against
+   its plain version; (b) ``ttff``
+   resident and streamed through the live cache: every milestone, 12
+   channels locked and decoded, epochs, the stream run equal to the
+   resident one bit for bit; (c) ``receiver_throughput`` pipelined and
+   sequential at 2000-step blocks (12 locked, equal acquisitions and
+   decodes; the sequential run's events and epochs equal, bit for bit,
+   those of the pipelined receiver without acquisition and pull-in
+   pipelining) and pipelined at 400 (the steady median block); (d)
+   ``profile_receiver``'s stage table; (f) ``receiver_256ch``: 96 of
+   256 channels locked, the graph pool and peak memory; (g)
+   ``acq_throughput``: 22,720 bins, PRNs 1-8 acquired; (h)
+   ``e2e_receiver_check.run()`` to ``E2E PASS``; (i) ``measure_round``
+   with its acq child on the card, the artifact only under a temporary
+   directory.
 
-Phases 5-13 each print the graph captures they made (count, seconds
-recording and instantiating, pool memory), and a line before the kernels
+Phases 5-14 each print the graph captures they made (count, seconds
+recording and instantiating, pool memory) and their wall time, and a
+line before the kernels
 line totals them.  The band_taps row's launches are those of phases 6,
-11, 12a, 12b and 13 (the main paths: file replay, multi-GNSS, the live
-entry point, real and I/Q, and the diagnostics and pipeline modes).  The
+11, 12a, 12b, 13 and 14's receiver runs (the main paths: file replay,
+multi-GNSS, the live entry point, real and I/Q, the diagnostics and
+pipeline modes, and the receiver tools).  The
 last two lines are a JSON object describing
 the kernels and the ``{"ok": true, "device": {...}}`` line.  This script
 imports no JAX.
 """
+import contextlib
 import json
 import math
 import os
@@ -259,11 +285,11 @@ def _sbas_symbols(nmsgs: int, tow: float):
     return np.where(conv27_encode(bits01) == 0, 1, -1).astype(np.int8)
 
 
-def _multi_chunk(kind, t0, n, f_sf, f_if, truth) -> bytes:
-    """Samples [t0, t0+n) of phase 11's front end ``kind`` ("fe1": the
-    GPS PRNs of ``truth["gps"]`` and the SBAS ones of ``truth["sbas"]``,
-    real; "fe2": the G1 satellites of ``truth["g1"]``, I/Q) as int8
-    bytes."""
+def _multi_signal(kind, f_sf, truth) -> tuple:
+    """Phase 11's front end ``kind`` ("fe1": the GPS PRNs of
+    ``truth["gps"]`` and the SBAS ones of ``truth["sbas"]``, real; "fe2":
+    the G1 satellites of ``truth["g1"]``, I/Q), as :func:`_signal`
+    returns it."""
     from gnsslib_tpu_torch import sim
     from gnsslib_tpu_torch.constants import (CodeType, DFRQ1_GLO, DType,
                                              FREQ1_GLO)
@@ -295,10 +321,7 @@ def _multi_chunk(kind, t0, n, f_sf, f_if, truth) -> bytes:
                 nav_bits=sym, nav_ms=10.0,
                 f_cf=FREQ1_GLO + fcn * DFRQ1_GLO, foffset=fcn * DFRQ1_GLO))
         dtype = DType.IQ
-    noise = sim.noise_std_for_cn0(1.0, CN0, f_sf, dtype)
-    x = sim.synthesize(chans, f_sf, f_if, dtype, n, noise_std=noise,
-                       seed=(3000 if kind == "fe1" else 4000) + t0, t0=t0)
-    return sim.quantize_int8(x, QUANT).tobytes()
+    return chans, dtype, 3000 if kind == "fe1" else 4000, "int8"
 
 
 def multi_truth() -> dict:
@@ -308,13 +331,14 @@ def multi_truth() -> dict:
                 seconds=MG_SECONDS)
 
 
-def _synth_chunk(args):
-    """Samples [t0, t0+n) of capture ``kind`` ("slice", "pos", "fe1" or
-    "fe2") as int8 bytes (a pool worker; everything it needs comes in
-    ``args``)."""
-    kind, t0, n, f_sf, f_if, truth = args
+def _signal(kind, t0, f_sf, truth) -> tuple:
+    """The satellites of capture ``kind`` ("slice", "pos", "fe1", "fe2",
+    "rtl" or "edge") in its chunk from sample ``t0`` (the positioning
+    capture's faded satellite is left out of its dark seconds): (their
+    ``sim.SimChannel`` list, the DType, the base of the chunk's noise
+    seed, the sample format: "int8" or "rtlsdr")."""
     if kind in ("fe1", "fe2"):
-        return kind, _multi_chunk(kind, t0, n, f_sf, f_if, truth)
+        return _multi_signal(kind, f_sf, truth)
     from gnsslib_tpu_torch import sim
     from gnsslib_tpu_torch.constants import DType
     pad = np.concatenate([np.tile([1, -1], 149), [1, 1]]).astype(np.int8)
@@ -326,10 +350,7 @@ def _synth_chunk(args):
             chans.append(sim.SimChannel(
                 prn=prn, doppler=dop, carr_phase=0.1 * prn,
                 code_phase=float(np.mod(-rate * start / f_sf, 1023.0))))
-        noise = sim.noise_std_for_cn0(1.0, CN0, f_sf, DType.REAL)
-        x = sim.synthesize(chans, f_sf, f_if, DType.REAL, n, noise_std=noise,
-                           seed=6000 + t0, t0=t0)
-        return kind, sim.quantize_int8(x, QUANT).tobytes()
+        return chans, DType.REAL, 6000, "int8"
     if kind == "rtl":
         chans = [sim.SimChannel(
             prn=prn, doppler=dop, code_phase=-d * 1.023e6 / f_sf,
@@ -338,10 +359,7 @@ def _synth_chunk(args):
                     sim.example_eph(prn=prn, week=2200, toe_tow=TOW0),
                     TOW0 + 6.0, nframes=1)]))
             for prn, (d, dop) in truth.items()]
-        noise = sim.noise_std_for_cn0(1.0, CN0, f_sf, DType.IQ)
-        x = sim.synthesize(chans, f_sf, f_if, DType.IQ, n, noise_std=noise,
-                           seed=5000 + t0, t0=t0)
-        return kind, sim.quantize_rtlsdr(x, 8.0).tobytes()
+        return chans, DType.IQ, 5000, "rtlsdr"
     if kind == "pos":
         geo, ephs = pos_geometry()
         dark = POS_FADE[0] <= t0 / f_sf < POS_FADE[1]
@@ -351,10 +369,7 @@ def _synth_chunk(args):
                 [pad, sim.lnav_bit_stream(ephs[g["prn"]], TOW0 + 6.0,
                                           nframes=2)]))
             for g in geo if not (dark and g["prn"] == POS_FADED)]
-        noise = sim.noise_std_for_cn0(1.0, CN0, f_sf, DType.REAL)
-        x = sim.synthesize(chans, f_sf, f_if, DType.REAL, n, noise_std=noise,
-                           seed=2000 + t0, t0=t0)
-        return kind, sim.quantize_int8(x, QUANT).tobytes()
+        return chans, DType.REAL, 2000, "int8"
     chans = []
     for prn, (d, dop) in truth.items():
         eph = sim.example_eph(prn=prn, week=2200, toe_tow=TOW0)
@@ -363,10 +378,56 @@ def _synth_chunk(args):
         chans.append(sim.SimChannel(
             prn=prn, doppler=dop, code_phase=-d * 1.023e6 / f_sf,
             carr_phase=0.1 * prn, nav_bits=np.concatenate([pad, frames])))
-    noise = sim.noise_std_for_cn0(1.0, CN0, f_sf, DType.REAL)
-    x = sim.synthesize(chans, f_sf, f_if, DType.REAL, n, noise_std=noise,
-                       seed=1000 + t0, t0=t0)
-    return kind, sim.quantize_int8(x, QUANT).tobytes()
+    return chans, DType.REAL, 1000, "int8"
+
+
+def _synthesize(dev, chans, f_sf: float, f_if: float, iq: bool, n: int,
+                noise_std: float, seed: int, t0: int):
+    """Samples [t0, t0+n) of ``chans`` in float64 on ``dev``: the signal
+    model of ``sim.synthesize`` (code and carrier Doppler, nav bits,
+    FDMA offsets; (n,) real or (n, 2) I/Q), with the noise drawn by
+    torch's generator seeded with ``seed``."""
+    import torch
+    from gnsslib_tpu_torch import codes
+    f64 = dict(dtype=torch.float64, device=dev)
+    t = (t0 + torch.arange(n, **f64)) / f_sf
+    out = torch.zeros((n, 2) if iq else n, **f64)
+    for ch in chans:
+        code, crate = codes.gencode(ch.prn, ch.ctype)
+        dphi = ch.doppler * t + 0.5 * ch.doppler_rate * t * t
+        chips = ch.code_phase + crate * (t - dphi / ch.f_cf)
+        c = torch.as_tensor(np.asarray(code, np.float64), device=dev)[
+            torch.remainder(torch.floor(chips).long(), len(code))]
+        if ch.nav_bits is not None:
+            bits = torch.as_tensor(np.asarray(ch.nav_bits, np.float64),
+                                   device=dev)
+            k = torch.floor(chips / (crate * ch.nav_ms * 1e-3)).long()
+            c = c * bits[torch.remainder(k, len(bits))]
+        phase = 2.0 * math.pi * ((f_if + ch.foffset) * t - dphi
+                                 + ch.carr_phase)
+        a = ch.amplitude * c
+        if iq:
+            out[:, 0] += a * torch.cos(phase)
+            out[:, 1] -= a * torch.sin(phase)
+        else:
+            out += a * torch.cos(phase)
+    if noise_std > 0.0:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        out += noise_std * torch.randn(out.shape, generator=gen, **f64)
+    return out
+
+
+def _quantize(x, fmt: str) -> bytes:
+    """``sim.quantize_int8(x, QUANT)`` ("int8") or
+    ``sim.quantize_rtlsdr(x, 8.0)`` ("rtlsdr") of a tensor, as bytes."""
+    import torch
+    if fmt == "int8":
+        q = torch.clamp(torch.round(x * QUANT), -128, 127).to(torch.int8)
+    else:
+        q = torch.clamp(torch.round(x * 8.0), -127, 127)
+        q = torch.where(q >= 0, q + 128, q + 127).to(torch.uint8)
+    return q.reshape(-1).cpu().numpy().tobytes()
 
 
 def card_line() -> str:
@@ -934,12 +995,13 @@ def phase_ablation_kernel(dev) -> dict:
     return res
 
 
-def phase_synth(paths: dict, edge_starts: dict = None) -> float:
+def phase_synth(dev, paths: dict, edge_starts: dict = None) -> float:
     """Every capture ({"slice", "pos", "fe1", "fe2", "rtl", "edge": path},
     "fe1"/"fe2" phase 11's front ends, "rtl" and "edge" phase 12's; the
-    edge capture's channels start periods at ``edge_starts``), 1 s chunks
-    of each in one spawn pool."""
-    import multiprocessing as mp
+    edge capture's channels start periods at ``edge_starts``), in 1 s
+    chunks synthesized on ``dev`` (:func:`_synthesize`)."""
+    from gnsslib_tpu_torch import sim
+    from gnsslib_tpu_torch.constants import DType
     chunks = []
     edge = {p: (edge_starts[p], d) for p, d in EDGE_DOPPLER.items()} \
         if edge_starts else None
@@ -956,15 +1018,19 @@ def phase_synth(paths: dict, edge_starts: dict = None) -> float:
         chunks += [(kind, t0, min(step, n - t0), f_sf, f_if, truth)
                    for t0 in range(0, n, step)]
     t0 = time.time()
-    ctx = mp.get_context("spawn")
-    files = {k: open(p, "wb") for k, p in paths.items()}
-    try:
-        with ctx.Pool(min(len(chunks), os.cpu_count() or 4)) as pool:
-            for kind, raw in pool.imap(_synth_chunk, chunks):
-                files[kind].write(raw)
-    finally:
-        for f in files.values():
-            f.close()
+    signals = {}          # (kind, dark): the satellites, built once
+    with contextlib.ExitStack() as stack:
+        files = {k: stack.enter_context(open(p, "wb"))
+                 for k, p in paths.items()}
+        for kind, c0, count, f_sf, f_if, truth in chunks:
+            dark = kind == "pos" and POS_FADE[0] <= c0 / f_sf < POS_FADE[1]
+            if (kind, dark) not in signals:
+                signals[kind, dark] = _signal(kind, c0, f_sf, truth)
+            chans, dtype, seed, fmt = signals[kind, dark]
+            noise = sim.noise_std_for_cn0(1.0, CN0, f_sf, dtype)
+            x = _synthesize(dev, chans, f_sf, f_if, dtype == DType.IQ, count,
+                            noise, seed + c0, c0)
+            files[kind].write(_quantize(x, fmt))
     dt = time.time() - t0
     log(f"[4] synthesized {SECONDS:.0f} s x {len(TRUTH)} PRNs, "
         f"{POS_SECONDS:.0f} s x {len(pos_geometry()[0])} PRNs and phase 11's "
@@ -972,8 +1038,8 @@ def phase_synth(paths: dict, edge_starts: dict = None) -> float:
         f"{len(MG_G1)} G1 I/Q) at {F_SF/1e6:.3f} Msps, and phase 12's "
         f"{RTL_SECONDS:.0f} s x {len(RTL_TRUTH)} PRNs I/Q at "
         f"{RTL_SF/1e6:.3f} Msps (RTL-SDR u8) and {EDGE_SECONDS:.1f} s x "
-        f"{len(EDGE_DOPPLER)} PRNs at the block's edges in {dt:.1f} s -> "
-        f"{paths}")
+        f"{len(EDGE_DOPPLER)} PRNs at the block's edges in {dt:.1f} s on "
+        f"{dev.type} -> {paths}")
     return dt
 
 
@@ -2640,16 +2706,267 @@ def phase_diag(dev, capture: str, fe1: str, fe2: str, ref_events,
     return total
 
 
+def _k1_run(tag: str, dev, fn, *args, **kw):
+    """``fn(*args, **kw)`` with the band_taps counters set to 0 just
+    before and read just after: (fn's result, its K1 launches); on a card
+    every launch must go to the cluster kernel."""
+    from gnsslib_tpu_torch.ops import band_taps as bt
+    bt.COUNTS.reset()
+    out = fn(*args, **kw)
+    k1, v1, plain = bt.COUNTS.kernel, bt.COUNTS.v1, bt.COUNTS.plain
+    if dev.type == "cuda" and (v1 or plain):
+        raise AssertionError(f"[{tag}] band_taps v1 {v1}, plain {plain}")
+    return out, k1
+
+
+def _recorded(rxt, fn, *args, **kw):
+    """``fn(*args, **kw)`` with every receiver that the tool module ``rxt``
+    builds (its ``receiver``) recording its epochs (:func:`_record`):
+    (fn's result, the epochs of the last receiver built)."""
+    built, make = [], rxt.receiver
+
+    def receiver(*a, **k):
+        rx = make(*a, **k)
+        built.append(_record(rx))
+        return rx
+    rxt.receiver = receiver
+    try:
+        out = fn(*args, **kw)
+    finally:
+        rxt.receiver = make
+    return out, built[-1]
+
+
+def phase_tools(dev) -> tuple:
+    """Phase 14, the receiver tools (``gnsslib_tpu_torch.tools``) in
+    process on the card at full width: (a) the tools' capture (written in
+    phase 4), (e) K1 at 32-256 channels and held against its plain version
+    at 256, (b) ttff resident and streamed, (c) the receiver's throughput
+    pipelined and sequential at 2000-step blocks, the sequential run held
+    against the pipelined receiver without acquisition and pull-in
+    pipelining, (d) the receiver's stage table, (f) 256 channels in one
+    receiver, (g) the acquisition grid, (h) the end-to-end check, (i)
+    measure_round's acq child.  Returns the K1 launches of the receiver
+    runs (b, c, d, f) and K1's largest error against its plain version at
+    256 channels."""
+    import glob
+    import tempfile
+    import torch
+    from gnsslib_tpu_torch.tools import (acq_throughput, e2e_receiver_check,
+                                         measure_round, profile_receiver,
+                                         receiver_256ch, scaling_channels,
+                                         ttff)
+    from gnsslib_tpu_torch.tools import receiver_throughput as rxt
+    from gnsslib_tpu_torch.track.program import CAPTURES
+    t_phase = time.time()
+    k1_main = 0
+
+    # (a) the capture
+    path = rxt.cache_path()
+    n = os.path.getsize(path)
+    with open(path + ".json") as f:
+        meta = json.load(f)
+    if n != int(20 * rxt.F_SF) or meta != dict(
+            f_sf=rxt.F_SF, f_if=rxt.F_IF, seconds=20.0, n=12):
+        raise AssertionError(f"[14a] capture {path}: {n} bytes, {meta}")
+    log(f"[14a] receiver_throughput.synthesize(): {path}, 20 s x 12 "
+        f"satellites at {rxt.F_SF / 1e6:.3f} Msps int8 ({n} bytes)")
+
+    # (e) K1 at full width: its device time gives the receiver's cap
+    rows, k1_e = _k1_run("14e", dev, scaling_channels.run, device=dev)
+    for r in rows:
+        log(f"[14e] {scaling_channels.line(r)}; {r['windows']} windows per "
+            f"super-step, first block {r['first_block_s']:.2f} s")
+        if r["k1_launches"] != r["expected"]:
+            raise AssertionError(f"[14e] C={r['C']}: K1 launches "
+                                 f"{r['k1_launches']} != {r['expected']}")
+    c32 = rows[0]
+    cap = 10 * 16368 / (c32["ms_step_event"] * 1e-3) / 1e6
+    log(f"[14e] K1 launches {k1_e} (= the super-steps run); the steady "
+        f"super-step of 32 channels ({10 * 16368} samples) takes "
+        f"{c32['ms_step_event']:.4f} ms of device time: a device cap of "
+        f"{cap:.1f} Msamples/s")
+    # K1 at the widest super-step, 256 channels x L windows, against its
+    # plain version (the scaling tool runs on random samples)
+    c256 = rows[-1]
+    trk, host, _, _, _, errs, _ = hold_k1(
+        dev, False, "14e", corr=scaling_channels.CORR,
+        sf=scaling_channels.F_SF, fif=scaling_channels.F_IF,
+        windows=c256["windows"] // c256["C"], channels=c256["C"])
+    if c256["C"] != 256 or host[1].shape[0] != c256["windows"]:
+        raise AssertionError(f"[14e] held K1 at {host[1].shape[0]} windows, "
+                             f"the tool's widest row {c256}")
+    err_e = max(errs.values())
+
+    # (b) time to first fix, resident and streamed
+    runs = {}
+    for mode in ("resident", "stream"):
+        r, k1 = _k1_run(f"14b {mode}", dev, ttff.run_once, time.time(),
+                        device=dev, stream=mode == "stream")
+        k1_main += k1
+        runs[mode] = r
+        tl = r["timeline"]
+        missing = [m for m in ttff.MILESTONES if m not in tl]
+        log(f"[14b] ttff {mode}: " + ", ".join(
+            f"{k} {tl[k]:.2f}" for k in sorted(tl, key=tl.get))
+            + f" s; build {r['build_s']:.2f} s (nvcc in this process: "
+            f"{r['nvcc_s'] or 'none'}); run {r['run_wall_s']:.2f} s, "
+            f"{r['msps_lifecycle']:.1f} Msamples/s over the run; stage "
+            f"walls " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                  r["stage_wall"].items())
+            + f"; locked {r['locked']}, decoded {r['decoded']}, epochs "
+            f"{r['epochs']}; K1 launches {k1}")
+        if missing or r["locked"] != 12 or r["decoded"] != 12 or \
+                r["epochs"] <= 0 or r["device"] != "cuda":
+            raise AssertionError(f"[14b] {mode}: missing {missing}, {r}")
+    if runs["stream"]["events"] != runs["resident"]["events"] or \
+            runs["stream"]["epochs"] != runs["resident"]["epochs"]:
+        raise AssertionError("[14b] the stream run differs from the "
+                             "resident run")
+    log(f"[14b] stream equals resident: {len(runs['stream']['events'])} "
+        f"events and {runs['stream']['epochs']} epochs bit for bit")
+
+    # (c) receiver throughput at 2000-step blocks, pipelined and
+    # sequential, and at the tool's 400-step configuration, whose 20 s
+    # run has enough steady blocks for the median
+    thr = {}
+    for pipeline, nsteps in ((True, 2000), (False, 2000), (True, 400)):
+        (s, epochs), k1 = _k1_run("14c", dev, _recorded, rxt, rxt.run,
+                                  pipeline, nsteps, 2, device=dev)
+        k1_main += k1
+        thr[pipeline, nsteps] = s
+        s["recorded"] = epochs
+        log(f"[14c] {rxt.line(s)}; K1 launches {k1}; stage walls "
+            + ", ".join(f"{k} {v:.3f}" for k, v in s["stage_wall"].items()))
+        p50 = s.get("msps_steady_p50")
+        log(f"[14c] {s['label']}: msps {s['msps']:.1f}, msps_steady "
+            f"{s.get('msps_steady', 0.0):.1f}, msps_steady_p50 "
+            + (f"{p50:.1f}" if p50 else "none (fewer than 8 steady blocks)")
+            + f" over {s['n_steady_blocks']} steady blocks, against the "
+            f"device cap {cap:.1f} Msamples/s (14e)")
+        if len(s["locked"]) != 12 or s["device"] != "cuda":
+            raise AssertionError(f"[14c] {s['label']}: locked {s['locked']}")
+    ev_p, ev_s = thr[True, 2000]["events"], thr[False, 2000]["events"]
+    acq_p = [e for e in ev_p if e[0] == "acq"]
+    acq_s = [e for e in ev_s if e[0] == "acq"]
+    if acq_p != acq_s or sorted(thr[True, 2000]["decoded"]) != \
+            sorted(thr[False, 2000]["decoded"]):
+        raise AssertionError("[14c] the modes' acquisitions or decodes "
+                             "differ")
+    nav_p = [e for e in ev_p if e[0] != "acq"]
+    nav_s = [e for e in ev_s if e[0] != "acq"]
+    differ = [(a, b) for a, b in zip(nav_p, nav_s) if a != b]
+    log(f"[14c] pipelined against sequential: {len(acq_p)} acquisitions "
+        f"equal bit for bit; nav events {len(nav_p)} and {len(nav_s)}, "
+        f"{len(differ)} differ" + (f" (first: {differ[0][0]} against "
+                                    f"{differ[0][1]})" if differ else "")
+        + f"; epochs {thr[True, 2000]['epochs']} and "
+        f"{thr[False, 2000]['epochs']} (the sequential mode decides its "
+        f"searches at once, the pipelined one 2 blocks later)")
+    # the same timing in both modes: the pipelined receiver with its
+    # searches and pull-in unpipelined gives the sequential run's bits
+    seq = thr[False, 2000]
+    with tempfile.TemporaryDirectory(dir=WORK) as d:
+        rx = rxt.receiver(rxt.default_capture(), device=dev, rinexdir=d,
+                          pipeline=True, pipeline_acq=False,
+                          pipeline_pullin=False, nsteps_per_block=2000,
+                          pipeline_depth=2)
+        epochs = _record(rx)
+        s, k1 = _k1_run("14c", dev, rx.run_seconds)
+        rxt.close(rx)
+    k1_main += k1
+    log(f"[14c] pipelined/2000/d2 without acquisition and pull-in "
+        f"pipelining: {s['msps']:.1f} Msamples/s, {len(rx.events)} events, "
+        f"{len(epochs)} epochs (RINEX {s['epochs']}); K1 launches {k1}")
+    if rx.events != seq["events"] or epochs != seq["recorded"] or \
+            s["epochs"] != seq["epochs"] or s["decoded"] != seq["decoded"]:
+        raise AssertionError("[14c] the pipelined receiver without "
+                             "acquisition and pull-in pipelining differs "
+                             "from the sequential run")
+    log(f"[14c] it equals the sequential run bit for bit: "
+        f"{len(seq['events'])} events and {len(seq['recorded'])} epochs")
+
+    # (d) the receiver's stage table
+    (s, T, total), k1 = _k1_run("14d", dev, profile_receiver.profile, True,
+                                400, device=dev)
+    k1_main += k1
+    log(f"[14d] profile_receiver pipelined/400: {total:.2f} s for "
+        f"{s['seconds']:.1f} s of signal ({s['msps']:.1f} Msamples/s), "
+        f"two passes' K1 launches {k1}; stage walls "
+        + ", ".join(f"{k} {v:.3f}" for k, v in s["stage_wall"].items()))
+    for ln in profile_receiver.table(T):
+        log(f"[14d] {ln}")
+    log("[14d] (*.dispatch is launch time: a replayed graph returns at "
+        "once; the device time lands in *.collect)")
+
+    # (f) 256 channels in one receiver
+    n0 = CAPTURES.captures
+    out, k1 = _k1_run("14f", dev, receiver_256ch.run, device=dev)
+    k1_main += k1
+    out.pop("events")
+    log(f"[14f] receiver_256ch: {json.dumps(out)}; K1 launches {k1}")
+    if out["locked"] != 96 or out["channels"] != 256:
+        raise AssertionError(f"[14f] locked {out['locked']} of "
+                             f"{out['channels']}")
+    log(f"[14f] 256 channels: {out['locked']} locked, {out['decoded']} "
+        f"decoded, steady p50 {out.get('msps_steady_p50')} Msamples/s, "
+        f"graph pool {out['graph_pool_mb']} MB ({out['captures']} captures "
+        f"of the timed pass; {CAPTURES.captures - n0} in both), peak "
+        f"reserved {out['peak_reserved_gb']} GB")
+
+    # (g) the acquisition grid
+    r, _ = _k1_run("14g", dev, acq_throughput.run, device=dev)
+    log(f"[14g] acq_throughput: {json.dumps(r)}")
+    if r["bins"] != 22720 or r["acquired"] != list(range(1, 9)):
+        raise AssertionError(f"[14g] {r}")
+    log(f"[14g] {r['seconds_per_search'] * 1e3:.2f} ms per 32-channel "
+        f"search by the host clock, {r['device_seconds_per_search'] * 1e3:.2f}"
+        f" ms by CUDA events: {r['value']:.0f} bins/s")
+
+    # (h) the end-to-end check (the per-period tracker: no K1)
+    r, k1 = _k1_run("14h", dev, e2e_receiver_check.run, device=dev)
+    log(f"[14h] e2e_receiver_check.run(): E2E PASS in {r['wall']:.1f} s of "
+        f"tracking for {r['done'] / 1000:.1f} s of signal, {r['captures']} "
+        f"capture, K1 launches {k1}")
+
+    # (i) measure_round's acq child, the artifact under a temporary dir
+    pattern = os.path.join(ROOT, "MEASUREMENTS_torch_r*.json")
+    before = sorted(glob.glob(pattern))
+    os.makedirs(WORK, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=WORK) as d:
+        out_path = os.path.join(d, "MEASUREMENTS_torch_smoke.json")
+        rc = measure_round.main(["--skip", "bench,receiver,ttff",
+                                 "--out", out_path])
+        with open(out_path) as f:
+            art = json.load(f)
+    acq = art.get("acq") or {}
+    if rc != 0 or acq.get("device") != "cuda" or acq.get("attempts") != 1 \
+            or art.get("bench", 0) is not None or \
+            sorted(glob.glob(pattern)) != before:
+        raise AssertionError(f"[14i] measure_round rc {rc}: {art}")
+    log(f"[14i] measure_round --skip bench,receiver,ttff: the acq child on "
+        f"{acq['device']} at attempt {acq['attempts']} ({acq['wall_s']} s), "
+        f"{acq['value']:.0f} bins/s; bench recorded absent; written only "
+        f"under the temporary directory")
+    log(f"[14] K1 launches of the receiver runs (b, c, d, f): {k1_main}; "
+        f"the scaling tool's (e): {k1_e}; phase 14 in "
+        f"{time.time() - t_phase:.1f} s ({card_line()})")
+    return k1_main, err_e
+
+
 def with_graphs(tag: str, phase, *args):
-    """Run ``phase(*args)`` and log the block-program captures it made."""
+    """Run ``phase(*args)`` and log the block-program captures it made and
+    its wall time."""
     from gnsslib_tpu_torch.track.program import CAPTURES
     n, rec, inst, pool = (CAPTURES.captures, CAPTURES.capture_s,
                           CAPTURES.instantiate_s, CAPTURES.pool_bytes)
+    t0 = time.time()
     out = phase(*args)
     log(f"[{tag}] graphs: {CAPTURES.captures - n} block-program captures, "
         f"{CAPTURES.capture_s - rec:.2f} s recording, "
         f"{CAPTURES.instantiate_s - inst:.2f} s instantiating, pools "
-        f"{(CAPTURES.pool_bytes - pool) / 1e6:.1f} MB")
+        f"{(CAPTURES.pool_bytes - pool) / 1e6:.1f} MB; phase wall "
+        f"{time.time() - t0:.1f} s")
     return out
 
 
@@ -2721,6 +3038,7 @@ def main() -> int:
             log(f"[2]   {name} {kind}: {ln.split(':', 1)[-1].strip()}")
     # K1's 13-tap I/Q instantiation (the G1 group's) must not spill
     from gnsslib_tpu_torch.tools import profile_band as pb
+    from gnsslib_tpu_torch.tools import receiver_throughput as rxt
     text = cuda_build.build_info.get("band_taps", (0.0, ""))[1]
     if not text:                      # built by an earlier run: build again
         pb.build(["kernel"])
@@ -2750,7 +3068,13 @@ def main() -> int:
              for k in ("slice", "pos", "fe1", "fe2", "rtl", "edge")}
     capture, capture_pos = paths["slice"], paths["pos"]
     starts = edge_starts()
-    phase_synth(paths, starts)
+    phase_synth(dev, paths, starts)
+    t0 = time.time()
+    workers = os.cpu_count() or 4
+    rxt.synthesize(workers=workers)
+    log(f"[4] phase 14's capture (receiver_throughput.synthesize(): 20 s x "
+        f"12 satellites at {rxt.F_SF / 1e6:.3f} Msps) by {workers} workers "
+        f"in {time.time() - t0:.1f} s -> {rxt.cache_path()}")
     CAPTURES.reset()
     with_graphs("5", phase_fast_vs_cpu, dev, capture, paths["fe1"],
                 paths["fe2"])
@@ -2789,7 +3113,12 @@ def main() -> int:
         f"pipeline modes, the MultiReceiver with SPEC, --profile and its "
         f"unprofiled twin): {diag}")
     launches["band_taps"] += diag
-    log(f"[graphs] phases 5-13: {CAPTURES.captures} block-program captures "
+    # the receiver tools: the K1 launches of their receiver runs join the
+    # band_taps row, and K1's error at 256 channels its max_abs_err
+    tools_k1, err_256 = with_graphs("14", phase_tools, dev)
+    launches["band_taps"] += tools_k1
+    k["band_taps"].append({"err": err_256})
+    log(f"[graphs] phases 5-14: {CAPTURES.captures} block-program captures "
         f"(the CLI runs' included), {CAPTURES.capture_s:.2f} s recording, "
         f"{CAPTURES.instantiate_s:.2f} s instantiating, pools "
         f"{CAPTURES.pool_bytes / 1e6:.1f} MB reserved in all; device memory "

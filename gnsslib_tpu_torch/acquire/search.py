@@ -60,14 +60,15 @@ def _rot(ph: torch.Tensor) -> torch.Tensor:
 class Acquirer:
     """Acquisition program for a group of channels sharing one front end
     (same f_sf / f_if / dtype / nsamp), with the reference's search
-    settings: ±ACQHBAND Hz in ACQSTEP bins, ACQINTG_L1CA rounds, peak
-    ratio > ACQTH (sdrinit.c:385-394, 623-653), and the JAX package's
-    automatic coarse grid (>= 4 cells per chip).  ``confirm`` (ACQCONFIRM)
-    also requires the even- and odd-round halves to agree on the peak
-    (``confirm_impl``), the JAX package's false-lock guard."""
+    settings: ±ACQHBAND Hz in ACQSTEP bins, ``intg`` (ACQINTG_L1CA)
+    rounds, peak ratio > ACQTH (sdrinit.c:385-394, 623-653), and the JAX
+    package's automatic coarse grid (>= 4 cells per chip).  ``confirm``
+    (ACQCONFIRM) also requires the even- and odd-round halves to agree on
+    the peak (``confirm_impl``), the JAX package's false-lock guard."""
 
     def __init__(self, prns, ctypes, f_sf: float, f_if: float, dtype: int,
-                 foffsets=None, *, device, confirm: bool = False):
+                 foffsets=None, *, device, intg: int = ACQINTG_L1CA,
+                 confirm: bool = False):
         from ..constants import DType
         prns = list(prns)
         C = len(prns)
@@ -81,7 +82,7 @@ class Acquirer:
         self.dtype = dtype
         self.iq = int(dtype) == DType.IQ
         self.ti = 1.0 / f_sf
-        self.intg = ACQINTG_L1CA
+        self.intg = int(intg)
         self.thresh = ACQTH
         self.confirm = bool(confirm)
         self.nfreq = int(2 * (ACQHBAND / ACQSTEP) + 1)

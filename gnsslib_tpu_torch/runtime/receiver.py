@@ -442,10 +442,11 @@ class Receiver:
         # at dispatch, 0 at start_channels): no device read per block
         self._cnt_host = np.zeros(len(self.channels), np.int64)
         self._events = []
-        # wall-clock milestones since construction ("first_block",
-        # "first_lock", "first_sync", "steady", "first_epoch"), and wall
-        # seconds spent in step_block per phase: "acquire" (no channel
-        # locked), "pullin" (per-period scan), "steady" (FastTracker)
+        # wall-clock milestones since construction ("precompiled",
+        # "first_block", "first_lock", "first_sync", "steady",
+        # "first_epoch"), and wall seconds spent in step_block per phase:
+        # "acquire" (no channel locked), "pullin" (per-period scan),
+        # "steady" (FastTracker)
         self.timeline = {"t0": time.time()}
         self.stage_wall = {"acquire": 0.0, "pullin": 0.0, "steady": 0.0}
         # cooperative stop (the reference's keythread 'q' -> stopflag,
@@ -467,12 +468,15 @@ class Receiver:
         """Build the pull-in block program and, when ``nsteps`` is a
         multiple of the steady loop interval, the steady one, at this
         receiver's block length: on a card one eager warm-up and one CUDA
-        graph capture each, here and never per block."""
+        graph capture each, here and never per block.  Marks the
+        ``precompiled`` milestone, which therefore carries the kernels'
+        load (and any nvcc build) and the captures."""
         shape = (self.span,) + (
             (2,) if self.spec.dtype == DType.IQ else ())
         self.trk.program(self.nsteps, shape)
         if self.fast is not None and self.nsteps % self.fast.L == 0:
             self.fast.program(self.nsteps, shape)
+        self._mark("precompiled")
 
     def _block(self):
         """The next tracking block: samples [origin, origin + span) on the

@@ -102,16 +102,17 @@ TAPS13 = "#define TAP_CASES(X) X(13)"
 
 
 def inputs(device, iq: bool, corr=(6, 3, 6), sf: float = F_SF,
-           fif: float = F_IF, windows: int = WINDOWS):
+           fif: float = F_IF, windows: int = WINDOWS,
+           channels: int = CHANNELS):
     """Phase 3's super-step: (trk, host arrays (block, rc, wstart, n, rem,
     ftot, active), the same as tensors on ``device``).  ``corr`` (CORRN,
-    CORRD, CORRP), ``sf``, ``fif`` and ``windows`` (per channel) give
-    another front end's super-step; the carrier spans the same +-6.5 kHz
-    of Doppler at any rate."""
+    CORRD, CORRP), ``sf``, ``fif``, ``windows`` (per channel) and
+    ``channels`` give another front end's or channel count's super-step;
+    the carrier spans the same +-6.5 kHz of Doppler at any rate."""
     trk = Tracker(TrackConfig(*corr), [1], [CodeType.L1CA], sf, fif,
                   DType.IQ if iq else DType.REAL, device=device)
     rng = np.random.default_rng(7 + iq)
-    C, L, nn = CHANNELS, windows, trk.n_nom
+    C, L, nn = channels, windows, trk.n_nom
     B = C * L
     nblock = (L + 2) * nn + trk.next
     block = rng.integers(-128, 128, (nblock, 2) if iq else nblock
