@@ -40,10 +40,11 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    in [26, 28) s), 16.368 Msps real int8 at a 4.092 MHz IF, and phase
    11's two front ends: FE1 real (the slice's 4 GPS PRNs and an SBAS
    satellite with MT12 messages), FE2 I/Q at IF 0 (3 GLONASS G1
-   satellites, each with its slot in string 4); then phase 14's capture
-   (``receiver_throughput.synthesize()``: 20 s x 12 satellites at
-   16.368 Msps, the tool's own bytes) by a process pool, one worker per
-   core;
+   satellites, each with its slot in string 4), and phase 15's
+   multi-process receiver demo capture (its 4 GPS PRNs, 16 s at 4.092
+   Msps), and phase 14's (``receiver_throughput``'s: its 12 satellites,
+   C/N0 and int8 scale, 20 s at 16.368 Msps, written where the tools
+   read it);
 5. the block programs (CUDA graphs of a tracking block) replayed against
    the eager loop, bit for bit, for pull-in and the band, pallas, fused
    and xla backends; FastTracker.run_block on the card vs on the CPU from
@@ -127,15 +128,41 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    ``acq_throughput``: 22,720 bins, PRNs 1-8 acquired; (h)
    ``e2e_receiver_check.run()`` to ``E2E PASS``; (i) ``measure_round``
    with its acq child on the card, the artifact only under a temporary
-   directory.
+   directory;
+15. the multi-device layer (``gnsslib_tpu_torch.parallel``) on the one
+   card: (a) K1 at the shard shapes (8 and 3 channels: 80 and 30
+   windows) against its plain version; (b) the sharded engines on 4
+   shards of the card (``make_mesh(devices=["cuda:0"] * 4)``, each shard
+   with its own block programs) against the unsharded ones from one
+   state, at 32 and 13 channels (the uneven split): pull-in, the band
+   backend with two blocks in flight collected in order, one block each
+   of pallas (K3) and fused (K2), and the acquirer in channel mode (32
+   channels) and freq mode (2 channels), with each shard's pool memory;
+   (c) phase 6's capture and INI in ``Receiver(mesh=...)`` against the
+   unsharded receiver with ``pipeline_acq=False``: decisions, events,
+   epochs and RINEX bit for bit (or the first differing field named and
+   the fallback bound held), K1 launches = 4 x the unsharded run's steady
+   super-steps, counted through the shards' replays; (d) the CLI's
+   ``--devices 1`` against phase 6's run, ``--devices 2`` refused with
+   ``need 2 devices, have 1`` on a one-card machine (with two cards, run
+   and held to phase 6's events and epochs bit for bit); (e) both
+   multi-process demos, two processes sharing the card over gloo
+   (``MULTIHOST OK``, ``MULTIHOST RECEIVER OK``: both processes' events
+   equal each other's and, bit for bit, a single-process receiver's
+   (events and epochs), process 0 alone
+   writing RINEX, every process's K1 launches); (f)
+   ``scaling_efficiency``: channel-samples/s per shard, one process
+   against two on the one card, and their ratio (a record: one card
+   shows no scaling across cards).
 
-Phases 5-14 each print the graph captures they made (count, seconds
+Phases 5-15 each print the graph captures they made (count, seconds
 recording and instantiating, pool memory) and their wall time, and a
 line before the kernels
 line totals them.  The band_taps row's launches are those of phases 6,
-11, 12a, 12b, 13 and 14's receiver runs (the main paths: file replay,
+11, 12a, 12b, 13, 14 and 15's receiver runs (the main paths: file replay,
 multi-GNSS, the live entry point, real and I/Q, the diagnostics and
-pipeline modes, and the receiver tools).  The
+pipeline modes, the receiver tools, and the mesh receiver, the CLI with
+``--devices`` and the multi-process receiver demo).  The
 last two lines are a JSON object describing
 the kernels and the ``{"ok": true, "device": {...}}`` line.  This script
 imports no JAX.
@@ -211,6 +238,14 @@ RTL_TRUTH = {prn: (d // 8, dop) for prn, (d, dop) in TRUTH.items()}
 EDGE_SECONDS = 4.8
 EDGE_DOPPLER = {7: -4000.0, 13: 4000.0}
 EDGE_NSTEPS = 400
+# phase 15's multi-process receiver demo capture: the demo's 4 satellites
+# and rates (tools/multihost_receiver_demo.py), 16 s
+MH_SECONDS = 16.0
+MH_SF, MH_IF = 4.092e6, 1.023e6
+# phase 14's capture: receiver_throughput's satellites, 20 s, at its C/N0
+# (dB-Hz) and int8 scale
+RX_SECONDS = 20.0
+RX_LEVELS = (46.0, 16.0)
 EDGE_B0 = 2 * EDGE_NSTEPS * 16368
 EDGE = 3
 # the pacer: replays a capture on stdout at ``rate`` x real time (against
@@ -341,6 +376,13 @@ def _signal(kind, t0, f_sf, truth) -> tuple:
         return _multi_signal(kind, f_sf, truth)
     from gnsslib_tpu_torch import sim
     from gnsslib_tpu_torch.constants import DType
+    if kind == "mh":
+        # the multi-process receiver demo's satellites
+        from gnsslib_tpu_torch.tools import multihost_receiver_demo as mh
+        return mh.satellites(), DType.REAL, 7000, "int8"
+    if kind == "rx":
+        from gnsslib_tpu_torch.tools import receiver_throughput as rxt
+        return rxt._chans(RX_SECONDS), DType.REAL, 1000, "int8"
     pad = np.concatenate([np.tile([1, -1], 149), [1, 1]]).astype(np.int8)
     if kind == "edge":
         # truth: PRN -> (the sample where a code period starts, Doppler)
@@ -418,12 +460,12 @@ def _synthesize(dev, chans, f_sf: float, f_if: float, iq: bool, n: int,
     return out
 
 
-def _quantize(x, fmt: str) -> bytes:
-    """``sim.quantize_int8(x, QUANT)`` ("int8") or
+def _quantize(x, fmt: str, scale: float = QUANT) -> bytes:
+    """``sim.quantize_int8(x, scale)`` ("int8") or
     ``sim.quantize_rtlsdr(x, 8.0)`` ("rtlsdr") of a tensor, as bytes."""
     import torch
     if fmt == "int8":
-        q = torch.clamp(torch.round(x * QUANT), -128, 127).to(torch.int8)
+        q = torch.clamp(torch.round(x * scale), -128, 127).to(torch.int8)
     else:
         q = torch.clamp(torch.round(x * 8.0), -127, 127)
         q = torch.where(q >= 0, q + 128, q + 127).to(torch.uint8)
@@ -996,12 +1038,15 @@ def phase_ablation_kernel(dev) -> dict:
 
 
 def phase_synth(dev, paths: dict, edge_starts: dict = None) -> float:
-    """Every capture ({"slice", "pos", "fe1", "fe2", "rtl", "edge": path},
-    "fe1"/"fe2" phase 11's front ends, "rtl" and "edge" phase 12's; the
-    edge capture's channels start periods at ``edge_starts``), in 1 s
-    chunks synthesized on ``dev`` (:func:`_synthesize`)."""
+    """Every capture ({"slice", "pos", "fe1", "fe2", "rtl", "edge", "mh",
+    "rx": path}, "fe1"/"fe2" phase 11's front ends, "rtl" and "edge" phase
+    12's, "rx" phase 14's (with the metadata receiver_throughput checks),
+    "mh" phase 15's multi-process receiver demo's; the edge capture's
+    channels start periods at ``edge_starts``), in 1 s chunks synthesized
+    on ``dev`` (:func:`_synthesize`)."""
     from gnsslib_tpu_torch import sim
     from gnsslib_tpu_torch.constants import DType
+    from gnsslib_tpu_torch.tools import receiver_throughput as rxt
     chunks = []
     edge = {p: (edge_starts[p], d) for p, d in EDGE_DOPPLER.items()} \
         if edge_starts else None
@@ -1011,7 +1056,9 @@ def phase_synth(dev, paths: dict, edge_starts: dict = None) -> float:
             ("fe1", MG_SECONDS, F_SF, F_IF, multi_truth()),
             ("fe2", MG_SECONDS, F_SF, 0.0, multi_truth()),
             ("rtl", RTL_SECONDS, RTL_SF, 0.0, RTL_TRUTH),
-            ("edge", EDGE_SECONDS, F_SF, F_IF, edge)):
+            ("edge", EDGE_SECONDS, F_SF, F_IF, edge),
+            ("mh", MH_SECONDS, MH_SF, MH_IF, None),
+            ("rx", RX_SECONDS, rxt.F_SF, rxt.F_IF, None)):
         if kind not in paths:
             continue
         n, step = int(seconds * f_sf), int(f_sf)
@@ -1027,10 +1074,15 @@ def phase_synth(dev, paths: dict, edge_starts: dict = None) -> float:
             if (kind, dark) not in signals:
                 signals[kind, dark] = _signal(kind, c0, f_sf, truth)
             chans, dtype, seed, fmt = signals[kind, dark]
-            noise = sim.noise_std_for_cn0(1.0, CN0, f_sf, dtype)
+            cn0, scale = RX_LEVELS if kind == "rx" else (CN0, QUANT)
+            noise = sim.noise_std_for_cn0(1.0, cn0, f_sf, dtype)
             x = _synthesize(dev, chans, f_sf, f_if, dtype == DType.IQ, count,
                             noise, seed + c0, c0)
-            files[kind].write(_quantize(x, fmt))
+            files[kind].write(_quantize(x, fmt, scale))
+    if "rx" in paths:
+        with open(paths["rx"] + ".json", "w") as f:
+            json.dump(dict(f_sf=rxt.F_SF, f_if=rxt.F_IF, seconds=RX_SECONDS,
+                           n=rxt.NPRESENT), f)
     dt = time.time() - t0
     log(f"[4] synthesized {SECONDS:.0f} s x {len(TRUTH)} PRNs, "
         f"{POS_SECONDS:.0f} s x {len(pos_geometry()[0])} PRNs and phase 11's "
@@ -1038,7 +1090,10 @@ def phase_synth(dev, paths: dict, edge_starts: dict = None) -> float:
         f"{len(MG_G1)} G1 I/Q) at {F_SF/1e6:.3f} Msps, and phase 12's "
         f"{RTL_SECONDS:.0f} s x {len(RTL_TRUTH)} PRNs I/Q at "
         f"{RTL_SF/1e6:.3f} Msps (RTL-SDR u8) and {EDGE_SECONDS:.1f} s x "
-        f"{len(EDGE_DOPPLER)} PRNs at the block's edges in {dt:.1f} s on "
+        f"{len(EDGE_DOPPLER)} PRNs at the block's edges, phase 14's "
+        f"{RX_SECONDS:.0f} s x {rxt.NPRESENT} PRNs at {rxt.F_SF / 1e6:.3f} "
+        f"Msps, and phase 15's {MH_SECONDS:.0f} s x 4 PRNs at "
+        f"{MH_SF / 1e6:.3f} Msps in {dt:.1f} s on "
         f"{dev.type} -> {paths}")
     return dt
 
@@ -2769,7 +2824,7 @@ def phase_tools(dev) -> tuple:
     if n != int(20 * rxt.F_SF) or meta != dict(
             f_sf=rxt.F_SF, f_if=rxt.F_IF, seconds=20.0, n=12):
         raise AssertionError(f"[14a] capture {path}: {n} bytes, {meta}")
-    log(f"[14a] receiver_throughput.synthesize(): {path}, 20 s x 12 "
+    log(f"[14a] receiver_throughput's capture (phase 4): {path}, 20 s x 12 "
         f"satellites at {rxt.F_SF / 1e6:.3f} Msps int8 ({n} bytes)")
 
     # (e) K1 at full width: its device time gives the receiver's cap
@@ -2954,6 +3009,409 @@ def phase_tools(dev) -> tuple:
     return k1_main, err_e
 
 
+# --------------------------------------------------------------------- #
+# phase 15, the multi-device layer
+P15_SHARDS = 4
+P15_STEPS = 100          # periods per engine block (10 steady super-steps)
+
+
+def _first_diff(a, b):
+    """The first field in which two TrackOutputs differ bit for bit (None
+    when they are equal)."""
+    for f in a.__dataclass_fields__:
+        x, y = np.asarray(getattr(a, f)), np.asarray(getattr(b, f))
+        if x.shape != y.shape or x.tobytes() != y.tobytes():
+            return f
+    return None
+
+
+def _held15(tag: str, got, ref) -> bool:
+    """Sharded telemetry ``got`` against the unsharded ``ref``: bit for
+    bit, or the first differing field named and the fallback held (loc
+    exact, test_fast.py's ip/qp bound, dcarr within 0.5 Hz)."""
+    f = _first_diff(got, ref)
+    if f is None:
+        log(f"[{tag}] sharded == unsharded bit for bit")
+        return True
+    d = float(np.max(np.abs(np.asarray(getattr(got, f), np.float64)
+                            - np.asarray(getattr(ref, f), np.float64))))
+    log(f"[{tag}] sharded differs from unsharded: first field {f} (max "
+        f"abs diff {d:.4g}); holding the fallback bound")
+    if not np.array_equal(got.loc, ref.loc):
+        raise AssertionError(f"[{tag}] loc differs")
+    scale = float(np.max(np.abs(ref.ip)))
+    for name in ("ip", "qp"):
+        dd = np.abs(getattr(got, name) - getattr(ref, name))
+        if int(np.sum(dd > 5e-3 * scale)) > 3 or \
+                float(np.median(dd)) >= 1e-3 * scale:
+            raise AssertionError(f"[{tag}] {name} beyond the bound")
+    if float(np.max(np.abs(got.dcarr - ref.dcarr))) > 0.5:
+        raise AssertionError(f"[{tag}] dcarr beyond 0.5 Hz")
+    return False
+
+
+def _shard_pools(tag: str, eng) -> None:
+    """Log each shard's block programs: count and pool memory."""
+    log(f"[{tag}] shard programs: " + "; ".join(
+        f"channels {a}-{b - 1}: {len(e.programs)} programs, pool "
+        f"{sum(p.pool_bytes for p in e.programs.values()) / 1e6:.1f} MB"
+        for a, b, e in eng.shards))
+
+
+def _shard_k1(eng) -> int:
+    """K1 launches counted through every shard's program replays."""
+    return sum(p.replays * p.launches.get("band_taps", {}).get("kernel", 0)
+               for _, _, e in eng.shards for p in e.programs.values())
+
+
+def _engines15(dev, mesh, block, nch: int) -> int:
+    """(b) for ``nch`` channels (PRNs 1-nch; the TRUTH PRNs among them at
+    their true code phase and Doppler, the others on noise): the pull-in
+    block, then the band backend with two blocks in flight collected in
+    order, then one block each of pallas (K3) and fused (K2), sharded over
+    ``mesh`` against the unsharded engines from one state.  Returns the
+    band blocks' K1 launches (counted through the shards' replays)."""
+    import torch
+    from gnsslib_tpu_torch.constants import CodeType, DType
+    from gnsslib_tpu_torch.ops import band_taps as bt
+    from gnsslib_tpu_torch.ops import gram_taps, window_taps
+    from gnsslib_tpu_torch.parallel import ShardedFastTracker, ShardedTracker
+    from gnsslib_tpu_torch.track import FastTracker, TrackConfig, Tracker
+    nn = int(round(F_SF / 1000))
+    prns = list(range(1, nch + 1))
+    trk = Tracker(TrackConfig(*CORR), prns, [CodeType.L1CA] * nch, F_SF,
+                  F_IF, DType.REAL, device=dev)
+    loc = [TRUTH[p][0] if p in TRUTH else (37 * p) % nn for p in prns]
+    dcarr = [-TRUTH[p][1] if p in TRUTH else 0.0 for p in prns]
+    st0 = trk.start_channels(trk.init_state(), list(range(nch)), loc, dcarr)
+    tag = f"15b {nch}ch"
+    strk = ShardedTracker(trk, mesh)
+    log(f"[{tag}] shards {[(a, b - a) for a, b, _ in strk.shards]} on "
+        f"{sorted({str(e.device) for _, _, e in strk.shards})}")
+    ss, so = strk.run_block(st0, block, P15_STEPS)
+    us, uo = trk.run_block(st0, block, P15_STEPS)
+    _held15(f"{tag} pull-in", so, uo)
+    st = trk.rebase(us, P15_STEPS * nn)
+    for c in range(nch):
+        st = trk.set_bit_sync(st, c, 0)
+    fast = FastTracker(trk)
+    sfast = ShardedFastTracker(fast, mesh)
+    # the programs first: their eager warm-ups launch K1 too
+    sfast.program(P15_STEPS, block.shape)
+    bt.COUNTS.reset()
+    s1, h1 = sfast.run_block_start(st, block, P15_STEPS)
+    s2, h2 = sfast.run_block_start(trk.rebase(s1, P15_STEPS * nn), block,
+                                   P15_STEPS)
+    o1, o2 = sfast.run_block_collect(h1), sfast.run_block_collect(h2)
+    cuda = dev.type == "cuda"
+    # (a CPU rehearsal counts the plain version, and replays no graph)
+    k1 = bt.COUNTS.kernel if cuda else bt.COUNTS.plain
+    if (cuda and (_shard_k1(sfast) != k1 or bt.COUNTS.v1
+                  or bt.COUNTS.plain)) or \
+            k1 != len(sfast.shards) * 2 * (P15_STEPS // fast.L):
+        raise AssertionError(f"[{tag}] band K1 launches {k1}, through the "
+                             f"replays {_shard_k1(sfast)}, v1 "
+                             f"{bt.COUNTS.v1}, plain {bt.COUNTS.plain}")
+    u1, g1 = fast.run_block(st, block, P15_STEPS)
+    u2, g2 = fast.run_block(trk.rebase(u1, P15_STEPS * nn), block,
+                            P15_STEPS)
+    _held15(f"{tag} band block 1 (two in flight)", o1, g1)
+    _held15(f"{tag} band block 2", o2, g2)
+    for corr, counts in (("pallas", window_taps.COUNTS16),
+                         ("fused", gram_taps.COUNTS)):
+        fast.corr = corr
+        sfast.program(P15_STEPS, block.shape)
+        counts.reset()
+        _, o = sfast.run_block(st, block, P15_STEPS)
+        n_k = counts.kernel if cuda else counts.plain
+        _, g = fast.run_block(st, block, P15_STEPS)
+        if n_k != len(sfast.shards) * (P15_STEPS // fast.L) or \
+                (cuda and counts.plain):
+            raise AssertionError(f"[{tag}] {corr}: {n_k} launches, "
+                                 f"{counts.plain} plain")
+        _held15(f"{tag} {corr} (launches {n_k})", o, g)
+    fast.corr = "band"
+    _shard_pools(f"{tag} pull-in", strk)
+    _shard_pools(f"{tag} steady", sfast)
+    return k1
+
+
+def _acq15(dev, mesh, block) -> None:
+    """(b) the sharded acquirer on the card: channel mode (32 channels on 4
+    shards) and freq mode (2 channels on 4 shards) against the unsharded
+    search on the same device block."""
+    from gnsslib_tpu_torch.acquire import Acquirer
+    from gnsslib_tpu_torch.constants import CodeType, DType
+    from gnsslib_tpu_torch.parallel import ShardedAcquirer
+    for prns in (list(range(1, 33)), [3, 11]):
+        acq = Acquirer(prns, [CodeType.L1CA] * len(prns), F_SF, F_IF,
+                       DType.REAL, device=dev)
+        sacq = ShardedAcquirer(acq, mesh)
+        t0 = time.time()
+        a = sacq.search_dev(block)
+        t1 = time.time()
+        b = acq.search_dev(block)
+        same = all(np.array_equal(getattr(a, k), getattr(b, k)) for k in (
+            "codei", "freqi", "cn0", "peakr", "acquired", "confirmed"))
+        rel = float(np.max(np.abs(a.cn0 - b.cn0) / np.abs(b.cn0)))
+        log(f"[15b] ShardedAcquirer {sacq.mode} mode, {len(prns)} channels "
+            f"on {mesh.size} shards ({len(sacq.shards)} used): "
+            f"{(t1 - t0) * 1e3:.1f} ms; acquired "
+            f"{[p for p, ok in zip(prns, a.acquired) if ok]}; bit for bit "
+            f"{'yes' if same else 'no'}, cn0 max rel diff {rel:.3g}")
+        if not (np.array_equal(a.codei, b.codei)
+                and np.array_equal(a.freqi, b.freqi)
+                and np.array_equal(a.acquired, b.acquired) and rel <= 1e-4):
+            raise AssertionError(f"[15b] ShardedAcquirer {sacq.mode} differs")
+        if sorted(p for p, ok in zip(prns, a.acquired) if ok) != \
+                sorted(p for p in prns if p in TRUTH):
+            raise AssertionError(f"[15b] acquired {a.acquired}")
+
+
+def _rinex_body(path: str) -> list:
+    """A RINEX file's lines but for the header line with the run's date."""
+    with open(path) as f:
+        return [ln for ln in f if "PGM / RUN BY / DATE" not in ln]
+
+
+def _receiver15(dev, mesh, capture: str) -> tuple:
+    """(c) phase 6's capture and INI with 4 shards against the unsharded
+    receiver with ``pipeline_acq=False``; returns (the mesh run's K1
+    launches, its wall, the unsharded run's wall)."""
+    import shutil
+    from gnsslib_tpu_torch.io.frontend import FileFrontend
+    from gnsslib_tpu_torch.ops import band_taps as bt
+    from gnsslib_tpu_torch.runtime.config import load_ini
+    from gnsslib_tpu_torch.runtime.receiver import Receiver
+    runs = {}
+    for name, kw in (("mesh15", dict(mesh=mesh)),
+                     ("flat15", dict(pipeline_acq=False))):
+        shutil.rmtree(os.path.join(WORK, name), ignore_errors=True)
+        cfg = load_ini(_write_ini(capture, name=name))
+        fe = FileFrontend(cfg.files[0], cfg.fends[0])
+        t0 = time.time()
+        rx = Receiver(cfg, fe, device=dev, nsteps_per_block=400, **kw)
+        build = time.time() - t0
+        epochs = _record(rx)
+        bt.COUNTS.reset()
+        t0 = time.time()
+        stats = rx.run_seconds()
+        rx.close()
+        fe.close()
+        wall = time.time() - t0
+        k1 = (bt.COUNTS.kernel, bt.COUNTS.v1, bt.COUNTS.plain)
+        if dev.type != "cuda":              # a CPU rehearsal
+            k1 = (k1[2], 0, 0)
+        runs[name] = (rx, epochs, k1, wall)
+        sw = stats["stage_wall"]
+        log(f"[15c] {name}: built in {build:.2f} s, {stats['seconds']:.1f} "
+            f"s of stream in {wall:.2f} s (acquire {sw['acquire']:.2f}, "
+            f"pull-in {sw['pullin']:.2f}, steady {sw['steady']:.2f} s); "
+            f"locked {stats['locked']}, decoded {stats['decoded']}, "
+            f"{stats['epochs']} epochs; K1 launches {k1[0]} (v1 {k1[1]}, "
+            f"plain {k1[2]})")
+    (rm, em, km, wm), (rs, es, ks, ws) = runs["mesh15"], runs["flat15"]
+    _shard_pools("15c pull-in", rm._slow_eng)
+    _shard_pools("15c steady", rm._fast_eng)
+    counted = (_shard_k1(rm._fast_eng) + _shard_k1(rm._slow_eng)
+               if dev.type == "cuda" else km[0])
+    steady = sum(p.replays * p.count for p in rs.fast.programs.values())
+    log(f"[15c] K1: mesh {km[0]} (through the shards' replays {counted}), "
+        f"unsharded {ks[0]} = its {steady} steady super-steps; "
+        f"{len(rm._fast_eng.shards)} x {ks[0]} = "
+        f"{len(rm._fast_eng.shards) * ks[0]}")
+    if km[1:] != (0, 0) or km[0] != counted or \
+            km[0] != len(rm._fast_eng.shards) * ks[0] or ks[0] != steady:
+        raise AssertionError(f"[15c] K1 launches mesh {km}, counted "
+                             f"{counted}, unsharded {ks}, super-steps "
+                             f"{steady}")
+    same = dict(
+        decisions=_decisions(rm) == _decisions(rs),
+        events=rm.events == rs.events, epochs=em == es,
+        rinex=all(_rinex_body(getattr(rm, w).path)
+                  == _rinex_body(getattr(rs, w).path)
+                  for w in ("obs_writer", "nav_writer")))
+    log(f"[15c] mesh against unsharded (pipeline_acq=False), bit for bit: "
+        + ", ".join(f"{k} {'yes' if v else 'NO'}" for k, v in same.items())
+        + f" ({len(rm.events)} events, {len(em)} epochs)")
+    if not all(same.values()):
+        if [e[:3] for e in rm.events] != [e[:3] for e in rs.events] or \
+                not same["decisions"] or len(em) != len(es):
+            raise AssertionError(f"[15c] the mesh receiver differs: {same}")
+        dP = [abs(a[2] - b[2]) for ea, eb in zip(em, es)
+              for a, b in zip(ea, eb)]
+        log(f"[15c] fallback: events, decisions and epoch count equal; "
+            f"pseudoranges max diff {max(dP):.3f} m, median "
+            f"{float(np.median(dP)):.3f} m")
+        if max(dP) > 10.0 or float(np.median(dP)) > 0.5:
+            raise AssertionError("[15c] pseudoranges beyond the bound")
+    if not rm.obs_writer or len(em) < 10:
+        raise AssertionError(f"[15c] {len(em)} epochs")
+    return km[0], wm, ws
+
+
+def _cli15(dev, capture: str, ref_events, ref_epochs) -> int:
+    """(d) ``--devices 1`` against phase 6's run (the receiver the CLI
+    builds without the flag), and ``--devices 2``: refused with the JAX
+    message on a one-card machine, else run and compared.  Returns the
+    K1 launches of the CLI runs."""
+    import io
+    import torch
+    from gnsslib_tpu_torch.runtime import cli
+    k1 = 0
+    ini = _write_ini(capture, name="dev1")
+    run = _cli_run("15d", [ini, "--device", "cuda", "--quiet", "--devices",
+                           "1"])
+    k1 += _k1_of("15d", dev, run)
+    if run["rx"].events != ref_events or run["epochs"] != ref_epochs:
+        raise AssertionError("[15d] --devices 1 differs from phase 6")
+    log(f"[15d] --devices 1: {run['run_s']:.2f} s, events and epochs equal "
+        f"phase 6's bit for bit; K1 launches {run['launches'][0]}")
+    cards = torch.cuda.device_count()
+    ini2 = _write_ini(capture, name="dev2")
+    if cards < 2:
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc = cli.main([ini2, "--device", "cuda", "--quiet", "--devices",
+                           "2"])
+        msg = err.getvalue().strip()
+        log(f"[15d] --devices 2 on {cards} card: exit {rc}, {msg!r}")
+        if rc == 0 or f"need 2 devices, have {cards}" not in msg:
+            raise AssertionError(f"[15d] --devices 2: exit {rc}, {msg!r}")
+    else:
+        run = _cli_run("15d", [ini2, "--device", "cuda", "--quiet",
+                               "--devices", "2"])
+        k1 += run["launches"][0]
+        same = run["rx"].events == ref_events and \
+            run["epochs"] == ref_epochs
+        log(f"[15d] --devices 2 on {cards} cards: {run['run_s']:.2f} s, "
+            f"equal to phase 6 bit for bit: {'yes' if same else 'no'}")
+        if not same:
+            raise AssertionError("[15d] --devices 2 differs from phase 6")
+    return k1
+
+
+def _demos15(dev, mh_capture: str) -> int:
+    """(e) both multi-process demos with two processes sharing the card
+    over gloo.  Returns the receiver demo's K1 launches (both processes)."""
+    import tempfile
+    from gnsslib_tpu_torch.tools import multihost_demo
+    from gnsslib_tpu_torch.tools import multihost_receiver_demo as mh
+    t0 = time.time()
+    res = multihost_demo.launch(device="cuda")
+    out = "".join(o for _, o in res)
+    recs = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    log(f"[15e] multihost_demo: exit codes {[rc for rc, _ in res]} in "
+        f"{time.time() - t0:.1f} s; " + "; ".join(
+            f"process {r['pid']}: {r['shards']} shards on {r['device']}, K1 "
+            f"{r['k1_launches']} (plain {r['k1_plain']}), {r['wall']:.2f} s"
+            for r in recs))
+    line = [ln for ln in out.splitlines() if "MULTIHOST OK" in ln]
+    # each shard's steady program: its eager warm-up's launch and its
+    # replay's
+    if any(rc for rc, _ in res) or not line or len(recs) != 2 or any(
+            r["k1_launches"] != 2 * r["shards"] or r["k1_plain"]
+            for r in recs):
+        raise AssertionError(f"[15e] multihost_demo: {res}")
+    log(f"[15e] {line[0]}")
+    os.makedirs(WORK, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=WORK) as d:
+        t0 = time.time()
+        res = mh.launch(d, device="cuda", capture=mh_capture)
+        wall = time.time() - t0
+        obs = mh.check(res, d)
+        written = sorted(os.listdir(d))
+    rx = mh.receiver(mh_capture, dev, None, pipeline_acq=False)
+    rx.run_seconds()
+    rx.close()
+    ref = mh.summary(rx)
+    k1 = [r["k1_launches"] for r in res]
+    log(f"[15e] multihost_receiver_demo: 2 processes x {mh.PER_PROCESS} "
+        f"shards on {res[0]['device']} in {wall:.1f} s (per process "
+        f"{[round(r['wall'], 2) for r in res]} s); locked "
+        f"{res[0]['locked']}, decoded {res[0]['decoded']}, "
+        f"{res[0]['epochs']} epochs; K1 per process {k1} (plain "
+        f"{[r['k1_plain'] for r in res]}); files {written}")
+    if any(r["k1_plain"] for r in res) or min(k1) <= 0 or \
+            [p for p in written if p.endswith((".obs", ".nav"))] != \
+            sorted([obs, obs[:-3] + "nav"]):
+        raise AssertionError(f"[15e] K1 {k1}, files {written}")
+    same = res[0]["events"] == ref["events"] and \
+        res[0]["epochs"] == ref["epochs"]
+    log(f"[15e] both processes' events equal each other; against a "
+        f"single-process receiver (pipeline_acq=False) on the same "
+        f"capture: bit for bit {'yes' if same else 'no'} "
+        f"({len(ref['events'])} events, {ref['epochs']} epochs) "
+        f"-> MULTIHOST RECEIVER OK")
+    if not same:
+        raise AssertionError("[15e] the demo differs from the "
+                             "single-process receiver")
+    return sum(k1)
+
+
+def phase_parallel(dev, capture: str, mh_capture: str, ref_events,
+                   ref_epochs) -> tuple:
+    """Phase 15, the multi-device layer (``gnsslib_tpu_torch.parallel``) on
+    one card: (a) K1 at the shard shapes (8 and 3 channels: 80 and 30
+    windows) against its plain version, (b) the sharded engines on 4
+    shards of the card against the unsharded ones from one state (32 and
+    13 channels; pull-in, band with two blocks in flight, pallas, fused;
+    the acquirer in channel and freq mode), (c) phase 6's receiver over
+    the 4 shards against the unsharded receiver with
+    ``pipeline_acq=False``, (d) the CLI's ``--devices``, (e) both
+    multi-process demos with two processes on the card, (f)
+    ``scaling_efficiency``.  Returns the K1 launches of the receiver runs
+    (c, d, e) and K1's largest error against its plain version in (a)."""
+    import gc
+    import torch
+    from gnsslib_tpu_torch.parallel import make_mesh
+    from gnsslib_tpu_torch.tools import scaling_efficiency
+    t_phase = time.time()
+    # (a) K1 at the shard shapes
+    err_a = 0.0
+    for nch in (8, 3):
+        _, host, _, _, _, errs, _ = hold_k1(dev, False, "15a", channels=nch)
+        if host[1].shape[0] != nch * 10:
+            raise AssertionError(f"[15a] {host[1].shape[0]} windows")
+        err_a = max(err_a, max(errs.values()))
+    # (b) the engines on 4 shards of the card
+    mesh = make_mesh(devices=[dev] * P15_SHARDS)
+    log(f"[15b] mesh {mesh}")
+    nn = int(round(F_SF / 1000))
+    x = np.fromfile(capture, np.int8, count=(P15_STEPS + 4) * nn + 32768)
+    block = torch.from_numpy(x.astype(np.float32)).to(dev)
+    for nch in (32, 13):
+        _engines15(dev, mesh, block, nch)
+        gc.collect()
+        torch.cuda.empty_cache()
+    _acq15(dev, mesh, block)
+    del block
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (c) the receiver over the mesh
+    k1_c, wall_m, wall_s = _receiver15(dev, mesh, capture)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (d) the CLI
+    k1_d = _cli15(dev, capture, ref_events, ref_epochs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (e) the multi-process demos
+    k1_e = _demos15(dev, mh_capture)
+    # (f) scaling efficiency, all processes on the one card
+    t0 = time.time()
+    rec = scaling_efficiency.run(device="cuda")
+    log(f"[15f] scaling_efficiency in {time.time() - t0:.1f} s: "
+        f"{json.dumps(rec)} ({card_line()})")
+    if not rec["efficiency"] > 0 or rec["k1_launches"][0] <= 0:
+        raise AssertionError(f"[15f] {rec}")
+    log(f"[15] K1 launches of the receiver runs: mesh receiver (c) {k1_c}, "
+        f"CLI (d) {k1_d}, receiver demo (e) {k1_e}; mesh receiver "
+        f"{wall_m:.2f} s against the unsharded {wall_s:.2f} s; phase 15 in "
+        f"{time.time() - t_phase:.1f} s ({card_line()})")
+    return k1_c + k1_d + k1_e, err_a
+
+
 def with_graphs(tag: str, phase, *args):
     """Run ``phase(*args)`` and log the block-program captures it made and
     its wall time."""
@@ -3065,16 +3523,11 @@ def main() -> int:
 
     os.makedirs(WORK, exist_ok=True)
     paths = {k: os.path.join(WORK, f"capture_{k}_int8.bin")
-             for k in ("slice", "pos", "fe1", "fe2", "rtl", "edge")}
+             for k in ("slice", "pos", "fe1", "fe2", "rtl", "edge", "mh")}
+    paths["rx"] = rxt.cache_path(RX_SECONDS)
     capture, capture_pos = paths["slice"], paths["pos"]
     starts = edge_starts()
     phase_synth(dev, paths, starts)
-    t0 = time.time()
-    workers = os.cpu_count() or 4
-    rxt.synthesize(workers=workers)
-    log(f"[4] phase 14's capture (receiver_throughput.synthesize(): 20 s x "
-        f"12 satellites at {rxt.F_SF / 1e6:.3f} Msps) by {workers} workers "
-        f"in {time.time() - t0:.1f} s -> {rxt.cache_path()}")
     CAPTURES.reset()
     with_graphs("5", phase_fast_vs_cpu, dev, capture, paths["fe1"],
                 paths["fe2"])
@@ -3118,7 +3571,14 @@ def main() -> int:
     tools_k1, err_256 = with_graphs("14", phase_tools, dev)
     launches["band_taps"] += tools_k1
     k["band_taps"].append({"err": err_256})
-    log(f"[graphs] phases 5-14: {CAPTURES.captures} block-program captures "
+    # the multi-device layer: the K1 launches of its receiver runs (the
+    # mesh receiver, the CLI, both demo processes) join the band_taps row,
+    # and K1's error at the shard shapes its max_abs_err
+    par_k1, err_15 = with_graphs("15", phase_parallel, dev, capture,
+                                 paths["mh"], ref_events, ref_epochs)
+    launches["band_taps"] += par_k1
+    k["band_taps"].append({"err": err_15})
+    log(f"[graphs] phases 5-15: {CAPTURES.captures} block-program captures "
         f"(the CLI runs' included), {CAPTURES.capture_s:.2f} s recording, "
         f"{CAPTURES.instantiate_s:.2f} s instantiating, pools "
         f"{CAPTURES.pool_bytes / 1e6:.1f} MB reserved in all; device memory "

@@ -14,6 +14,7 @@ Doppler bin) and the even/odd round accumulators are unchanged.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -144,6 +145,18 @@ class Acquirer:
         per_ch = self.intg * self.nfreq * self.nfft * 8
         self.chunk = max(1, int(CHUNK_BYTES // per_ch))
 
+    def shard(self, sl: slice, device) -> "Acquirer":
+        """This search over channels ``sl`` on ``device``: the channel
+        slice of every per-channel constant, the same grid and chunking (a
+        shard of :class:`~..parallel.sharded.ShardedAcquirer`)."""
+        a = copy.copy(self)
+        a.device = resolve_device(device)
+        a.C = len(range(self.C)[sl])
+        a.freqs_abs = self.freqs_abs[sl]
+        a._consts = {k: (v[sl] if k in self.ch_const_keys else v).to(
+            a.device) for k, v in self._consts.items()}
+        return a
+
     # -- device program ------------------------------------------------------
     def _complex(self, x: torch.Tensor) -> torch.Tensor:
         if self.iq:
@@ -179,7 +192,11 @@ class Acquirer:
         return torch.stack([p[:, 0::2].sum(dim=1), p[:, 1::2].sum(dim=1)],
                            dim=1)
 
-    def _power(self, rounds: torch.Tensor, consts: dict) -> torch.Tensor:
+    def _power_impl(self, rounds: torch.Tensor, consts: dict
+                    ) -> torch.Tensor:
+        """The power stage: even/odd accumulated power (C, 2, F, nsamp_d)
+        over the Doppler bins of ``consts["d_cps"]`` (the whole grid, or a
+        shard's contiguous slice of it, :mod:`..parallel.sharded`)."""
         C = consts["base_phase"].shape[0]
         return torch.cat([
             self._power_chunk(rounds, consts, slice(c0, c0 + self.chunk))
@@ -253,16 +270,23 @@ class Acquirer:
         peakr = maxP / maxP2
         return codei, freqi, cn0, peakr
 
-    def _search_rounds(self, rounds: torch.Tensor, consts: dict):
-        """(intg, 2*nsamp[, 2]) windows -> the power surface P (C, F,
-        nsamp_d) and the device decision vectors."""
-        Ph = self._power(rounds, consts)
+    def _decide_impl(self, rounds: torch.Tensor, consts: dict,
+                     Ph: torch.Tensor):
+        """The decision stage on the whole grid's (C, 2, F, nsamp_d) power
+        ``Ph`` -> the power surface P (C, F, nsamp_d) and the device
+        decision vectors (codei, freqi, cn0, peakr, confirmed)."""
         P = Ph[:, 0] + Ph[:, 1]
         codei, freqi, cn0, peakr = self.check_impl(P, consts["nsampchip"])
         if self.coarse:
             codei = self._refine(rounds, consts, codei, freqi)
         return (P, codei, freqi, cn0, peakr,
                 self.confirm_impl(Ph, consts["nsampchip"]))
+
+    def _search_rounds(self, rounds: torch.Tensor, consts: dict):
+        """(intg, 2*nsamp[, 2]) windows -> the power surface P (C, F,
+        nsamp_d) and the device decision vectors."""
+        return self._decide_impl(rounds, consts,
+                                 self._power_impl(rounds, consts))
 
     def _rounds_from_flat(self, data: torch.Tensor) -> torch.Tensor:
         """Stack the (intg, 2*nsamp) round windows of a flat block, with

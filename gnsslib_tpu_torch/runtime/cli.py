@@ -3,7 +3,8 @@
 
 Usage:
     python -m gnsslib_tpu_torch <config.ini> [--device {cuda,cpu}]
-        [--seconds N] [--nsteps N] [--ftype {0,1,2}] [--quiet] [--spp]
+        [--seconds N] [--nsteps N] [--devices N] [--ftype {0,1,2}]
+        [--quiet] [--spp]
         [--spec] [--watch] [--watch-html PATH] [--profile DIR]
         [--checkpoint PATH] [--resume PATH]
 
@@ -29,11 +30,13 @@ SPEC_MS cadence of stream time; ``--profile DIR`` writes a
 for Chrome or TensorBoard.
 
 ``--device cuda`` (the default) requires a CUDA card and never falls back
-to the CPU.  SIGINT, SIGTERM and 'q' on a terminal stop the run at the
-next block boundary: the blocks in flight are collected, RINEX closes
-complete and ``--checkpoint`` is still written; a second signal forces the
-exit.  ``--devices`` of the JAX package's CLI is not carried yet and
-raises ``NotImplementedError``.
+to the CPU.  ``--devices N`` (N > 1) shards the channels over N devices
+(:mod:`..parallel`): the first N cards with ``--device cuda`` (fewer cards
+end the run with ``need N devices, have k`` and exit code 1), N CPU
+shards with ``--device cpu``.  SIGINT, SIGTERM and 'q' on a terminal stop
+the run at the next block boundary: the blocks in flight are collected,
+RINEX closes complete and ``--checkpoint`` is still written; a second
+signal forces the exit.
 """
 from __future__ import annotations
 
@@ -53,7 +56,7 @@ from .config import LIVE_FENDS, load_ini
 from .receiver import build_receiver
 
 # flags of `python -m gnsslib_tpu` that the port does not carry yet
-UNPORTED_FLAGS = ("--devices",)
+UNPORTED_FLAGS = ()
 
 
 def _make_live_frontend(spec, built: list):
@@ -224,6 +227,9 @@ def main(argv=None) -> int:
                     help="limit processing to the first N stream seconds")
     ap.add_argument("--nsteps", type=int, default=400,
                     help="code periods per device block")
+    ap.add_argument("--devices", type=int, default=1,
+                    help="shard the channels over N devices: the first N "
+                         "cards (or N CPU shards with --device cpu)")
     ap.add_argument("--ftype", type=int, default=0,
                     help="front-end RF path to process (1 or 2; default "
                          "0 = every path with configured channels)")
@@ -259,11 +265,20 @@ def main(argv=None) -> int:
         if getattr(args, flag.lstrip("-").replace("-", "_")) is not None:
             raise NotImplementedError(
                 f"{flag} is not ported to gnsslib_tpu_torch yet")
+    device = torch.device(args.device)
+    mesh = None
+    if args.devices > 1:
+        from ..parallel import make_mesh
+        try:
+            mesh = (make_mesh(devices=[device] * args.devices)
+                    if device.type == "cpu" else make_mesh(args.devices))
+        except ValueError as e:
+            print(f"error: --devices {args.devices}: {e}", file=sys.stderr)
+            return 1
     if args.device == "cuda" and not torch.cuda.is_available():
         print("error: --device cuda but torch sees no CUDA card "
               "(use --device cpu to run on the CPU)", file=sys.stderr)
         return 1
-    device = torch.device(args.device)
 
     cfg = load_ini(args.config)
     if args.spp:
@@ -310,7 +325,7 @@ def main(argv=None) -> int:
     live = any(getattr(f, "is_live", False) for f in fes.values())
     try:
         rx = build_receiver(cfg, fes, device=device,
-                            nsteps_per_block=args.nsteps)
+                            nsteps_per_block=args.nsteps, mesh=mesh)
     except BaseException:
         close_all()
         raise

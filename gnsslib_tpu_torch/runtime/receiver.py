@@ -1,5 +1,5 @@
 """Block-streamed file-replay receiver (port of
-:mod:`gnsslib_tpu.runtime.receiver`, unsharded).
+:mod:`gnsslib_tpu.runtime.receiver`).
 
 For each block of IF samples:
 
@@ -58,6 +58,15 @@ block programs; the groups of one RF path share its device sample cache,
 and a :class:`MultiReceiver` steps them in lockstep and merges their
 observables in one :class:`OutputHub` (RINEX obs/nav, RTCM3 and the
 NovAtel SBAS stream).
+
+With ``mesh`` (a :class:`~..parallel.mesh.Mesh`) the group's three engines
+are the channel-sharded ones of :mod:`..parallel.sharded`: each shard runs
+its channels' block programs, and a search is decided at once over every
+channel (the JAX mesh receiver's ``_acq_dev_ok = mesh is None``), so a
+mesh receiver equals an unsharded one with ``pipeline_acq=False``.  Over a
+multi-process mesh every process runs the same receiver, the telemetry and
+decisions are all-gathered, and only the output host should write files
+(``rinex=is_output_host()``).
 """
 from __future__ import annotations
 
@@ -325,7 +334,10 @@ class Receiver:
     blocks after it was queued, else at once through :attr:`_acq_search`
     (the override point, :meth:`_acq_dispatch`).  The block's placement
     uses the same estimates in every mode, so a pure scheduling change
-    gives the same bits."""
+    gives the same bits.
+
+    ``mesh``: shard the channels over a :class:`~..parallel.mesh.Mesh`
+    (searches are then decided at once: ``pipeline_acq`` is off)."""
 
     def __init__(self, cfg: ReceiverConfig, frontend, *, device,
                  ftype: int = 1, nsteps_per_block: int = 400,
@@ -334,7 +346,7 @@ class Receiver:
                  pipeline: bool = True, pipeline_depth: int = 2,
                  pipeline_acq: bool | None = None,
                  acq_pipeline_depth: int | None = None,
-                 pipeline_pullin: bool | None = None):
+                 pipeline_pullin: bool | None = None, mesh=None):
         missing = unported_options(cfg)
         if missing:
             raise NotImplementedError(
@@ -380,6 +392,19 @@ class Receiver:
             self.fast = FastTracker(self.trk)
         except ValueError:
             self.fast = None
+        # the engines step_block runs and the search it decides with: the
+        # unsharded ones, or their channel-sharded forms over the mesh
+        self.mesh = mesh
+        self._slow_eng, self._fast_eng, self._acq_eng = \
+            self.trk, self.fast, self.acq
+        if mesh is not None:
+            from ..parallel import (ShardedAcquirer, ShardedFastTracker,
+                                    ShardedTracker)
+            self._slow_eng = ShardedTracker(self.trk, mesh)
+            self._acq_eng = ShardedAcquirer(self.acq, mesh)
+            if self.fast is not None:
+                self._fast_eng = ShardedFastTracker(self.fast, mesh)
+            self.pipeline_acq = False
         self.state = self.trk.init_state()
         self.nsamp = self.trk.n_nom
         self.nsteps = int(nsteps_per_block)
@@ -467,15 +492,16 @@ class Receiver:
     def _precompile(self) -> None:
         """Build the pull-in block program and, when ``nsteps`` is a
         multiple of the steady loop interval, the steady one, at this
-        receiver's block length: on a card one eager warm-up and one CUDA
-        graph capture each, here and never per block.  Marks the
-        ``precompiled`` milestone, which therefore carries the kernels'
-        load (and any nvcc build) and the captures."""
+        receiver's block length (under a mesh, every local shard's): on a
+        card one eager warm-up and one CUDA graph capture each, here and
+        never per block.  Marks the ``precompiled`` milestone, which
+        therefore carries the kernels' load (and any nvcc build) and the
+        captures."""
         shape = (self.span,) + (
             (2,) if self.spec.dtype == DType.IQ else ())
-        self.trk.program(self.nsteps, shape)
+        self._slow_eng.program(self.nsteps, shape)
         if self.fast is not None and self.nsteps % self.fast.L == 0:
-            self.fast.program(self.nsteps, shape)
+            self._fast_eng.program(self.nsteps, shape)
         self._mark("precompiled")
 
     def _block(self):
@@ -546,8 +572,8 @@ class Receiver:
         searched and the power surface rides along (the pltacq view,
         src/sdrmain.c:258-261)."""
         block, _ = self._search_block()
-        return self.acq.search_dev(block,
-                                   diag=self.spec_monitor is not None)
+        return self._acq_eng.search_dev(block,
+                                        diag=self.spec_monitor is not None)
 
     def _collect_acq(self, all_pending: bool = False) -> None:
         """Apply in-flight searches dispatched at least
@@ -862,6 +888,12 @@ class Receiver:
 
     # ------------------------------------------------------------------ #
     def _snapshot(self) -> dict:
+        if self.mesh is not None and self.mesh.nproc > 1:
+            # each process's state holds only its own channels' rows
+            raise RuntimeError(
+                "a checkpoint of a multi-process mesh receiver is not "
+                "supported: each process holds only its own channels' "
+                "tracking state")
         return dict(
             base=self.base, origin=self.origin, pos=self._pos.copy(),
             live=self._live.copy(), oldreftow=self.hub._oldreftow,
@@ -902,8 +934,9 @@ class Receiver:
         the tracking state (as numpy arrays), each channel's lock flags,
         nav and observable history, and the hub's counters."""
         self.flush()
+        snap = self._snapshot()
         with open(path, "wb") as f:
-            pickle.dump(self._snapshot(), f)
+            pickle.dump(snap, f)
 
     def load_checkpoint(self, path: str) -> None:
         """Restore a snapshot of :meth:`save_checkpoint` (same config) onto
@@ -954,7 +987,7 @@ class Receiver:
                     and all(ch.synced for ch in self.channels if ch.locked))
         if use_fast:
             self._mark("steady")
-        eng = self.fast if use_fast else self.trk
+        eng = self._fast_eng if use_fast else self._slow_eng
         pipelined = self.pipeline if use_fast else self.pipeline_pullin
         if not pipelined:
             # strict order: the queued blocks' nav work first (the queued
@@ -1175,12 +1208,13 @@ class MultiReceiver:
     Each group keeps the same number of blocks in flight and all of them
     step together, so after every lockstep step they have collected the
     same blocks; the hub then merges the epochs their histories cover.
-    ``pipeline`` is every group's (:class:`Receiver`).  With SPEC, the
-    groups of one front end share its one spectrum monitor (the first
-    group's)."""
+    ``pipeline`` and ``mesh`` are every group's (:class:`Receiver`).  With
+    SPEC, the groups of one front end share its one spectrum monitor (the
+    first group's)."""
 
     def __init__(self, cfg: ReceiverConfig, parts: list, *, device,
-                 nsteps_per_block: int = 400, pipeline: bool = True):
+                 nsteps_per_block: int = 400, pipeline: bool = True,
+                 mesh=None):
         self.cfg = cfg
         self.hub = OutputHub(cfg)
         self.rx: list[Receiver] = []
@@ -1190,7 +1224,8 @@ class MultiReceiver:
                 r = Receiver(cfg, fe, device=device, ftype=ft,
                              nsteps_per_block=nsteps_per_block, hub=self.hub,
                              standalone=False, channels=chans,
-                             cache=caches.get(id(fe)), pipeline=pipeline)
+                             cache=caches.get(id(fe)), pipeline=pipeline,
+                             mesh=mesh)
                 if id(fe) in caches:
                     # one spectrum monitor per physical front end
                     r.spec_monitor = None
@@ -1250,8 +1285,9 @@ class MultiReceiver:
     def save_checkpoint(self, path: str) -> None:
         """Every group's snapshot (after a flush), as a list."""
         self.flush()
+        snaps = [r._snapshot() for r in self.rx]
         with open(path, "wb") as f:
-            pickle.dump([r._snapshot() for r in self.rx], f)
+            pickle.dump(snaps, f)
 
     def load_checkpoint(self, path: str) -> None:
         """Restore a :meth:`save_checkpoint` of the same config.  The file
@@ -1340,21 +1376,22 @@ class DualReceiver(MultiReceiver):
     the named two-path case of :class:`MultiReceiver`."""
 
     def __init__(self, cfg: ReceiverConfig, frontends: list, *, device,
-                 nsteps_per_block: int = 400):
+                 nsteps_per_block: int = 400, mesh=None):
         ftypes = sorted({c.ftype for c in cfg.channels})
         if len(ftypes) < 2:
             raise ValueError("DualReceiver needs channels on two FTYPEs")
         parts = [(ft, fe, [c for c in cfg.channels if c.ftype == ft])
                  for ft, fe in zip(ftypes, frontends)]
         super().__init__(cfg, parts, device=device,
-                         nsteps_per_block=nsteps_per_block)
+                         nsteps_per_block=nsteps_per_block, mesh=mesh)
 
 
 def build_receiver(cfg: ReceiverConfig, frontends, *, device,
-                   nsteps_per_block: int = 400, pipeline: bool = True):
+                   nsteps_per_block: int = 400, pipeline: bool = True,
+                   mesh=None):
     """The receiver for ``cfg``: channels grouped by (RF path, loop
     cadence); a single group gets a plain :class:`Receiver`, several a
-    :class:`MultiReceiver`, each with ``pipeline``.
+    :class:`MultiReceiver`, each with ``pipeline`` and ``mesh``.
 
     ``frontends``: a {ftype: frontend} dict, or a list paired with the
     configured FTYPEs in sorted order (a single frontend is accepted)."""
@@ -1378,7 +1415,7 @@ def build_receiver(cfg: ReceiverConfig, frontends, *, device,
         ft, fe, grp = parts[0]
         return Receiver(cfg, fe, device=device, ftype=ft,
                         nsteps_per_block=nsteps_per_block, channels=grp,
-                        pipeline=pipeline)
+                        pipeline=pipeline, mesh=mesh)
     return MultiReceiver(cfg, parts, device=device,
                          nsteps_per_block=nsteps_per_block,
-                         pipeline=pipeline)
+                         pipeline=pipeline, mesh=mesh)

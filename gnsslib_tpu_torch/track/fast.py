@@ -34,6 +34,8 @@ sharing one ``loop`` interval.
 """
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 
@@ -89,20 +91,38 @@ class FastTracker(BlockRunner):
                     * k[None, :]).astype(np.float32),
             fbt=np.mod(f_base * tracker.ti, 1.0).astype(np.float32),
         )
-        dev = self.device
-        self._fconsts = {kk: torch.from_numpy(v).to(dev)
+        self._fconsts = {kk: torch.from_numpy(v).to(self.device)
                          for kk, v in fconsts.items()}
-        self._consts = tracker._consts
-        self._ki = torch.arange(L, dtype=F32, device=dev)
         # window rows of the fetch backends: nwin rounded up to whole
         # 128-sample rows
         self._fetch_k = (self.nwin + 127) // 128
-        self._fetch_i = torch.arange(self._fetch_k * 128, device=dev)
         self.corr = ("band" if use_pallas is None
                      else "pallas" if use_pallas else "xla")
+        self._bind()
+
+    def _bind(self) -> None:
+        """Take the tracker's constants and loop bridges, build the index
+        tensors on ``device`` and start an empty program cache."""
+        tracker, dev = self.trk, self.device
+        self._consts = tracker._consts
+        self._ki = torch.arange(self.L, dtype=F32, device=dev)
+        self._fetch_i = torch.arange(self._fetch_k * 128, device=dev)
         self.state_to_carry = tracker.state_to_carry
         self.carry_to_state = tracker.carry_to_state
         self.programs = {}   # block programs by (corr, nsuper, block shape)
+
+    def shard(self, sl: slice, tracker: Tracker) -> "FastTracker":
+        """This fast path over channels ``sl``, on ``tracker`` (the
+        :meth:`Tracker.shard` of the same slice): the channel slice of
+        every per-channel constant, the same span tables and ``corr``, and
+        block programs of its own (a shard of
+        :class:`~..parallel.sharded.ShardedFastTracker`)."""
+        f = copy.copy(self)
+        f.trk, f.device, f.C = tracker, tracker.device, tracker.C
+        f._fconsts = {k: v[sl].to(f.device)
+                      for k, v in self._fconsts.items()}
+        f._bind()
+        return f
 
     @property
     def corr(self) -> str:
@@ -400,17 +420,25 @@ class FastTracker(BlockRunner):
                 [packi, ok.to(I32).expand(C)[:, None]], dim=1))
         return carry, torch.stack(pf), torch.stack(pi)
 
-    def _unpack(self, packf: np.ndarray, packi: np.ndarray) -> dict:
+    def _pack_fields(self) -> tuple:
+        """The (name, width) of each float telemetry column, in order."""
         L, taps = self.L, self.cfg.ntaps
-        f = iter(np.cumsum([L, L, 1, 1, taps, taps, 1, 1, 1, 1, 1, 1]))
+        return tuple(zip(
+            ("ip", "qp", "remcode_u", "remcarr_u", "sum_i_u", "sum_q_u",
+             "dcarr", "dcode", "carr_err", "code_err", "carr_nco",
+             "code_nco"),
+            (L, L, 1, 1, taps, taps, 1, 1, 1, 1, 1, 1)))
+
+    def pack_widths(self) -> tuple[int, int]:
+        """The float and int columns of a channel's telemetry row."""
+        return sum(w for _, w in self._pack_fields()), self.L + 3
+
+    def _unpack(self, packf: np.ndarray, packi: np.ndarray) -> dict:
+        L = self.L
         sl, pos = {}, 0
-        for name in ("ip", "qp", "remcode_u", "remcarr_u", "sum_i_u",
-                     "sum_q_u", "dcarr", "dcode", "carr_err", "code_err",
-                     "carr_nco", "code_nco"):
-            end = int(next(f))
-            sl[name] = packf[..., pos:end] if end - pos > 1 else \
-                packf[..., pos]
-            pos = end
+        for name, w in self._pack_fields():
+            sl[name] = packf[..., pos:pos + w] if w > 1 else packf[..., pos]
+            pos += w
         sl["loc"] = packi[..., :L]
         sl["k_c"] = packi[..., L]
         sl["n_u"] = packi[..., L + 1]

@@ -15,6 +15,7 @@ QP = corr.real.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -163,9 +164,13 @@ class Tracker(BlockRunner):
         consts["clen"] = np.asarray(clens, np.int32)
         self._consts = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
             self.device) for k, v in consts.items()}
-
-        dev = self.device
         self._W = W
+        self._index_tensors()
+
+    def _index_tensors(self) -> None:
+        """The index and coefficient tensors of the loop body on
+        ``device``, and an empty program cache."""
+        cfg, C, dev = self.cfg, self.C, self.device
         self._cidx = torch.arange(C, device=dev)
         self._iwin = torch.arange(self.nwin, device=dev)
         self._iwin_f = self._iwin.to(F32)
@@ -180,6 +185,20 @@ class Tracker(BlockRunner):
             [[p.pllaw, p.pllw2, p.fllw, p.dllaw, p.dllw2]
              for p in (cfg.prm1, cfg.prm2)], dtype=F32, device=dev)
         self.programs = {}       # block programs by (steps, block shape)
+
+    def shard(self, sl: slice, device) -> "Tracker":
+        """This tracker's channels ``sl`` on ``device``: the same program
+        (replica table geometry, loop coefficients) over the channel slice
+        of every per-channel constant, with block programs of its own (a
+        shard of :class:`~..parallel.sharded.ShardedTracker`)."""
+        t = copy.copy(self)
+        t.device = resolve_device(device)
+        t.C = len(range(self.C)[sl])
+        for k in ("crate", "ctime", "aid", "_f_base", "_ctypes", "_clens"):
+            setattr(t, k, getattr(self, k)[sl])
+        t._consts = {k: v[sl].to(t.device) for k, v in self._consts.items()}
+        t._index_tensors()
+        return t
 
     # ------------------------------------------------------------------ #
     def init_state(self) -> TrackState:
@@ -370,14 +389,21 @@ class Tracker(BlockRunner):
             pi.append(packi)
         return carry, torch.stack(pf), torch.stack(pi)
 
-    def _unpack_outs(self, packf: np.ndarray, packi: np.ndarray) -> dict:
+    def _pack_fields(self) -> tuple:
+        """The (name, width) of each float telemetry column, in order."""
         taps = self.cfg.ntaps
-        names = ("ip", "qp", "sum_i", "sum_q", "remcode", "remcarr",
-                 "dcarr", "dcode", "carr_err", "code_err", "carr_nco",
-                 "code_nco")
-        widths = (1, 1, taps, taps, 1, 1, 1, 1, 1, 1, 1, 1)
+        return tuple(zip(
+            ("ip", "qp", "sum_i", "sum_q", "remcode", "remcarr", "dcarr",
+             "dcode", "carr_err", "code_err", "carr_nco", "code_nco"),
+            (1, 1, taps, taps, 1, 1, 1, 1, 1, 1, 1, 1)))
+
+    def pack_widths(self) -> tuple[int, int]:
+        """The float and int columns of a channel's telemetry row."""
+        return sum(w for _, w in self._pack_fields()), 3
+
+    def _unpack_outs(self, packf: np.ndarray, packi: np.ndarray) -> dict:
         o, pos = {}, 0
-        for name, w in zip(names, widths):
+        for name, w in self._pack_fields():
             o[name] = packf[..., pos] if w == 1 else packf[..., pos:pos + w]
             pos += w
         o["loc"], o["n"], o["flagloopfilter"] = (

@@ -39,9 +39,11 @@ def _run(code, cwd=ROOT, timeout=300):
 
 
 def test_port_imports_and_tracks_without_jax():
-    """Every module of the port imports with ``jax`` and ``gnsslib_tpu``
-    blocked, and a short Tracker block plus a FastTracker block run on the
-    CPU from a capture the port's own ``sim`` synthesizes."""
+    """Every module of the port (``parallel/`` and its tools on
+    ``torch.distributed`` among them) imports with ``jax`` and
+    ``gnsslib_tpu`` blocked, and a short Tracker block plus a FastTracker
+    block run on the CPU from a capture the port's own ``sim``
+    synthesizes."""
     code = BLOCK_JAX + textwrap.dedent("""
         import pkgutil, importlib, numpy as np, torch
         torch.set_num_threads(2)
@@ -49,6 +51,14 @@ def test_port_imports_and_tracks_without_jax():
         for m in pkgutil.walk_packages(gnsslib_tpu_torch.__path__,
                                        "gnsslib_tpu_torch."):
             importlib.import_module(m.name)
+        # the multi-device layer and its tools, on torch.distributed
+        import torch.distributed
+        for m in ("parallel.mesh", "parallel.sharded",
+                  "parallel.distributed", "tools.multihost_demo",
+                  "tools.multihost_receiver_demo",
+                  "tools.scaling_efficiency"):
+            assert "gnsslib_tpu_torch." + m in sys.modules, m
+        assert torch.distributed.is_available()
         from gnsslib_tpu_torch import sim
         from gnsslib_tpu_torch.constants import CodeType, DType
         from gnsslib_tpu_torch.track import (FastTracker, TrackConfig,

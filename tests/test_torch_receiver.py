@@ -276,11 +276,13 @@ def test_unported_options_raise(capture, tmp_path, key, value, name):
 @pytest.mark.parametrize("flag", ["--devices", "--checkpoint", "--watch",
                                   "--resume", "--spp", "--ftype"])
 def test_unported_cli_flags_raise(capture, tmp_path, flag, capsys):
-    """Flags the port does not carry (``--devices``) raise; the others
-    (ported since) run: a checkpoint written after 2 s resumes to 3 s,
-    ``--spp`` opens the .pos file beside RINEX, ``--ftype 1`` runs the one
-    configured path (``--ftype 2``, a path the config does not define, is
-    refused), and ``--watch`` draws its dashboard for 2 s."""
+    """Flags the port does not carry raise (none is left); the others run:
+    ``--devices 2`` on the CPU writes the same RINEX bytes and prints the
+    same events as the run without it, a checkpoint written after 2 s
+    resumes to 3 s, ``--spp`` opens the .pos file beside RINEX, ``--ftype
+    1`` runs the one configured path (``--ftype 2``, a path the config
+    does not define, is refused), and ``--watch`` draws its dashboard for
+    2 s."""
     _, ini = capture
     if flag in UNPORTED_FLAGS:
         with pytest.raises(NotImplementedError, match=flag):
@@ -291,6 +293,26 @@ def test_unported_cli_flags_raise(capture, tmp_path, flag, capsys):
                               ini.read_text()))
     base = [str(cli_ini), "--device", "cpu", "--quiet"]
     ck = str(tmp_path / "rx.ckpt")
+    if flag == "--devices":
+        runs = []
+        for name, extra in (("one", []), ("two", ["--devices", "2"])):
+            ini_n = tmp_path / f"{name}.ini"
+            ini_n.write_text(re.sub(r"RINEXPATH=.*",
+                                    f"RINEXPATH={tmp_path}/{name}",
+                                    ini.read_text()))
+            capsys.readouterr()
+            assert torch_cli([str(ini_n), "--device", "cpu", "--seconds",
+                              "2"] + extra) == 0
+            events = [ln for ln in capsys.readouterr().out.splitlines()
+                      if ln.startswith("  event:")]
+            # the files' bytes, but for the header line with the run's date
+            files = {p[-3:]: [ln for ln in open(tmp_path / name / p)
+                              if "PGM / RUN BY / DATE" not in ln]
+                     for p in os.listdir(tmp_path / name)}
+            runs.append((events, files))
+        assert runs[0][0] and runs[0] == runs[1]
+        assert sorted(runs[0][1]) == ["nav", "obs"]
+        return
     if flag == "--spp":
         assert torch_cli(base + ["--seconds", "2", "--spp"]) == 0
         assert sorted(p[-3:] for p in os.listdir(tmp_path / "out")) == \
@@ -311,6 +333,19 @@ def test_unported_cli_flags_raise(capture, tmp_path, flag, capsys):
     assert os.path.getsize(ck) > 0
     if flag == "--resume":
         assert torch_cli(base + ["--seconds", "3", "--resume", ck]) == 0
+
+
+def test_cli_devices_beyond_cards(capture, capsys):
+    """``--devices N`` with ``--device cuda`` and fewer than N cards ends
+    the run with the JAX package's message and exit code 1, and never
+    falls back to the CPU."""
+    _, ini = capture
+    have = torch.cuda.device_count()
+    n = max(2, have + 1)
+    assert torch_cli([str(ini), "--device", "cuda", "--devices", str(n),
+                      "--seconds", "2", "--quiet"]) == 1
+    err = capsys.readouterr().err
+    assert f"need {n} devices, have {have}" in err
 
 
 def _mk(ini):

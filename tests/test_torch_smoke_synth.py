@@ -11,6 +11,7 @@ import torch
 
 from gnsslib_tpu_torch import sim
 from gnsslib_tpu_torch.constants import DType
+from gnsslib_tpu_torch.tools import receiver_throughput as rxt
 
 torch.set_num_threads(2)
 
@@ -29,16 +30,19 @@ def _kinds():
             "fe1": (cs.F_SF, cs.F_IF, cs.multi_truth()),
             "fe2": (cs.F_SF, 0.0, cs.multi_truth()),
             "rtl": (cs.RTL_SF, 0.0, cs.RTL_TRUTH),
-            "edge": (cs.F_SF, cs.F_IF, edge)}
+            "edge": (cs.F_SF, cs.F_IF, edge),
+            "mh": (cs.MH_SF, cs.MH_IF, None),
+            "rx": (rxt.F_SF, rxt.F_IF, None)}
 
 
 @pytest.mark.parametrize("kind", ["slice", "pos", "fe1", "fe2", "rtl",
-                                  "edge"])
+                                  "edge", "mh", "rx"])
 def test_synthesize_matches_sim(kind):
     """20,000 noiseless samples at the capture's start and 27 s in (the
     positioning capture's dark seconds): within 1e-12 of
     ``sim.synthesize`` (float64, amplitudes ~1 per satellite), and the
-    same bytes once quantized."""
+    same bytes once quantized (phase 14's: the bytes of
+    ``receiver_throughput``'s own chunk without noise)."""
     f_sf, f_if, truth = _kinds()[kind]
     for t0 in (0, int(27 * f_sf) if kind == "pos" else int(3 * f_sf)):
         chans, dtype, _, fmt = cs._signal(kind, t0, f_sf, truth)
@@ -47,9 +51,14 @@ def test_synthesize_matches_sim(kind):
                              20000, 0.0, 0, t0).numpy()
         assert got.shape == ref.shape
         np.testing.assert_allclose(got, ref, rtol=0, atol=1e-12)
-        q = (sim.quantize_int8(ref, cs.QUANT) if fmt == "int8"
+        scale = cs.RX_LEVELS[1] if kind == "rx" else cs.QUANT
+        q = (sim.quantize_int8(ref, scale) if fmt == "int8"
              else sim.quantize_rtlsdr(ref, 8.0))
-        assert cs._quantize(torch.from_numpy(got), fmt) == q.tobytes()
+        assert cs._quantize(torch.from_numpy(got), fmt, scale) == \
+            q.tobytes()
+        if kind == "rx":
+            _, tool = rxt._synth_chunk((t0, 20000, 0.0, cs.RX_SECONDS))
+            assert tool.tobytes() == q.tobytes()
     if kind == "pos":
         # the faded satellite is left out of its dark seconds only
         assert len(cs._signal(kind, 0, f_sf, truth)[0]) == \
