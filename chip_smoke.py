@@ -28,7 +28,8 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    bit-identical repeat launches and timed cold (beyond L2; K1-K5 warm
    too) by launches replayed from a CUDA graph, and cold by eager
    launches; K1 on I/Q input beside the same source capped at 64
-   registers, where it spills.
+   registers, where it spills; K1 also at phase 16's 9-tap shapes (2
+   channels: real at 4.092 Msps, I/Q 1 sample apart at 2.048 Msps).
    Then ``gnsslib_tpu_torch.tools.profile_window`` and ``profile_gram``:
    the window kernel's build steps, cluster sizes and ablations for K3 and
    the f32 instantiation, and K2's, real and I/Q, each checked against the
@@ -44,7 +45,10 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    multi-process receiver demo capture (its 4 GPS PRNs, 16 s at 4.092
    Msps), and phase 14's (``receiver_throughput``'s: its 12 satellites,
    C/N0 and int8 scale, 20 s at 16.368 Msps, written where the tools
-   read it);
+   read it), and phase 16's: the parity tool's eight scenarios (its
+   satellites, rates, lengths, C/N0 and int8 scales; ``ppm`` as RTL-SDR
+   u8 I/Q with its +5 ppm LO offset) and tests/test_highdyn.py's 30 Hz/s
+   ramp;
 5. the block programs (CUDA graphs of a tracking block) replayed against
    the eager loop, bit for bit, for pull-in and the band, pallas, fused
    and xla backends; FastTracker.run_block on the card vs on the CPU from
@@ -153,16 +157,25 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    writing RINEX, every process's K1 launches); (f)
    ``scaling_efficiency``: channel-samples/s per shard, one process
    against two on the one card, and their ratio (a record: one card
-   shows no scaling across cards).
+   shows no scaling across cards);
+16. the parity tool's half (``gnsslib_tpu_torch.tools.
+   parity_vs_reference.run_mine``: the tool's INI files through the
+   port's CLI) of its eight scenarios on captures synthesized as the tool
+   does (its satellites, rates, lengths, C/N0 and scales; torch's noise)
+   and of tests/test_highdyn.py's 30 Hz/s ramp, each held against the
+   simulation truth (:func:`phase_parity`), with K1's times at the
+   scenarios' 9-tap real and I/Q shapes in phase 3; the reference
+   receiver's half needs the reference tree and is not run.
 
-Phases 5-15 each print the graph captures they made (count, seconds
+Phases 5-16 each print the graph captures they made (count, seconds
 recording and instantiating, pool memory) and their wall time, and a
 line before the kernels
 line totals them.  The band_taps row's launches are those of phases 6,
-11, 12a, 12b, 13, 14 and 15's receiver runs (the main paths: file replay,
-multi-GNSS, the live entry point, real and I/Q, the diagnostics and
-pipeline modes, the receiver tools, and the mesh receiver, the CLI with
-``--devices`` and the multi-process receiver demo).  The
+11, 12a, 12b, 13, 14, 15 and 16's receiver runs (the main paths: file
+replay, multi-GNSS, the live entry point, real and I/Q, the diagnostics
+and pipeline modes, the receiver tools, the mesh receiver, the CLI with
+``--devices`` and the multi-process receiver demo, and the parity
+tool's scenarios).  The
 last two lines are a JSON object describing
 the kernels and the ``{"ok": true, "device": {...}}`` line.  This script
 imports no JAX.
@@ -246,6 +259,32 @@ MH_SF, MH_IF = 4.092e6, 1.023e6
 # (dB-Hz) and int8 scale
 RX_SECONDS = 20.0
 RX_LEVELS = (46.0, 16.0)
+# phase 16: the parity tool's scenarios, each synthesized as the tool
+# does (its satellites, lengths, rates, C/N0 and int8 scales; torch's
+# noise) and run through the tool's run_mine, and tests/test_highdyn.py's
+# 30 Hz/s ramp (PRNs 3 and 21, 26 s, 45 dB-Hz, int8 scale 4) through the
+# highdyn scenario's INI
+PARITY = ("gps", "weak", "ppm", "highdyn", "glo", "sbas", "fullenv",
+          "fullenv_glo")
+RAMP_RATE = 30.0
+RAMP_D0 = {3: 800.0, 21: 2600.0}
+RAMP_SECONDS = 26.0
+# phase 16's bounds (tests/test_highdyn.py's): the Doppler's fitted slope
+# against the truth's (Hz/s), its residual about the fit (Hz), the
+# between-satellite pseudorange rate against lambda x the Doppler
+# difference (m/s); the SBAS satellite's mean Doppler about the truth (Hz:
+# the parity tool's S Doppler bound; about the truth each epoch jitters
+# ~1.2 Hz RMS in both packages, the residual bound holds it)
+SLOPE_TOL, RESID_TOL, PRATE_TOL, SBAS_D_TOL = 0.6, 3.0, 3.0, 0.5
+# the residual bound holds at test_highdyn.py's loop and signal (post-sync
+# PLL 10 Hz, 45 dB-Hz); the ppm INI's PLL is 20 Hz wide and the weak
+# capture 3 dB fainter, so their Doppler jitters more (the JAX package's
+# largest residuals on the same captures: 3.065 and 2.864 Hz)
+RESID_SCALE = {"ppm": 2.0, "weak": 2.0 ** 0.5}
+# both packages report one SBAS Doppler epoch ~760 Hz off near the sbas
+# capture's end (ROADMAP Queue 3): S epochs more than SBAS_SPIKE Hz from
+# the median are counted apart, at most SBAS_SPIKES of them
+SBAS_SPIKE, SBAS_SPIKES = 5.0, 1
 EDGE_B0 = 2 * EDGE_NSTEPS * 16368
 EDGE = 3
 # the pacer: replays a capture on stdout at ``rate`` x real time (against
@@ -423,6 +462,47 @@ def _signal(kind, t0, f_sf, truth) -> tuple:
     return chans, DType.REAL, 1000, "int8"
 
 
+def parity_signal(kind: str) -> tuple:
+    """Phase 16's capture ``kind`` ("par_<scenario>" or "ramp"): (its
+    satellites, seconds, f_sf, f_if, I/Q, noise sigma, int8 scale, sample
+    format, the base of the chunks' noise seeds), as the parity tool
+    synthesizes the scenario (``ramp``: tests/test_highdyn.py's
+    capture)."""
+    from gnsslib_tpu_torch import sim
+    from gnsslib_tpu_torch.constants import DType
+    from gnsslib_tpu_torch.tools import parity_vs_reference as pvr
+    if kind == "ramp":
+        chans = []
+        pad = np.concatenate([np.tile([1, -1], 149), [1, 1]]).astype(np.int8)
+        for prn, d in ((3, 300), (21, 1300)):
+            eph = sim.example_eph(prn=prn, week=2200, toe_tow=TOW0)
+            frames = sim.lnav_bit_stream(eph, TOW0 + 6.0, nframes=5)
+            chans.append(sim.SimChannel(
+                prn=prn, doppler=RAMP_D0[prn], doppler_rate=RAMP_RATE,
+                code_phase=-d * 1.023e6 / 4.092e6, carr_phase=0.1 * prn,
+                nav_bits=np.concatenate([pad, frames])))
+        noise = sim.noise_std_for_cn0(1.0, 45.0, 4.092e6, DType.REAL)
+        return (chans, RAMP_SECONDS, 4.092e6, 1.023e6, False, noise, 4.0,
+                "int8", 9000)
+    scen = kind[len("par_"):]
+    if scen.startswith("fullenv"):
+        glo = scen == "fullenv_glo"
+        noise, scale = pvr.fullenv_levels(glo)
+        return (pvr._fullenv_chans(glo), 30.0 if glo else 20.0, 16.368e6,
+                4.092e6, False, noise, scale, "int8", 5000)
+    if scen in ("glo", "sbas"):
+        chans, seconds, seed = ((pvr.glo_channels(), 40.0, 4000)
+                                if scen == "glo"
+                                else (pvr.sbas_channels(), 30.0, 8000))
+        noise = sim.noise_std_for_cn0(1.0, 47.0, 4.092e6, DType.REAL)
+        return (chans, seconds, 4.092e6, 1.023e6, False, noise, 16.0,
+                "int8", seed)
+    knobs = pvr.SCENARIOS[scen]["knobs"]
+    chans, f_sf, f_if, dtype, noise, scale = pvr.stress_channels(**knobs)
+    return (chans, 32.0, f_sf, f_if, dtype == DType.IQ, noise, scale,
+            "rtlsdr" if knobs.get("rtl") else "int8", 1000)
+
+
 def _synthesize(dev, chans, f_sf: float, f_if: float, iq: bool, n: int,
                 noise_std: float, seed: int, t0: int):
     """Samples [t0, t0+n) of ``chans`` in float64 on ``dev``: the signal
@@ -460,14 +540,16 @@ def _synthesize(dev, chans, f_sf: float, f_if: float, iq: bool, n: int,
     return out
 
 
-def _quantize(x, fmt: str, scale: float = QUANT) -> bytes:
+def _quantize(x, fmt: str, scale: float = QUANT,
+              rtl_scale: float = 8.0) -> bytes:
     """``sim.quantize_int8(x, scale)`` ("int8") or
-    ``sim.quantize_rtlsdr(x, 8.0)`` ("rtlsdr") of a tensor, as bytes."""
+    ``sim.quantize_rtlsdr(x, rtl_scale)`` ("rtlsdr") of a tensor, as
+    bytes."""
     import torch
     if fmt == "int8":
         q = torch.clamp(torch.round(x * scale), -128, 127).to(torch.int8)
     else:
-        q = torch.clamp(torch.round(x * 8.0), -127, 127)
+        q = torch.clamp(torch.round(x * rtl_scale), -127, 127)
         q = torch.where(q >= 0, q + 128, q + 127).to(torch.uint8)
     return q.reshape(-1).cpu().numpy().tobytes()
 
@@ -607,8 +689,9 @@ def hold_k1(dev, iq: bool, tag: str, **geometry):
     return trk, host, args, zp, tol, errs, runs
 
 
-def phase_kernel(dev, iq: bool):
-    """K1 at the 32-channel L1CA super-step's shapes: the cluster kernel
+def phase_kernel(dev, iq: bool, tag: str = "3", **geometry):
+    """K1 at the 32-channel L1CA super-step's shapes (or at
+    :func:`profile_band.inputs`'s ``geometry``): the cluster kernel
     (through the wrapper and by launch) and the v1 kernel against the
     plain version, two launches bit-identical (:func:`hold_k1`), and warm
     and cold (beyond L2) times of both.  Importable: after
@@ -618,7 +701,7 @@ def phase_kernel(dev, iq: bool):
     import torch
     from gnsslib_tpu_torch.ops import band_taps as bt
     from gnsslib_tpu_torch.tools import profile_band as pb
-    trk, host, args, zp, _, errs, runs = hold_k1(dev, iq, "3")
+    trk, host, args, zp, _, errs, runs = hold_k1(dev, iq, tag, **geometry)
     block, rc, wstart, n, rem, ftot, act = host
     B = rc.shape[0]
     offsets, smax = trk.offsets, trk.smax
@@ -651,7 +734,7 @@ def phase_kernel(dev, iq: bool):
             for k, fn in runs.items()}
     eager = {k: cold_ms(on_copy(fn), len(copies)) for k, fn in runs.items()}
     spill_ms = None
-    if iq:
+    if iq and not geometry:
         # the same source with I/Q held to real input's 64 registers, where
         # its 13-tap instantiation spills (the build before the repair)
         fn64 = pb.launcher(pb.build(["iq64"])["iq64"], offsets, smax, out,
@@ -663,7 +746,8 @@ def phase_kernel(dev, iq: bool):
             f"({pb.usage_text(pb.usage(pb._LIBS['iq64'][1], True))}) "
             f"{spill_ms:.4f} ms in this run; 0.0220 ms in the records "
             f"before the repair (PERF.md)")
-    log(f"[3] band_taps {kind:4s}: {card_line()}; cluster kernel S="
+    log(f"[{tag}] band_taps {kind:4s} T={T}: {card_line()}; cluster "
+        f"kernel S="
         f"{bt.ctas_per_window()} CTAs per window, J="
         f"{bt.samples_per_thread()} samples per thread: cold "
         f"{cold['kernel']:.4f} ms/launch, warm {warm['kernel']:.4f} ms; v1 kernel "
@@ -1039,11 +1123,12 @@ def phase_ablation_kernel(dev) -> dict:
 
 def phase_synth(dev, paths: dict, edge_starts: dict = None) -> float:
     """Every capture ({"slice", "pos", "fe1", "fe2", "rtl", "edge", "mh",
-    "rx": path}, "fe1"/"fe2" phase 11's front ends, "rtl" and "edge" phase
-    12's, "rx" phase 14's (with the metadata receiver_throughput checks),
-    "mh" phase 15's multi-process receiver demo's; the edge capture's
-    channels start periods at ``edge_starts``), in 1 s chunks synthesized
-    on ``dev`` (:func:`_synthesize`)."""
+    "rx", "par_<scenario>", "ramp": path}, "fe1"/"fe2" phase 11's front
+    ends, "rtl" and "edge" phase 12's, "rx" phase 14's (with the metadata
+    receiver_throughput checks), "mh" phase 15's multi-process receiver
+    demo's, "par_*" and "ramp" phase 16's (:func:`parity_signal`); the
+    edge capture's channels start periods at ``edge_starts``), in 1 s
+    chunks synthesized on ``dev`` (:func:`_synthesize`)."""
     from gnsslib_tpu_torch import sim
     from gnsslib_tpu_torch.constants import DType
     from gnsslib_tpu_torch.tools import receiver_throughput as rxt
@@ -1064,12 +1149,24 @@ def phase_synth(dev, paths: dict, edge_starts: dict = None) -> float:
         n, step = int(seconds * f_sf), int(f_sf)
         chunks += [(kind, t0, min(step, n - t0), f_sf, f_if, truth)
                    for t0 in range(0, n, step)]
+    parity = {k: parity_signal(k) for k in paths
+              if k.startswith("par_") or k == "ramp"}
+    for kind, sig in parity.items():
+        n, step = int(sig[1] * sig[2]), int(sig[2])
+        chunks += [(kind, t0, min(step, n - t0), sig[2], sig[3], None)
+                   for t0 in range(0, n, step)]
     t0 = time.time()
     signals = {}          # (kind, dark): the satellites, built once
     with contextlib.ExitStack() as stack:
         files = {k: stack.enter_context(open(p, "wb"))
                  for k, p in paths.items()}
         for kind, c0, count, f_sf, f_if, truth in chunks:
+            if kind in parity:
+                chans, _, _, _, iq, noise, scale, fmt, seed = parity[kind]
+                x = _synthesize(dev, chans, f_sf, f_if, iq, count, noise,
+                                seed + c0, c0)
+                files[kind].write(_quantize(x, fmt, scale, rtl_scale=scale))
+                continue
             dark = kind == "pos" and POS_FADE[0] <= c0 / f_sf < POS_FADE[1]
             if (kind, dark) not in signals:
                 signals[kind, dark] = _signal(kind, c0, f_sf, truth)
@@ -1093,8 +1190,10 @@ def phase_synth(dev, paths: dict, edge_starts: dict = None) -> float:
         f"{len(EDGE_DOPPLER)} PRNs at the block's edges, phase 14's "
         f"{RX_SECONDS:.0f} s x {rxt.NPRESENT} PRNs at {rxt.F_SF / 1e6:.3f} "
         f"Msps, and phase 15's {MH_SECONDS:.0f} s x 4 PRNs at "
-        f"{MH_SF / 1e6:.3f} Msps in {dt:.1f} s on "
-        f"{dev.type} -> {paths}")
+        f"{MH_SF / 1e6:.3f} Msps, and phase 16's "
+        + ", ".join(f"{k} {sig[1]:.0f} s x {len(sig[0])} at "
+                    f"{sig[2] / 1e6:.3f} Msps" for k, sig in parity.items())
+        + f" in {dt:.1f} s on {dev.type} -> {paths}")
     return dt
 
 
@@ -2424,15 +2523,17 @@ def phase_edge(dev, capture: str, starts: dict) -> int:
     return launches
 
 
-def _cli_run(tag: str, argv: list) -> dict:
-    """The CLI in this process on ``argv``: its exit code, the receiver it
-    built (``rx``), the epochs it emitted, K1's launches during the run
-    (the counts reset once the receiver is built: its programs' eager
-    warm-ups launch K1 too), the CLI's wall, the run's wall and, with
-    ``--profile``, the profiler block's wall (run and trace writing)."""
+@contextlib.contextmanager
+def _cli_hooked(out: dict):
+    """Inside the block, every CLI run of this process records into
+    ``out``: the receiver it built (``rx``), the epochs it emitted, the
+    run's wall (``run_s``) and, with ``--profile``, the profiler block's
+    wall (run and trace writing); K1's counts are reset once the receiver
+    is built (its programs' eager warm-ups launch K1 too).  On leaving,
+    ``out["launches"]`` holds K1's launches since then."""
     from gnsslib_tpu_torch.ops import band_taps as bt
     from gnsslib_tpu_torch.runtime import cli
-    out = dict(rx=None, epochs=None, run_s=0.0, profiled_s=None)
+    out.update(rx=None, epochs=None, run_s=0.0, profiled_s=None)
     make, profiled = cli.build_receiver, cli._profiled
 
     def keep(*a, **kw):
@@ -2457,11 +2558,20 @@ def _cli_run(tag: str, argv: list) -> dict:
     cli.build_receiver, cli._profiled = keep, timed_profile
     t0 = time.time()
     try:
-        out["rc"] = cli.main(argv)
+        yield out
     finally:
         cli.build_receiver, cli._profiled = make, profiled
-    out["wall"] = time.time() - t0
-    out["launches"] = (bt.COUNTS.kernel, bt.COUNTS.v1, bt.COUNTS.plain)
+        out["wall"] = time.time() - t0
+        out["launches"] = (bt.COUNTS.kernel, bt.COUNTS.v1, bt.COUNTS.plain)
+
+
+def _cli_run(tag: str, argv: list) -> dict:
+    """The CLI in this process on ``argv``: its exit code (``rc``) and
+    what :func:`_cli_hooked` records (the receiver, the epochs, K1's
+    launches during the run, the CLI's and the run's walls)."""
+    from gnsslib_tpu_torch.runtime import cli
+    with _cli_hooked({}) as out:
+        out["rc"] = cli.main(argv)
     if out["rc"] != 0 or out["rx"] is None:
         raise AssertionError(f"[{tag}] CLI exit {out['rc']}")
     return out
@@ -3412,6 +3522,206 @@ def phase_parallel(dev, capture: str, mh_capture: str, ref_events,
     return k1_c + k1_d + k1_e, err_a
 
 
+def _sbas_expected(seconds: float) -> list:
+    """(29-byte payload, message id) of every SBAS message the parity
+    tool's ``sbas`` capture carries, in order (message k fills second k
+    of the stream)."""
+    from gnsslib_tpu_torch.nav.sbas import (SbasMsg, decode_l1sbas_bits,
+                                            gen_novatel_sbasmsg)
+    from gnsslib_tpu_torch.tools import parity_vs_reference as pvr
+    out = []
+    for msg in pvr.sbas_messages(seconds):
+        sb = SbasMsg(week=2200, tow=TOW0)
+        decode_l1sbas_bits(msg, 1, sb, ref_week=2200)
+        gen_novatel_sbasmsg(sb)
+        (payload, mid, _), = pvr.parse_novatel_sbas(bytes(sb.novatelmsg))
+        out.append((payload, mid))
+    return out
+
+
+def _parity_truth(kind: str) -> dict:
+    """RINEX satellite id -> (Doppler at the capture's start (Hz), ramp
+    (Hz/s), carrier wavelength (m)) of phase 16's capture ``kind``, in
+    the RINEX convention: D is the signal's Doppler as ``sim`` defines it
+    (the LO offset of ``ppm`` removed by PPMERR, a G1 channel's FDMA
+    offset by its frequency number)."""
+    from gnsslib_tpu_torch.constants import (CLIGHT, CodeType, DFRQ1_GLO,
+                                             FREQ1_GLO)
+    from gnsslib_tpu_torch.tools import parity_vs_reference as pvr
+    chans = parity_signal(kind)[0]
+    g1 = [c for c in chans if c.ctype == CodeType.G1]
+    # the G1 slots the captures broadcast (string 4), in channel order
+    slots = {"par_glo": [13],
+             "par_fullenv_glo": [11 + i for i in
+                                 range(len(pvr.FULLENVGLO_FCNS))]}
+    out = {}
+    for c in chans:
+        if c.ctype == CodeType.G1:
+            sid = ("R", slots[kind][g1.index(c)])
+            lam = CLIGHT / (FREQ1_GLO + DFRQ1_GLO * c.prn)
+        else:
+            sid = ("S" if c.ctype == CodeType.L1SBAS else "G",
+                   c.prn % 100)
+            lam = CLIGHT / 1.57542e9
+        out[sid] = (c.doppler, c.doppler_rate, lam)
+    return out
+
+
+def parity_run(dev, kind: str, path: str) -> int:
+    """One run of phase 16: capture ``kind`` (``path``) through
+    ``parity_vs_reference.run_mine`` and its checks (see
+    :func:`phase_parity`).  Returns its K1 launches."""
+    import shutil
+    from gnsslib_tpu_torch.tools import parity_vs_reference as pvr
+    scen = "highdyn" if kind == "ramp" else kind[len("par_"):]
+    spec = pvr.SCENARIOS[scen]
+    _, seconds, f_sf = parity_signal(kind)[:3]
+    truth = _parity_truth(kind)
+    work = os.path.join(WORK, "parity", kind)
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    with _cli_hooked({}) as run:
+        obs, frames = pvr.run_mine(work, path, scen, dev.type)
+    rx = run["rx"]
+    k1 = _k1_of(f"16 {kind}", dev, run)
+    # weak sits ~2 dB above the acquisition threshold: there a satellite
+    # misses its first subframe within the capture in some noise draws,
+    # in both packages alike; it is held to the parity tool's weak gate
+    # (every satellite locked, its observation count, one decoded)
+    decoded = [c.cfg.prn for c in rx.channels if c.nav.flagdec]
+    bad = [f"{c.cfg.prn} locked {c.locked} decoded {c.nav.flagdec}"
+           for c in rx.channels if not c.locked
+           or not (c.nav.flagdec or scen == "weak")]
+    if not decoded:
+        bad.append("no satellite decoded")
+    bad += [f"event {e}" for e in rx.events if e[0] == "lol"]
+    blank = [k for k, v in obs.items() if not np.isfinite(v).all()]
+    n_glo = sum(1 for _, sid in obs if sid[0] == "R")
+    need_glo = {"glo": 5, "fullenv_glo": 40}.get(scen, 0)
+    if len(obs) < spec["n_common"] or blank or n_glo < need_glo:
+        bad.append(f"{len(obs)} observations (need {spec['n_common']}),"
+                   f" {n_glo} GLONASS (need {need_glo}), blank fields "
+                   f"{blank[:4]}")
+    sats = set(sid for _, sid in obs)
+    if not sats <= set(truth) or (scen != "weak" and sats != set(truth)):
+        bad.append(f"satellites {sorted(sats)} against {sorted(truth)}")
+    tod0 = (TOW0 + (4.0 if scen.endswith("glo") else 0.0)) % 86400.0
+    per = {}
+    for (tod, sid), v in sorted(obs.items()):
+        per.setdefault(sid, []).append((tod - tod0, v[0], v[2]))
+    fits, dres, spikes = {}, {}, 0
+    tol = RESID_TOL * RESID_SCALE.get(scen, 1.0)
+    for sid, rows in per.items():
+        t, P, D = np.asarray(rows).T
+        if sid[0] == "S":
+            keep = np.abs(D - np.median(D)) < SBAS_SPIKE
+            spikes += int((~keep).sum())
+            t, D = t[keep], D[keep]
+        d0, rate, _ = truth[sid]
+        dres[sid] = D - (d0 + rate * t)
+        if len(t) < 3:
+            bad.append(f"{sid}: {len(t)} epochs")
+            continue
+        fit = np.polyfit(t, D, 1)
+        resid = np.abs(D - np.polyval(fit, t)).max()
+        fits[sid] = (fit[0], resid)
+        if abs(fit[0] - rate) >= SLOPE_TOL or resid >= tol:
+            bad.append(f"{sid}: Doppler slope {fit[0]:.3f} Hz/s "
+                       f"(truth {rate}), residual {resid:.3f} Hz "
+                       f"(bound {tol:.2f})")
+    # the clock-free pseudorange check against the first GPS satellite
+    # (G and R: the S pseudorange steps by its anchor, ROADMAP Queue 3)
+    first = next(sid for sid in truth if sid[0] == "G")
+    ref = {r[0]: r for r in per.get(first, [])}
+    prate = {}
+    for sid, rows in per.items():
+        common = [r for r in rows if r[0] in ref]
+        if sid == first or sid[0] == "S" or len(common) < 3:
+            continue
+        t = np.asarray([r[0] for r in common])
+        dP = np.asarray([r[1] - ref[r[0]][1] for r in common])
+        dD = np.asarray([truth[sid][2] * r[2]
+                         - truth[first][2] * ref[r[0]][2]
+                         for r in common])
+        prate[sid] = float(np.polyfit(t - t[0], dP, 1)[0] - dD.mean())
+        if abs(prate[sid]) >= PRATE_TOL:
+            bad.append(f"{sid}: pseudorange rate against {first} off "
+                       f"lambda x dD by {prate[sid]:.3f} m/s")
+    extra = ""
+    if scen == "sbas":
+        want = _sbas_expected(seconds)
+        got = set((p, i) for p, i, _ in frames)
+        seen = [k for k, m in enumerate(want) if m in got]
+        # messages end at whole seconds; the last three of the capture
+        # fall in its final block and the framer's latency, and
+        # neither package emits them
+        last = int(seconds) - 4
+        missing = [k for k in range(seen[0] if seen else 0, last + 1)
+                   if want[k] not in got] if seen else ["all"]
+        ds = np.concatenate([r for sid, r in dres.items()
+                             if sid[0] == "S"] or [np.zeros(0)])
+        s_rms = float(np.sqrt((ds ** 2).mean())) if len(ds) else np.nan
+        s_mean = float(ds.mean()) if len(ds) else np.nan
+        extra = (f"; NovAtel frames {len(frames)}, messages "
+                 f"{seen[0] if seen else None}-{last} of the capture "
+                 f"all present with their ids: {not missing}; S "
+                 f"Doppler about the truth: mean {s_mean:+.3f} Hz, RMS "
+                 f"{s_rms:.3f} Hz, {spikes} epoch(s) more than "
+                 f"{SBAS_SPIKE:g} Hz off")
+        if missing or not seen or seen[0] > 12 or \
+                not abs(s_mean) < SBAS_D_TOL or spikes > SBAS_SPIKES:
+            bad.append(f"SBAS messages missing {missing[:6]}, first "
+                       f"{seen[:1]}, S Doppler mean {s_mean}, {spikes} "
+                       f"spikes")
+    d_rms = float(np.sqrt((np.concatenate(list(dres.values())) ** 2
+                           ).mean()))
+    log(f"[16] {kind} ({scen} INI, {seconds:.0f} s at {f_sf / 1e6:.3f} "
+        f"Msps, {len(rx.channels)} channels, {len(decoded)} decoded): CLI "
+        f"wall "
+        f"{run['wall']:.1f} s, run {run['run_s']:.2f} s, "
+        f"{len(run['epochs'])} epochs, {len(obs)} observations "
+        f"({n_glo} GLONASS), Doppler RMS about the truth {d_rms:.3f} "
+        f"Hz, slopes " + ", ".join(
+            f"{a}{b:02d} {f[0]:.3f}" for (a, b), f in sorted(
+                fits.items())[:4]) + (" ..." if len(fits) > 4 else "")
+        + f" Hz/s, largest residual about a fit "
+        f"{max((f[1] for f in fits.values()), default=np.nan):.3f} Hz,"
+        f" pseudorange rates against {first[0]}{first[1]:02d} within "
+        f"{max(map(abs, prate.values()), default=0.0):.3f} m/s; K1 "
+        f"launches {k1}" + extra)
+    if bad:
+        raise AssertionError(f"[16] {kind}: {bad[:8]}")
+    return k1
+
+
+def phase_parity(dev, paths: dict) -> int:
+    """Phase 16: the parity tool's half of every scenario
+    (``parity_vs_reference.run_mine``: the tool's INI files, the port's
+    CLI with ``--quiet --device cuda``) on phase 4's captures at the
+    tool's full width, then tests/test_highdyn.py's 30 Hz/s ramp through
+    the ``highdyn`` INI; each run held against the simulation truth:
+    every satellite locked and decoded (``weak``: one decoded) with no
+    ``lol``, the scenario's observation count with no blank field (and
+    its GLONASS count), every satellite's Doppler on the truth's slope
+    (within SLOPE_TOL) with a residual about its fit below RESID_TOL
+    (RESID_SCALE), each G and R satellite's pseudorange rate against the
+    first GPS satellite's equal to the Doppler difference in metres
+    (PRATE_TOL); ``sbas``: every message
+    after the lock in the NovAtel stream with its payload and id, the S
+    Doppler's mean within SBAS_D_TOL of the truth.  Returns K1's
+    launches."""
+    log("[16] the reference receiver's half is not run: it needs the "
+        "reference C tree (GNSSLIB_REFERENCE/src), which the repository "
+        "does not hold; every run below is held against the simulation "
+        "truth instead")
+    total = 0
+    for kind in [f"par_{s}" for s in PARITY] + ["ramp"]:
+        total += parity_run(dev, kind, paths[kind])
+    log(f"[16] band_taps launches of phase 16 (8 scenarios and the ramp): "
+        f"{total}")
+    return total
+
+
 def with_graphs(tag: str, phase, *args):
     """Run ``phase(*args)`` and log the block-program captures it made and
     its wall time."""
@@ -3510,6 +3820,14 @@ def main() -> int:
 
     k = {"band_taps": [phase_kernel(dev, iq=False),
                        phase_kernel(dev, iq=True)]}
+    # K1 at phase 16's 9-tap shapes: the two-satellite scenarios' real
+    # super-step (4.092 Msps, CORR 4/2/2) and the ppm scenario's I/Q one
+    # (2.048 Msps, CORR 4/1/1)
+    k9 = {"real": phase_kernel(dev, False, "3 9-tap", corr=(4, 2, 2),
+                               sf=4.092e6, fif=1.023e6, channels=2),
+          "iq": phase_kernel(dev, True, "3 9-tap", corr=(4, 1, 1),
+                             sf=2.048e6, fif=0.0, channels=2)}
+    k["band_taps"] += list(k9.values())
     for iq in (False, True):
         for name, r in phase_window_kernels(dev, iq).items():
             k.setdefault(name, []).append(r)
@@ -3523,7 +3841,8 @@ def main() -> int:
 
     os.makedirs(WORK, exist_ok=True)
     paths = {k: os.path.join(WORK, f"capture_{k}_int8.bin")
-             for k in ("slice", "pos", "fe1", "fe2", "rtl", "edge", "mh")}
+             for k in ("slice", "pos", "fe1", "fe2", "rtl", "edge", "mh",
+                       "ramp") + tuple(f"par_{s}" for s in PARITY)}
     paths["rx"] = rxt.cache_path(RX_SECONDS)
     capture, capture_pos = paths["slice"], paths["pos"]
     starts = edge_starts()
@@ -3578,7 +3897,15 @@ def main() -> int:
                                  paths["mh"], ref_events, ref_epochs)
     launches["band_taps"] += par_k1
     k["band_taps"].append({"err": err_15})
-    log(f"[graphs] phases 5-15: {CAPTURES.captures} block-program captures "
+    # the parity tool's half of every scenario and the 30 Hz/s ramp: their
+    # K1 launches join the band_taps row
+    parity_k1 = with_graphs("16", phase_parity, dev, paths)
+    launches["band_taps"] += parity_k1
+    log(f"[16] K1 at the scenarios' 9-tap shapes (phase 3): real "
+        f"{k9['real']['ms']:.4f} ms, I/Q {k9['iq']['ms']:.4f} ms per launch "
+        f"(bounds {k9['real']['bound_ms']:.4f} / {k9['iq']['bound_ms']:.4f} "
+        f"ms); phase 16's launches {parity_k1}")
+    log(f"[graphs] phases 5-16: {CAPTURES.captures} block-program captures "
         f"(the CLI runs' included), {CAPTURES.capture_s:.2f} s recording, "
         f"{CAPTURES.instantiate_s:.2f} s instantiating, pools "
         f"{CAPTURES.pool_bytes / 1e6:.1f} MB reserved in all; device memory "

@@ -11,7 +11,9 @@ multi-device tools (:mod:`..parallel`): ``multihost_demo`` (two processes,
 channel-sharded pull-in and steady blocks), ``multihost_receiver_demo``
 (the whole receiver in two processes, process 0 writing RINEX) and
 ``scaling_efficiency`` (one process against two, each with the same
-shards).  The kernel profilers: ``profile_fast``, ``profile_kernel``,
+shards).  The parity tool: ``parity_vs_reference`` (the reference C
+receiver against the port's CLI, on the JAX tool's scenarios).  The
+kernel profilers: ``profile_fast``, ``profile_kernel``,
 ``profile_band``, ``profile_window``, ``profile_gram``."""
 from __future__ import annotations
 

@@ -40,10 +40,10 @@ def _run(code, cwd=ROOT, timeout=300):
 
 def test_port_imports_and_tracks_without_jax():
     """Every module of the port (``parallel/`` and its tools on
-    ``torch.distributed`` among them) imports with ``jax`` and
-    ``gnsslib_tpu`` blocked, and a short Tracker block plus a FastTracker
-    block run on the CPU from a capture the port's own ``sim``
-    synthesizes."""
+    ``torch.distributed``, and the parity tool, among them) imports with
+    ``jax`` and ``gnsslib_tpu`` blocked, the parity tool builds its
+    scenarios' signals, and a short Tracker block plus a FastTracker block
+    run on the CPU from a capture the port's own ``sim`` synthesizes."""
     code = BLOCK_JAX + textwrap.dedent("""
         import pkgutil, importlib, numpy as np, torch
         torch.set_num_threads(2)
@@ -56,9 +56,19 @@ def test_port_imports_and_tracks_without_jax():
         for m in ("parallel.mesh", "parallel.sharded",
                   "parallel.distributed", "tools.multihost_demo",
                   "tools.multihost_receiver_demo",
-                  "tools.scaling_efficiency"):
+                  "tools.scaling_efficiency", "tools.parity_vs_reference"):
             assert "gnsslib_tpu_torch." + m in sys.modules, m
         assert torch.distributed.is_available()
+        # the parity tool builds its scenarios' signals from the port's own
+        # sim, nav and gtime, never the repo's tools/ module
+        from gnsslib_tpu_torch.tools import parity_vs_reference as pvr
+        chans = (pvr.stress_channels(ppm=5.0, rtl=True)[0]
+                 + pvr.glo_channels() + pvr.sbas_channels(2.0)
+                 + pvr._fullenv_chans(glo=True))
+        assert len(chans) == 38 and len(pvr.sbas_messages(2.0)) == 4
+        assert "parity_vs_reference" not in sys.modules
+        assert not any(m == "tools" or m.startswith("tools.")
+                       for m in sys.modules)
         from gnsslib_tpu_torch import sim
         from gnsslib_tpu_torch.constants import CodeType, DType
         from gnsslib_tpu_torch.track import (FastTracker, TrackConfig,

@@ -15,7 +15,7 @@ from gnsslib_tpu_torch.tools import measure_round as mr
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOOLS = ("receiver_throughput", "ttff", "profile_receiver",
          "scaling_channels", "receiver_256ch", "acq_throughput",
-         "e2e_receiver_check", "measure_round")
+         "e2e_receiver_check", "measure_round", "parity_vs_reference")
 
 
 def test_run_child_parses_last_json_and_retries(tmp_path):

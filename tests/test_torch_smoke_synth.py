@@ -78,3 +78,44 @@ def test_noise_and_quantizers():
         sim.quantize_int8(r, cs.QUANT).tobytes()
     assert cs._quantize(torch.from_numpy(r), "rtlsdr") == \
         sim.quantize_rtlsdr(r, 8.0).tobytes()
+
+
+@pytest.mark.parametrize("kind", ["ramp", "par_ppm", "par_glo", "par_sbas",
+                                  "par_fullenv_glo"])
+def test_parity_captures_match_sim(kind):
+    """Phase 16's captures (``chip_smoke.parity_signal``): the 30 Hz/s
+    ramp, the RTL-SDR u8 I/Q capture with its +5 ppm LO offset, GPS + G1
+    and GPS + SBAS symbols at 4.092 Msps, and a ``fullenv_glo`` chunk;
+    20,000 noiseless samples 3 s in within 1e-12 of ``sim.synthesize``,
+    and the same bytes once quantized at the capture's scale and format
+    (the ``fullenv_glo`` chunk: the parity tool's own chunk without
+    noise)."""
+    from gnsslib_tpu_torch.tools import parity_vs_reference as pvr
+    chans, seconds, f_sf, f_if, iq, noise, scale, fmt, _ = \
+        cs.parity_signal(kind)
+    t0 = int(3 * f_sf)
+    dtype = DType.IQ if iq else DType.REAL
+    ref = sim.synthesize(chans, f_sf, f_if, dtype, 20000, t0=t0)
+    got = cs._synthesize(CPU, chans, f_sf, f_if, iq, 20000, 0.0, 0,
+                         t0).numpy()
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-12)
+    q = (sim.quantize_int8(ref, scale) if fmt == "int8"
+         else sim.quantize_rtlsdr(ref, scale))
+    assert cs._quantize(torch.from_numpy(got), fmt, scale,
+                        rtl_scale=scale) == q.tobytes()
+    want = {"ramp": (26.0, 4.092e6, False, "int8", 2),
+            "par_ppm": (32.0, 2.048e6, True, "rtlsdr", 2),
+            "par_glo": (40.0, 4.092e6, False, "int8", 2),
+            "par_sbas": (30.0, 4.092e6, False, "int8", 2),
+            "par_fullenv_glo": (30.0, 16.368e6, False, "int8", 32)}[kind]
+    assert (seconds, f_sf, iq, fmt, len(chans)) == want
+    if kind == "ramp":
+        assert [c.doppler_rate for c in chans] == [cs.RAMP_RATE] * 2
+        assert scale == 4.0
+    if kind == "par_ppm":
+        assert [c.foffset for c in chans] == \
+            [pytest.approx(5e-6 * 1.57542e9)] * 2
+    if kind == "par_fullenv_glo":
+        _, tool = pvr._fullenv_chunk((t0, 20000, 0.0, scale, True))
+        assert tool.tobytes() == q.tobytes()
