@@ -29,7 +29,11 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    too) by launches replayed from a CUDA graph, and cold by eager
    launches; K1 on I/Q input beside the same source capped at 64
    registers, where it spills; K1 also at phase 16's 9-tap shapes (2
-   channels: real at 4.092 Msps, I/Q 1 sample apart at 2.048 Msps).
+   channels: real at 4.092 Msps, I/Q 1 sample apart at 2.048 Msps), and
+   past the 25 taps the sources instantiate: at 33, 41 and 65 taps
+   (CORRN/CORRD 16/2, 20/2, 32/1; real and I/Q) one launch of its wide
+   kernel per super-step, and K2-K5 at 33 taps (real), each a launch per
+   group of at most 25 taps (``kernels.tap_plan``).
    Then ``gnsslib_tpu_torch.tools.profile_window`` and ``profile_gram``:
    the window kernel's build steps, cluster sizes and ablations for K3 and
    the f32 instantiation, and K2's, real and I/Q, each checked against the
@@ -123,10 +127,12 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    resident and streamed through the live cache: every milestone, 12
    channels locked and decoded, epochs, the stream run equal to the
    resident one bit for bit; (c) ``receiver_throughput`` pipelined and
-   sequential at 2000-step blocks (12 locked, equal acquisitions and
-   decodes; the sequential run's events and epochs equal, bit for bit,
-   those of the pipelined receiver without acquisition and pull-in
-   pipelining) and pipelined at 400 (the steady median block); (d)
+   sequential at the tool's 400-step blocks (12 locked, equal
+   acquisitions and decodes; the pipelined run's steady median block;
+   the sequential run's events and epochs equal, bit for bit, those of
+   the pipelined receiver without acquisition and pull-in pipelining;
+   run at 400 steps, not 2000, to leave the script time for phase 17);
+   (d)
    ``profile_receiver``'s stage table; (f) ``receiver_256ch``: 96 of
    256 channels locked, the graph pool and peak memory; (g)
    ``acq_throughput``: 22,720 bins, PRNs 1-8 acquired; (h)
@@ -165,17 +171,25 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    and of tests/test_highdyn.py's 30 Hz/s ramp, each held against the
    simulation truth (:func:`phase_parity`), with K1's times at the
    scenarios' 9-tap real and I/Q shapes in phase 3; the reference
-   receiver's half needs the reference tree and is not run.
+   receiver's half needs the reference tree and is not run;
+17. the receiver at 33 taps (CORRN/CORRD/CORRP 16/2/6, the DLL's
+   +-6-sample spacing of the 13-tap runs): (a) the steady super-step of
+   32 channels by CUDA events at 13 and 33 taps (``scaling_channels``);
+   (b) phase 16's ``fullenv`` capture (32 GPS channels, 16.368 Msps, 20 s)
+   through the CLI at 33 taps, held to phase 16's gates against the
+   truth, every steady block one K1 launch per super-step; (c) that run's
+   first steady block replayed from its graph against the eager loop, bit
+   for bit.
 
-Phases 5-16 each print the graph captures they made (count, seconds
+Phases 5-17 each print the graph captures they made (count, seconds
 recording and instantiating, pool memory) and their wall time, and a
 line before the kernels
 line totals them.  The band_taps row's launches are those of phases 6,
 11, 12a, 12b, 13, 14, 15 and 16's receiver runs (the main paths: file
 replay, multi-GNSS, the live entry point, real and I/Q, the diagnostics
 and pipeline modes, the receiver tools, the mesh receiver, the CLI with
-``--devices`` and the multi-process receiver demo, and the parity
-tool's scenarios).  The
+``--devices`` and the multi-process receiver demo, the parity tool's
+scenarios, and the 33-tap receiver of phase 17).  The
 last two lines are a JSON object describing
 the kernels and the ``{"ok": true, "device": {...}}`` line.  This script
 imports no JAX.
@@ -211,6 +225,7 @@ F32_FLOP_PER_S = 67e12
 L2_BYTES = 50e6
 KERNELS = ("band_taps", "window_taps", "gram_taps", "ablation_taps")
 CORR = (6, 3, 6)        # CORRN/CORRD/CORRP of the receiver runs (13 taps)
+WIDE_CORR = (16, 2, 6)  # phase 17's receiver and K2-K5's wide check (33 taps)
 # the positioning run: a geometry-consistent constellation (the JAX
 # package's test_receiver_spp.py construction, 30 candidate orbits so that
 # 7 satellites stand above 15 degrees), one satellite dark in a window
@@ -259,6 +274,7 @@ MH_SF, MH_IF = 4.092e6, 1.023e6
 # (dB-Hz) and int8 scale
 RX_SECONDS = 20.0
 RX_LEVELS = (46.0, 16.0)
+RX_NSTEPS = 400         # 14c's blocks (400, not 2000: time for phase 17)
 # phase 16: the parity tool's scenarios, each synthesized as the tool
 # does (its satellites, lengths, rates, C/N0 and int8 scales; torch's
 # noise) and run through the tool's run_mine, and tests/test_highdyn.py's
@@ -765,17 +781,20 @@ def phase_kernel(dev, iq: bool, tag: str = "3", **geometry):
                 timing="graph_replay", spill64_ms=spill_ms)
 
 
-def phase_window_kernels(dev, iq: bool) -> dict:
+def phase_window_kernels(dev, iq: bool, corr=CORR, tag: str = "3") -> dict:
     """K5, K4 (f32) and K3 (bf16 windows, int8 rows) at the 32-channel L1CA
-    super-step's shapes: each wrapper (one cluster-kernel launch, no v1,
-    no plain), the cluster kernel and the v1 kernel against the plain
-    version, two launches of each bit-identical, and cold (beyond L2) and
-    warm times of both by graph replay, cold eager beside.  Importable:
+    super-step's shapes (tap geometry ``corr``): each wrapper (one
+    cluster-kernel launch per group of ``kernels.tap_plan``: one up to 25
+    taps; no v1, no plain), the cluster kernel and the v1 kernel against
+    the plain version, two launches of each bit-identical, and cold
+    (beyond L2) and warm times of both by graph replay, cold eager
+    beside.  Importable:
     after ``cuda_build.build_all(("window_taps",))`` it is the kernel-only
     loop; ``python -m gnsslib_tpu_torch.tools.profile_window`` times the
     cluster kernel's build steps, cluster sizes and ablations."""
     import torch
     from gnsslib_tpu_torch.ops import window_taps as wt
+    from gnsslib_tpu_torch.ops.kernels import tap_groups
     from gnsslib_tpu_torch.tools.profile_band import graph_ms
     from gnsslib_tpu_torch.tools.profile_window import inputs, tolerance
     kind = "iq" if iq else "real"
@@ -784,14 +803,16 @@ def phase_window_kernels(dev, iq: bool) -> dict:
                             ("correlate_windows8", 0, wt.COUNTS8),
                             ("correlate_windows16", 1, wt.COUNTS16)):
         fn = getattr(wt, name)
-        trk, l1, host, args = inputs(dev, "bf16" if k else "f32", iq)
+        trk, l1, host, args = inputs(dev, "bf16" if k else "f32", iq,
+                                     corr=corr)
         B, T, smax, offsets = len(host[4]), len(trk.offsets), trk.smax, \
             trk.offsets
+        groups = len(tap_groups(T))
         counts.reset()
         zk = fn(*args, offsets, smax)
         zp = wt.window_taps_plain(*args, offsets, smax)
         torch.cuda.synchronize()
-        if (counts.kernel, counts.v1, counts.plain) != (1, 0, 0):
+        if (counts.kernel, counts.v1, counts.plain) != (groups, 0, 0):
             raise AssertionError(f"{name} ({kind}) wrapper: launches "
                                  f"{counts.kernel}, v1 {counts.v1}, plain "
                                  f"{counts.plain}")
@@ -817,8 +838,9 @@ def phase_window_kernels(dev, iq: bool) -> dict:
             if not torch.equal(z1.view(torch.int32), z2.view(torch.int32)):
                 bad.append(f"{run} repeat launches differ")
         bad += [f"{r} {e}" for r, e in errs.items() if not e <= tol]
-        log(f"[3] {name} {kind:4s} B={B} nwin={trk.nwin} next={trk.next} "
-            f"taps={T}: max_abs_err "
+        log(f"[{tag}] {name} {kind:4s} B={B} nwin={trk.nwin} next="
+            f"{trk.next} taps={T} ({groups} launch{'es' * (groups > 1)}): "
+            f"max_abs_err "
             + ", ".join(f"{r} {e:.4g}" for r, e in errs.items())
             + f" (tol {tol:.4g}, max|taps| {float(zp.abs().max()):.4g}); "
             f"repeat launches bit-identical: {'no' if bad else 'yes'}")
@@ -852,10 +874,11 @@ def phase_window_kernels(dev, iq: bool) -> dict:
         call_ms = cuda_ms(lambda: fn(*args, offsets, smax), 50)
         plain_ms = cuda_ms(lambda: wt.window_taps_plain(
             *args, offsets, smax), 5)
-        log(f"[3] {name} {kind:4s}: {card_line()}; cluster kernel S="
+        log(f"[{tag}] {name} {kind:4s}: {card_line()}; cluster kernel S="
             f"{wt.ctas_per_window()} CTAs per window, J="
             f"{wt.samples_per_thread()} samples per chain: cold "
-            f"{cold['kernel']:.4f} ms/launch, warm {warm['kernel']:.4f} ms; "
+            f"{cold['kernel']:.4f} ms per call of its {groups} launch"
+            f"{'es' * (groups > 1)}, warm {warm['kernel']:.4f} ms; "
             f"v1 kernel cold {cold['v1']:.4f} ms, warm {warm['v1']:.4f} ms "
             f"(device time: launches replayed from one CUDA graph; cold: "
             f"inputs rotated over {len(copies)} copies, beyond L2); eager "
@@ -885,29 +908,32 @@ def phase_window_profiler(dev) -> dict:
     return out
 
 
-def phase_gram_kernel(dev, iq: bool) -> dict:
+def phase_gram_kernel(dev, iq: bool, corr=CORR, tag: str = "3") -> dict:
     """K2 at the 32-channel L1CA super-step's shapes ((320, 128, 128) bf16
     rows fetched and masked as the fused backend fetches them): the
     wrapper (one banded-Gram launch, no v1, no plain), the banded-Gram
     kernel and the v1 kernel against the plain version, two launches of
     each bit-identical, and cold (beyond L2) and warm times of both by
-    graph replay, cold eager beside.  Importable: after
+    graph replay, cold eager beside; at ``corr`` past 25 taps one launch
+    per group of ``kernels.tap_plan``.  Importable: after
     ``cuda_build.build_all(("gram_taps",))`` it is the kernel-only loop;
     ``python -m gnsslib_tpu_torch.tools.profile_gram`` times the kernel's
     build steps, cluster sizes and ablations."""
     import torch
     from gnsslib_tpu_torch.ops import gram_taps as gt
+    from gnsslib_tpu_torch.ops.kernels import tap_groups
     from gnsslib_tpu_torch.tools.profile_band import graph_ms
     from gnsslib_tpu_torch.tools.profile_gram import inputs, tolerance
-    trk, l1, n, args = inputs(dev, iq)
+    trk, l1, n, args = inputs(dev, iq, corr=corr)
     B, T, smax, offsets = args[0].shape[0], len(trk.offsets), trk.smax, \
         trk.offsets
+    groups = len(tap_groups(T))
     kind = "iq" if iq else "real"
     gt.COUNTS.reset()
     zk = gt.gram_taps(*args, offsets, smax)
     zp = gt.gram_taps_plain(*args, offsets, smax)
     torch.cuda.synchronize()
-    if (gt.COUNTS.kernel, gt.COUNTS.v1, gt.COUNTS.plain) != (1, 0, 0):
+    if (gt.COUNTS.kernel, gt.COUNTS.v1, gt.COUNTS.plain) != (groups, 0, 0):
         raise AssertionError(f"gram_taps ({kind}) wrapper: launches "
                              f"{gt.COUNTS.kernel}, v1 {gt.COUNTS.v1}, plain "
                              f"{gt.COUNTS.plain}")
@@ -932,8 +958,8 @@ def phase_gram_kernel(dev, iq: bool) -> dict:
             bad.append(f"{run} repeat launches differ")
     bad += [f"{r} {e}" for r, e in errs.items() if not e <= tol]
     K = args[0].shape[1]
-    log(f"[3] gram_taps {kind:4s} B={B} rows={K}x128 next={trk.next} "
-        f"taps={T}: max_abs_err "
+    log(f"[{tag}] gram_taps {kind:4s} B={B} rows={K}x128 next={trk.next} "
+        f"taps={T} ({groups} launch{'es' * (groups > 1)}): max_abs_err "
         + ", ".join(f"{r} {e:.4g}" for r, e in errs.items())
         + f" (tol {tol:.4g}, max|taps| {float(zp.abs().max()):.4g}); "
         f"repeat launches bit-identical: {'no' if bad else 'yes'}")
@@ -965,10 +991,11 @@ def phase_gram_kernel(dev, iq: bool) -> dict:
              for r, launch in runs.items()}
     call_ms = cuda_ms(lambda: gt.gram_taps(*args, offsets, smax), 50)
     plain_ms = cuda_ms(lambda: gt.gram_taps_plain(*args, offsets, smax), 5)
-    log(f"[3] gram_taps {kind:4s}: {card_line()}; banded-Gram kernel S="
-        f"{gt.ctas_per_window()} CTAs per window, "
+    log(f"[{tag}] gram_taps {kind:4s}: {card_line()}; banded-Gram kernel "
+        f"S={gt.ctas_per_window()} CTAs per window, "
         f"{len(gt.tile_plan(K, smax)[0])} n-tiles per m-tile: cold "
-        f"{cold['kernel']:.4f} ms/launch, warm {warm['kernel']:.4f} ms; "
+        f"{cold['kernel']:.4f} ms per call of its {groups} launch"
+        f"{'es' * (groups > 1)}, warm {warm['kernel']:.4f} ms; "
         f"v1 kernel cold {cold['v1']:.4f} ms, warm {warm['v1']:.4f} ms "
         f"(device time: launches replayed from one CUDA graph; cold: "
         f"inputs rotated over {len(copies)} copies, beyond L2); eager "
@@ -1211,7 +1238,8 @@ def _bit_identical(a, b) -> bool:
             and all(same(x, y) for x, y in zip(ha, hb)))
 
 
-def _replay_vs_eager(tag: str, eng, st, block, nsteps: int) -> None:
+def _replay_vs_eager(tag: str, eng, st, block, nsteps: int,
+                     phase: str = "5") -> None:
     """One block of ``eng`` replayed from its program's graph against the
     eager loop from the same state: bit-identical, or raise."""
     import torch
@@ -1227,7 +1255,7 @@ def _replay_vs_eager(tag: str, eng, st, block, nsteps: int) -> None:
     sync()
     t2 = time.time()
     same = _bit_identical(got, ref)
-    log(f"[5] {tag} {nsteps} steps: replayed {t1 - t0:.3f} s, eager "
+    log(f"[{phase}] {tag} {nsteps} steps: replayed {t1 - t0:.3f} s, eager "
         f"{t2 - t1:.3f} s wall; captured in {prog.capture_s:.3f} s + "
         f"instantiated in {prog.instantiate_s:.3f} s, pool "
         f"{prog.pool_bytes / 1e6:.1f} MB; replay vs eager bit-identical: "
@@ -2907,8 +2935,8 @@ def phase_tools(dev) -> tuple:
     process on the card at full width: (a) the tools' capture (written in
     phase 4), (e) K1 at 32-256 channels and held against its plain version
     at 256, (b) ttff resident and streamed, (c) the receiver's throughput
-    pipelined and sequential at 2000-step blocks, the sequential run held
-    against the pipelined receiver without acquisition and pull-in
+    pipelined and sequential at RX_NSTEPS-step blocks, the sequential run
+    held against the pipelined receiver without acquisition and pull-in
     pipelining, (d) the receiver's stage table, (f) 256 channels in one
     receiver, (g) the acquisition grid, (h) the end-to-end check, (i)
     measure_round's acq child.  Returns the K1 launches of the receiver
@@ -2991,15 +3019,16 @@ def phase_tools(dev) -> tuple:
     log(f"[14b] stream equals resident: {len(runs['stream']['events'])} "
         f"events and {runs['stream']['epochs']} epochs bit for bit")
 
-    # (c) receiver throughput at 2000-step blocks, pipelined and
-    # sequential, and at the tool's 400-step configuration, whose 20 s
-    # run has enough steady blocks for the median
+    # (c) receiver throughput pipelined and sequential at the tool's
+    # 400-step configuration (RX_NSTEPS), whose 20 s run has enough steady
+    # blocks for the median
     thr = {}
-    for pipeline, nsteps in ((True, 2000), (False, 2000), (True, 400)):
+    nsteps = RX_NSTEPS
+    for pipeline in (True, False):
         (s, epochs), k1 = _k1_run("14c", dev, _recorded, rxt, rxt.run,
                                   pipeline, nsteps, 2, device=dev)
         k1_main += k1
-        thr[pipeline, nsteps] = s
+        thr[pipeline] = s
         s["recorded"] = epochs
         log(f"[14c] {rxt.line(s)}; K1 launches {k1}; stage walls "
             + ", ".join(f"{k} {v:.3f}" for k, v in s["stage_wall"].items()))
@@ -3011,11 +3040,11 @@ def phase_tools(dev) -> tuple:
             f"device cap {cap:.1f} Msamples/s (14e)")
         if len(s["locked"]) != 12 or s["device"] != "cuda":
             raise AssertionError(f"[14c] {s['label']}: locked {s['locked']}")
-    ev_p, ev_s = thr[True, 2000]["events"], thr[False, 2000]["events"]
+    ev_p, ev_s = thr[True]["events"], thr[False]["events"]
     acq_p = [e for e in ev_p if e[0] == "acq"]
     acq_s = [e for e in ev_s if e[0] == "acq"]
-    if acq_p != acq_s or sorted(thr[True, 2000]["decoded"]) != \
-            sorted(thr[False, 2000]["decoded"]):
+    if acq_p != acq_s or sorted(thr[True]["decoded"]) != \
+            sorted(thr[False]["decoded"]):
         raise AssertionError("[14c] the modes' acquisitions or decodes "
                              "differ")
     nav_p = [e for e in ev_p if e[0] != "acq"]
@@ -3025,22 +3054,22 @@ def phase_tools(dev) -> tuple:
         f"equal bit for bit; nav events {len(nav_p)} and {len(nav_s)}, "
         f"{len(differ)} differ" + (f" (first: {differ[0][0]} against "
                                     f"{differ[0][1]})" if differ else "")
-        + f"; epochs {thr[True, 2000]['epochs']} and "
-        f"{thr[False, 2000]['epochs']} (the sequential mode decides its "
+        + f"; epochs {thr[True]['epochs']} and "
+        f"{thr[False]['epochs']} (the sequential mode decides its "
         f"searches at once, the pipelined one 2 blocks later)")
     # the same timing in both modes: the pipelined receiver with its
     # searches and pull-in unpipelined gives the sequential run's bits
-    seq = thr[False, 2000]
+    seq = thr[False]
     with tempfile.TemporaryDirectory(dir=WORK) as d:
         rx = rxt.receiver(rxt.default_capture(), device=dev, rinexdir=d,
                           pipeline=True, pipeline_acq=False,
-                          pipeline_pullin=False, nsteps_per_block=2000,
+                          pipeline_pullin=False, nsteps_per_block=nsteps,
                           pipeline_depth=2)
         epochs = _record(rx)
         s, k1 = _k1_run("14c", dev, rx.run_seconds)
         rxt.close(rx)
     k1_main += k1
-    log(f"[14c] pipelined/2000/d2 without acquisition and pull-in "
+    log(f"[14c] pipelined/{nsteps}/d2 without acquisition and pull-in "
         f"pipelining: {s['msps']:.1f} Msamples/s, {len(rx.events)} events, "
         f"{len(epochs)} epochs (RINEX {s['epochs']}); K1 launches {k1}")
     if rx.events != seq["events"] or epochs != seq["recorded"] or \
@@ -3567,23 +3596,40 @@ def _parity_truth(kind: str) -> dict:
     return out
 
 
-def parity_run(dev, kind: str, path: str) -> int:
+def parity_run(dev, kind: str, path: str, corr=None, tag: str = "16"
+               ) -> int:
     """One run of phase 16: capture ``kind`` (``path``) through
     ``parity_vs_reference.run_mine`` and its checks (see
-    :func:`phase_parity`).  Returns its K1 launches."""
+    :func:`phase_parity`); with ``corr`` (CORRN, CORRD, CORRP) in place of
+    the scenario's correlator (phase 17), and then every steady block's
+    program launching K1 once per super-step.  Returns its K1 launches."""
     import shutil
     from gnsslib_tpu_torch.tools import parity_vs_reference as pvr
     scen = "highdyn" if kind == "ramp" else kind[len("par_"):]
     spec = pvr.SCENARIOS[scen]
     _, seconds, f_sf = parity_signal(kind)[:3]
     truth = _parity_truth(kind)
-    work = os.path.join(WORK, "parity", kind)
+    work = os.path.join(WORK, "parity", kind + ("" if corr is None else
+                                                "_%d_%d_%d" % corr))
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     with _cli_hooked({}) as run:
-        obs, frames = pvr.run_mine(work, path, scen, dev.type)
+        obs, frames = pvr.run_mine(work, path, scen, dev.type, corr=corr)
     rx = run["rx"]
-    k1 = _k1_of(f"16 {kind}", dev, run)
+    k1 = _k1_of(f"{tag} {kind}", dev, run)
+    if corr is not None:
+        T = 2 * corr[0] + 1
+        for g in getattr(rx, "rx", [rx]):
+            for p in g.fast.programs.values():      # count: super-steps
+                per = p.launches.get("band_taps", {}).get("kernel", 0)
+                if len(g.fast.offsets) != T or (
+                        dev.type == "cuda" and per != p.count):
+                    raise AssertionError(
+                        f"[{tag}] {kind}: {len(g.fast.offsets)} taps, a "
+                        f"steady program of {p.count} super-steps "
+                        f"launches K1 {per} times")
+        log(f"[{tag}] {kind} at CORRN/CORRD/CORRP {corr}: {T} taps, each "
+            f"steady block's program one K1 launch per super-step")
     # weak sits ~2 dB above the acquisition threshold: there a satellite
     # misses its first subframe within the capture in some noise draws,
     # in both packages alike; it is held to the parity tool's weak gate
@@ -3675,7 +3721,7 @@ def parity_run(dev, kind: str, path: str) -> int:
                        f"spikes")
     d_rms = float(np.sqrt((np.concatenate(list(dres.values())) ** 2
                            ).mean()))
-    log(f"[16] {kind} ({scen} INI, {seconds:.0f} s at {f_sf / 1e6:.3f} "
+    log(f"[{tag}] {kind} ({scen} INI, {seconds:.0f} s at {f_sf / 1e6:.3f} "
         f"Msps, {len(rx.channels)} channels, {len(decoded)} decoded): CLI "
         f"wall "
         f"{run['wall']:.1f} s, run {run['run_s']:.2f} s, "
@@ -3690,7 +3736,7 @@ def parity_run(dev, kind: str, path: str) -> int:
         f"{max(map(abs, prate.values()), default=0.0):.3f} m/s; K1 "
         f"launches {k1}" + extra)
     if bad:
-        raise AssertionError(f"[16] {kind}: {bad[:8]}")
+        raise AssertionError(f"[{tag}] {kind}: {bad[:8]}")
     return k1
 
 
@@ -3720,6 +3766,56 @@ def phase_parity(dev, paths: dict) -> int:
     log(f"[16] band_taps launches of phase 16 (8 scenarios and the ramp): "
         f"{total}")
     return total
+
+
+def phase_wide(dev, capture: str, kind: str = "par_fullenv",
+               corr=WIDE_CORR) -> int:
+    """Phase 17, the receiver at 33 taps (WIDE_CORR: CORRN/CORRD/CORRP
+    16/2/6, the DLL's +-6-sample spacing of the 13-tap runs): (a) the
+    steady super-step of 32 channels by CUDA events at 13 and 33 taps
+    (``scaling_channels`` at C = 32, one K1 launch per super-step); (b)
+    phase 16's ``fullenv`` capture (``capture``: 32 GPS channels, 16.368
+    Msps, 20 s) through the CLI at 33 taps, held to phase 16's gates
+    against the truth (:func:`parity_run`), each steady program one K1
+    launch per super-step; (c) that run's first steady block replayed
+    from its graph against the eager loop from the block's own state,
+    bit for bit.  Returns the K1 launches of (b)."""
+    from gnsslib_tpu_torch.tools import scaling_channels
+    from gnsslib_tpu_torch.track import fast as fastmod
+    from gnsslib_tpu_torch.track import state_from_numpy, state_to_numpy
+    rows = {}
+    for c in (CORR, corr):
+        (row,) = scaling_channels.run((32,), corr=c, device=dev)
+        rows[c] = row
+        log(f"[17a] {2 * c[0] + 1} taps: {scaling_channels.line(row)}")
+        if row["k1_launches"] != row["expected"]:
+            raise AssertionError(f"[17a] {c}: K1 launches "
+                                 f"{row['k1_launches']} != {row['expected']}")
+    ms = {c: r["ms_step_event"] for c, r in rows.items()}
+    log(f"[17a] {card_line()}; the steady super-step of 32 channels x 10 "
+        f"periods by CUDA events: {ms[corr]:.4f} ms at {2 * corr[0] + 1} "
+        f"taps against {ms[CORR]:.4f} ms at 13 taps (x"
+        f"{ms[corr] / ms[CORR]:.3f})")
+
+    first = {}
+    start = fastmod.FastTracker.run_block_start
+
+    def keep_first(self, state, block, nsteps):
+        if not first:
+            first.update(eng=self, state=state_to_numpy(state),
+                         block=block.clone(), nsteps=nsteps)
+        return start(self, state, block, nsteps)
+    fastmod.FastTracker.run_block_start = keep_first
+    try:
+        k1 = parity_run(dev, kind, capture, corr=corr, tag="17b")
+    finally:
+        fastmod.FastTracker.run_block_start = start
+    eng = first["eng"]
+    _replay_vs_eager(f"the wide receiver's first steady block ("
+                     f"{len(eng.offsets)} taps, {eng.C} channels)", eng,
+                     state_from_numpy(first["state"], dev), first["block"],
+                     first["nsteps"], phase="17c")
+    return k1
 
 
 def with_graphs(tag: str, phase, *args):
@@ -3778,16 +3874,25 @@ def main() -> int:
                 continue
             if not re.search(r"registers|spill", ln):
                 continue
+            wide = re.search(r"band_taps_(wide|v1_wide)_kernelILb(\d)E"
+                             r"(?:Lb(\d)E)?", entry)
             var = re.search(r"ablation_taps_v1_kernelILi(\d)ELi13EE", entry)
             k6 = re.search(r"ablation_taps_cluster_kernelILb(\d)ELi(\d+)EE",
                            entry)
             k1 = re.search(r"(?:band|window|gram)_taps_(v1|cluster|mma)_"
                            r"kernelILi(\d+)ELb(\d)E", entry)
-            # 13-tap instantiations (K2's banded Gram: its 7 n-tiles), and
-            # the 25-tap ones of K1 and K2 (K2: 11 n-tiles)
-            wide = {"band_taps": ("cluster", "25"), "gram_taps": ("mma", "11")}
-            if k1 and ((k1[1], k1[2]) in (("mma", "7"), wide.get(name))
-                       or (k1[1] != "mma" and k1[2] == "13")):
+            # 13-tap instantiations (K2's banded Gram: its 7 n-tiles), the
+            # 25-tap ones of K1 and K2 (K2: 11 n-tiles), and K1's wide
+            # kernels (any T > 25)
+            at25 = {"band_taps": ("cluster", "25"),
+                    "gram_taps": ("mma", "11")}
+            if wide:
+                kind = (f"{wide[1].replace('_', ' ')} (T > 25) "
+                        + ("iq" if wide[2] == "1" else "real")
+                        + {"1": " staged", "0": " recompute"}.get(
+                            wide[3], ""))
+            elif k1 and ((k1[1], k1[2]) in (("mma", "7"), at25.get(name))
+                         or (k1[1] != "mma" and k1[2] == "13")):
                 size = f"NN={k1[2]}" if k1[1] == "mma" else f"T={k1[2]}"
                 kind = f"{k1[1]} {size} " + ("iq" if k1[3] == "1"
                                              else "real") + (
@@ -3818,6 +3923,7 @@ def main() -> int:
     if usage.get("stack") != 0 or usage.get("spill_stores") != 0:
         raise AssertionError(f"band_taps cluster T=13 iq spills: {usage}")
 
+    t3 = time.time()
     k = {"band_taps": [phase_kernel(dev, iq=False),
                        phase_kernel(dev, iq=True)]}
     # K1 at phase 16's 9-tap shapes: the two-satellite scenarios' real
@@ -3828,16 +3934,31 @@ def main() -> int:
           "iq": phase_kernel(dev, True, "3 9-tap", corr=(4, 1, 1),
                              sf=2.048e6, fif=0.0, channels=2)}
     k["band_taps"] += list(k9.values())
+    # K1 past 25 taps: its wide kernel, one launch per super-step
+    wide = {}
+    for corr in pb.WIDE:
+        for iq in (False, True):
+            wide[2 * corr[0] + 1, iq] = phase_kernel(
+                dev, iq, f"3 {2 * corr[0] + 1}-tap", corr=corr)
+    k["band_taps"] += list(wide.values())
     for iq in (False, True):
         for name, r in phase_window_kernels(dev, iq).items():
             k.setdefault(name, []).append(r)
         k.setdefault("gram_taps", []).append(phase_gram_kernel(dev, iq))
+    # K2-K5 at 33 taps (real): a launch per group of at most 25 taps
+    wide33 = phase_window_kernels(dev, False, WIDE_CORR, "3 33-tap")
+    wide33["gram_taps"] = phase_gram_kernel(dev, False, WIDE_CORR,
+                                            "3 33-tap")
+    for name, r in wide33.items():
+        k[name].append(r)
     phase_window_profiler(dev)
     phase_gram_profiler(dev)
     ablation = phase_ablation_kernel(dev)
     # the K6 row: the full variant (K4's body); max_abs_err over all four
     k["ablation_taps"] = [dict(ablation["full"], err=max(
         r["err"] for r in ablation.values()))]
+    log(f"[3] phase wall {time.time() - t3:.1f} s (the 33-, 41- and 65-tap "
+        f"checks included)")
 
     os.makedirs(WORK, exist_ok=True)
     paths = {k: os.path.join(WORK, f"capture_{k}_int8.bin")
@@ -3901,11 +4022,21 @@ def main() -> int:
     # K1 launches join the band_taps row
     parity_k1 = with_graphs("16", phase_parity, dev, paths)
     launches["band_taps"] += parity_k1
+    # the receiver at 33 taps: its K1 launches join the band_taps row
+    wide_k1 = with_graphs("17", phase_wide, dev, paths["par_fullenv"])
+    launches["band_taps"] += wide_k1
+    log(f"[17] K1 past 25 taps (phase 3, graph replay, real/I/Q): "
+        + "; ".join(f"{T} taps {wide[T, False]['ms']:.4f}/"
+                    f"{wide[T, True]['ms']:.4f} ms (bound "
+                    f"{wide[T, False]['bound_ms']:.4f}/"
+                    f"{wide[T, True]['bound_ms']:.4f})"
+                    for T in sorted({t for t, _ in wide}))
+        + f"; phase 17's launches {wide_k1}")
     log(f"[16] K1 at the scenarios' 9-tap shapes (phase 3): real "
         f"{k9['real']['ms']:.4f} ms, I/Q {k9['iq']['ms']:.4f} ms per launch "
         f"(bounds {k9['real']['bound_ms']:.4f} / {k9['iq']['bound_ms']:.4f} "
         f"ms); phase 16's launches {parity_k1}")
-    log(f"[graphs] phases 5-16: {CAPTURES.captures} block-program captures "
+    log(f"[graphs] phases 5-17: {CAPTURES.captures} block-program captures "
         f"(the CLI runs' included), {CAPTURES.capture_s:.2f} s recording, "
         f"{CAPTURES.instantiate_s:.2f} s instantiating, pools "
         f"{CAPTURES.pool_bytes / 1e6:.1f} MB reserved in all; device memory "
@@ -3939,7 +4070,13 @@ def main() -> int:
             # how "ms" was timed (launches replayed from a CUDA graph), the
             # same launches eager, and the same run's v1 kernel
             "timing": real["timing"], "eager_ms": real["eager_ms"],
-            "v1_ms": real["v1_ms"]})
+            "v1_ms": real["v1_ms"],
+            # past 25 taps (real input, graph replay): K1's wide kernel at
+            # 33/41/65 taps, K2-K5's launches of at most 25 taps at 33
+            "wide_ms": ({str(T): r["ms"] for (T, iq), r in wide.items()
+                         if not iq} if name == "band_taps"
+                        else {"33": wide33[name]["ms"]}
+                        if name in wide33 else None)})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

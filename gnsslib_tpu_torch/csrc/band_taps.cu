@@ -75,6 +75,31 @@
 //    chain's next steps hit in L1, and staging them in shared memory as
 //    well was slower on the card (it adds their transfer before the chain
 //    loop can start).
+//
+// Wide geometries (T > 25 taps, CORRN 13 and up; the JAX package runs them
+// through the same band kernel up to CORRN*CORRD = 32 and beyond that
+// through its diag backend).  The instantiations above stop at 25 taps;
+// band_taps_wide_kernel takes any odd T in the same single launch per
+// super-step, with the same clusters, staging, output and out-of-block
+// flag.  Each CTA stages its replica segment once (seg + 2*corrn*d bytes)
+// and loops over the taps in groups of kGroup = 13 lags, each group at the
+// 13-tap instantiation's register budget (R[kJ + 12] and 26 sums): group g
+// runs the chains of step 2 against the replica shifted by its first lag,
+// reduces its 26 sums into the CTA's row in shared memory, and the next
+// group starts.  The last group starts at T - 13 and recomputes the lags
+// it shares with the group before it (written again, the same way every
+// launch), so no lag past 2*corrn*d is read.  The carrier-mixed samples
+// are computed once per CTA into shared memory (2 floats per sample, ~66
+// KB per CTA at 16376-sample windows) and every group reads them there
+// (STAGED), which measured faster than recomputing them in every group
+// as the chains of the narrow kernel do (tools/profile_band.py --wide
+// times both; PERF.md has the times).  Staging needs ~9 bytes per
+// segment sample, so launch_wide stages where the card's shared memory
+// holds it (windows up to ~51k samples on an H100, e.g. 1 ms codes up to
+// ~51 Msps) and recomputes past that, to the narrow kernel's own cap of
+// ~1 byte per segment sample.  Offsets that are not a progression take
+// band_taps_v1_wide_kernel: v1 looping over groups of kGroup taps, the
+// carrier recomputed per group.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -89,13 +114,15 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kJ = 33;            // samples per thread (stride d)
 constexpr int kCluster = 2;       // CTAs per window: one thread block cluster
+constexpr int kMaxNarrow = 25;    // the largest tap count instantiated below
+constexpr int kGroup = 13;        // taps per group of the wide kernels
 
 __device__ __forceinline__ float frac_f(float x) { return x - floorf(x); }
 
 // ------------------------------------------------------------------------
 // The v1 kernel: one thread block per window, the whole replica row in
 // shared memory as int8, per sample one sincospif, NT shared byte loads and
-// 2*NT FMAs.  Takes any offsets check_offsets accepts.
+// 2*NT FMAs.  Takes any offsets of up to kMaxNarrow taps.
 
 template <int NT, bool IQ>
 __global__ void __launch_bounds__(kThreads)
@@ -186,6 +213,101 @@ band_taps_v1_kernel(const float* __restrict__ block, long long nblock,
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) v += part[w][tid];
     o[tid] = v;
+  }
+}
+
+// The v1 kernel for more than kMaxNarrow taps: the same per-sample work,
+// looped over groups of kGroup taps (the offsets past the last tap repeat
+// it and are not written).
+template <bool IQ>
+__global__ void __launch_bounds__(kThreads)
+band_taps_v1_wide_kernel(const float* __restrict__ block, long long nblock,
+                         const int8_t* __restrict__ rc, int next, int nwin,
+                         const int* __restrict__ wstart,
+                         const int* __restrict__ nvalid,
+                         const float* __restrict__ rem,
+                         const float* __restrict__ ftot,
+                         const uint8_t* __restrict__ active,
+                         const int* __restrict__ offsets, int ntaps,
+                         int smax, float* __restrict__ out,
+                         int* __restrict__ ok) {
+  constexpr int G = kGroup;
+  extern __shared__ int8_t rep[];            // this window's replica row
+  __shared__ float part[kWarps][2 * G];
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  float* o = out + (size_t)b * 2 * ntaps;
+
+  const long long w0 = wstart[b];
+  const int n = min(nvalid[b], nwin);
+  const bool act = active[b] != 0;
+  const bool inside = w0 >= 0 && w0 + (long long)max(n, 0) <= nblock;
+  if (!act || !inside) {                     // uniform across the block
+    if (act && tid == 0) *ok = 0;
+    for (int t = tid; t < 2 * ntaps; t += kThreads) o[t] = 0.f;
+    return;
+  }
+
+  const int8_t* row = rc + (size_t)b * next;
+  for (int j = tid; j < next; j += kThreads) rep[j] = row[j];
+  __syncthreads();
+  const float f = ftot[b];
+  const float r0 = rem[b];
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  for (int t0 = 0; t0 < ntaps; t0 += G) {
+    int lag[G];
+    float ac[G], as[G];
+#pragma unroll
+    for (int t = 0; t < G; ++t) {
+      lag[t] = smax + offsets[min(t0 + t, ntaps - 1)];
+      ac[t] = 0.f;
+      as[t] = 0.f;
+    }
+    for (int i = tid; i < n; i += kThreads) {
+      const float ph = frac_f(frac_f(__fmul_rn(f, (float)i)) + r0);
+      float s, c;
+      sincospif(2.f * ph, &s, &c);
+      float wc, ws;
+      if (IQ) {
+        const float xr = block[2 * (w0 + i)];
+        const float xi = block[2 * (w0 + i) + 1];
+        wc = xr * c - xi * s;
+        ws = xr * s + xi * c;
+      } else {
+        const float x = block[w0 + i];
+        wc = x * c;
+        ws = x * s;
+      }
+#pragma unroll
+      for (int t = 0; t < G; ++t) {
+        const float r = (float)rep[i + lag[t]];
+        ac[t] = fmaf(wc, r, ac[t]);
+        as[t] = fmaf(ws, r, as[t]);
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < G; ++t) {
+      float a = ac[t];
+      float s = as[t];
+#pragma unroll
+      for (int d = 16; d > 0; d >>= 1) {
+        a += __shfl_down_sync(0xffffffffu, a, d);
+        s += __shfl_down_sync(0xffffffffu, s, d);
+      }
+      if (lane == 0) {
+        part[warp][2 * t] = a;
+        part[warp][2 * t + 1] = s;
+      }
+    }
+    __syncthreads();
+    if (tid < 2 * G && t0 + tid / 2 < ntaps) {
+      float v = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) v += part[w][tid];
+      o[2 * t0 + tid] = v;
+    }
+    __syncthreads();                         // part is the next group's
   }
 }
 
@@ -439,6 +561,158 @@ band_taps_cluster_kernel(const ClusterArgs a) {
   }
 }
 
+// The taps of one chain as chain_taps computes them, from carrier-mixed
+// samples staged in shared memory (wc, ws at the chain's first sample,
+// zero past the valid ones) instead of the block.
+template <int NT>
+__device__ __forceinline__ void chain_taps_mixed(float (&ac)[NT],
+                                                 float (&as)[NT],
+                                                 const int8_t* r,
+                                                 const float* wc,
+                                                 const float* ws, int d) {
+  float R[kJ + NT - 1];
+#pragma unroll
+  for (int q = 0; q < kJ + NT - 1; ++q) R[q] = (float)r[q * d];
+#pragma unroll
+  for (int j = 0; j < kJ; ++j) {
+    const float c = wc[j * d];
+    const float s = ws[j * d];
+#pragma unroll
+    for (int m = 0; m < NT; ++m) {
+      ac[m] = fmaf(c, R[j + m], ac[m]);
+      as[m] = fmaf(s, R[j + m], as[m]);
+    }
+  }
+}
+
+// The cluster kernel for any odd ntaps > kMaxNarrow (the wide path in the
+// header): the tap groups of kGroup lags loop inside the CTA.  Dynamic
+// shared memory: the staged replica bytes, then (floats) the CTA's 2T
+// sums in lag order, rank 0's gather of every rank's sums, and when
+// STAGED the segment's mixed samples (cos, then sin).
+template <bool IQ, bool STAGED>
+__global__ void __launch_bounds__(kThreads, IQ ? 3 : 4)
+band_taps_wide_kernel(const ClusterArgs a, int ntaps) {
+  constexpr int G = kGroup;
+  constexpr int F = IQ ? 2 : 1;              // floats per sample
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float part[kWarps][32];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int b = blockIdx.x / kCluster;
+  const int tid = threadIdx.x;
+  const int C = (ntaps - 1) / 2;             // corrn
+  const int NV = 2 * ntaps;                  // sums per window
+  float* row_out = a.out + (size_t)b * NV;
+
+  const long long w0 = a.wstart[b];
+  const int n = min(a.nvalid[b], a.nwin);
+  const bool act = a.active[b] != 0;
+  const float f = a.ftot[b];
+  const float r0 = a.rem[b];
+  const bool inside = w0 >= 0 && w0 + (long long)max(n, 0) <= a.nblock;
+  if (!act || !inside) {        // the same in every CTA of the cluster
+    if (rank == 0) {
+      if (act && tid == 0) *a.ok = 0;
+      for (int t = tid; t < NV; t += blockDim.x) row_out[t] = 0.f;
+    }
+    return;
+  }
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+
+  const int d = a.d;
+  const int seg = a.seg;
+  const int seg0 = rank * seg;
+  const int lim = max(0, min(n - seg0, seg));
+  const int nrep = seg + 2 * C * d;
+  const long long rfirst = (long long)b * a.next + seg0 + a.base;
+  const float* blk = a.block + F * (w0 + seg0);
+  float* sums = reinterpret_cast<float*>(smem + staged_bytes(nrep));
+  float* gather = sums + NV;
+  float* mc = gather + kCluster * NV;
+  float* ms = mc + seg;
+
+  const int8_t* rep = reinterpret_cast<const int8_t*>(smem);
+  rep += stage_async(smem, a.rc, a.rc_len, rfirst, nrep);
+  if (STAGED) {
+    for (int i = tid; i < seg; i += blockDim.x) {
+      float wc = 0.f, ws = 0.f;
+      if (i < lim) {
+        float sn, cs;
+        carrier(f, (float)(seg0 + i), r0, &sn, &cs);
+        if (IQ) {
+          const float xr = blk[2 * i];
+          const float xi = blk[2 * i + 1];
+          wc = xr * cs - xi * sn;
+          ws = xr * sn + xi * cs;
+        } else {
+          const float xv = blk[i];
+          wc = xv * cs;
+          ws = xv * sn;
+        }
+      }
+      mc[i] = wc;
+      ms[i] = ws;
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int tile = kJ * d;
+  const int nchain = seg / tile * d;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  for (int m0 = 0; m0 < ntaps; m0 += G) {
+    const int g0 = min(m0, ntaps - G);       // the group's first lag
+    float ac[G], as[G];
+#pragma unroll
+    for (int m = 0; m < G; ++m) {
+      ac[m] = 0.f;
+      as[m] = 0.f;
+    }
+    for (int u = tid; u < nchain; u += blockDim.x) {
+      const int k = u / d;
+      const int s0 = k * tile + (u - k * d);
+      if (s0 >= lim) continue;
+      const int8_t* r = rep + s0 + g0 * d;
+      if (STAGED)
+        chain_taps_mixed<G>(ac, as, r, mc + s0, ms + s0, d);
+      else
+        chain_taps<G, IQ>(ac, as, r, blk + F * s0, d, lim - s0, f, r0,
+                          (float)(seg0 + s0));
+    }
+    float v[32];
+#pragma unroll
+    for (int k = 0; k < 32; ++k) v[k] = 0.f;
+#pragma unroll
+    for (int m = 0; m < G; ++m) {
+      v[2 * m] = ac[m];
+      v[2 * m + 1] = as[m];
+    }
+    fold<16>(v, lane);
+    part[warp][lane] = v[0];
+    __syncthreads();
+    if (tid < 2 * G) {
+      float x = 0.f;
+      for (int w = 0; w < (int)(blockDim.x >> 5); ++w) x += part[w][tid];
+      sums[2 * g0 + tid] = x;
+    }
+    __syncthreads();                         // part is the next group's
+  }
+
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  float* to = cluster.map_shared_rank(gather, 0) + rank * NV;
+  for (int t = tid; t < NV; t += blockDim.x) to[t] = sums[t];
+  cluster.sync();
+  if (rank == 0) {
+    for (int t = tid; t < NV; t += blockDim.x) {
+      float x = 0.f;
+      for (int r = 0; r < kCluster; ++r) x += gather[r * NV + t];
+      row_out[2 * slot_of(t >> 1, C) + (t & 1)] = x;
+    }
+  }
+}
+
 int ceil_div(int x, int y) { return (x + y - 1) / y; }
 
 template <int NT, bool IQ>
@@ -472,6 +746,53 @@ cudaError_t launch_cluster(ClusterArgs a, int nwindows, cudaStream_t stream) {
                        dim3((unsigned)threads), shm, kCluster, stream, a);
 }
 
+template <bool IQ>
+cudaError_t launch_v1_wide(const float* block, long long nblock,
+                           const int8_t* rc, int next, int nwin,
+                           const int* wstart, const int* nvalid,
+                           const float* rem, const float* ftot,
+                           const uint8_t* active, const int* offsets,
+                           int ntaps, int smax, int nwindows, float* out,
+                           int* ok, cudaStream_t stream) {
+  static size_t opted = 0;            // this instantiation's opt-in
+  return launch_kernel(band_taps_v1_wide_kernel<IQ>, opted,
+                       dim3((unsigned)nwindows), dim3(kThreads),
+                       (size_t)next, 0, stream, block, nblock, rc, next,
+                       nwin, wstart, nvalid, rem, ftot, active, offsets,
+                       ntaps, smax, out, ok);
+}
+
+template <bool IQ>
+cudaError_t launch_wide(ClusterArgs a, int ntaps, int nwindows,
+                        cudaStream_t stream) {
+  const int tile = kJ * a.d;
+  a.seg = ceil_div(ceil_div(a.nwin, kCluster), tile) * tile;
+  const int nrep = a.seg + (ntaps - 1) * a.d;
+  const int want = ceil_div(a.seg / tile * a.d, 32) * 32;
+  const int threads = want < kThreads ? want : kThreads;
+  const size_t shm = staged_bytes(nrep) +
+                     sizeof(float) * (size_t)2 * ntaps * (1 + kCluster);
+  const size_t mixed = sizeof(float) * 2 * (size_t)a.seg;
+  // the mixed samples staged where the card's shared memory holds them,
+  // else recomputed per group; a segment whose replica bytes pass it is
+  // refused by the opt-in (cudaErrorInvalidValue), as the narrow kernel's.
+  // The room is asked once per process (the port's cards are alike), so
+  // a launch captured in a CUDA graph after its warm-up asks nothing.
+  static size_t room = 0;
+  if (room == 0) room = max_dynamic_shm(band_taps_wide_kernel<IQ, true>);
+  const bool staged = shm + mixed <= room;
+  static size_t opted[2] = {0, 0};    // each instantiation's opt-in
+  if (staged)
+    return launch_kernel(band_taps_wide_kernel<IQ, true>, opted[1],
+                         dim3((unsigned)(nwindows * kCluster)),
+                         dim3((unsigned)threads), shm + mixed, kCluster,
+                         stream, a, ntaps);
+  return launch_kernel(band_taps_wide_kernel<IQ, false>, opted[0],
+                       dim3((unsigned)(nwindows * kCluster)),
+                       dim3((unsigned)threads), shm, kCluster, stream, a,
+                       ntaps);
+}
+
 }  // namespace
 
 #define TAP_CASES(X) X(1) X(3) X(5) X(7) X(9) X(11) X(13) X(15) X(17) \
@@ -482,8 +803,9 @@ cudaError_t launch_cluster(ClusterArgs a, int nwindows, cudaStream_t stream) {
 // of the launch (0 on success); arguments it does not take return
 // cudaErrorInvalidValue without launching.
 
-// The cluster kernel for offsets tap_offsets((ntaps - 1) / 2, d), ntaps in
-// {1, 3, ..., 25}.
+// The cluster kernel for offsets tap_offsets((ntaps - 1) / 2, d): ntaps in
+// {1, 3, ..., 25} by its instantiations, any larger odd ntaps by the wide
+// kernel.
 extern "C" int band_taps_launch(const void* block, long long nblock, int iq,
                                 const void* rc, int next, int nwin,
                                 const void* wstart, const void* nvalid,
@@ -518,12 +840,16 @@ extern "C" int band_taps_launch(const void* block, long long nblock, int iq,
   switch (ntaps) {
     TAP_CASES(CLUSTER_CASE)
     default:
-      return (int)cudaErrorInvalidValue;
+      if (ntaps <= kMaxNarrow || ntaps % 2 == 0)
+        return (int)cudaErrorInvalidValue;
+      return iq ? launch_wide<true>(a, ntaps, nwindows, st)
+                : launch_wide<false>(a, ntaps, nwindows, st);
   }
 #undef CLUSTER_CASE
 }
 
-// The v1 kernel, for any offsets (a device array of ntaps ints).
+// The v1 kernel, for any offsets (a device array of ntaps ints; more than
+// kMaxNarrow of them go to the v1 wide kernel).
 extern "C" int band_taps_v1_launch(const void* block, long long nblock,
                                    int iq, const void* rc, int next,
                                    int nwin, const void* wstart,
@@ -553,7 +879,14 @@ extern "C" int band_taps_v1_launch(const void* block, long long nblock,
   switch (ntaps) {
     TAP_CASES(V1_CASE)
     default:
-      return (int)cudaErrorInvalidValue;
+      if (ntaps <= kMaxNarrow || ntaps % 2 == 0)
+        return (int)cudaErrorInvalidValue;
+      return iq ? launch_v1_wide<true>(x, nblock, r, next, nwin, ws, nv, rm,
+                                       ft, ac, of, ntaps, smax, nwindows, y,
+                                       okp, st)
+                : launch_v1_wide<false>(x, nblock, r, next, nwin, ws, nv, rm,
+                                        ft, ac, of, ntaps, smax, nwindows, y,
+                                        okp, st);
   }
 #undef V1_CASE
 }

@@ -49,3 +49,21 @@ cudaError_t launch_kernel(void (*kernel)(Params...), size_t& opted,
   const cudaError_t last = cudaGetLastError();    // and clears it
   return e != cudaSuccess ? e : last;
 }
+
+// The dynamic shared bytes `kernel` can opt in to on the current device:
+// the card's per-block opt-in limit less the kernel's static shared
+// memory (0, with no error left set, if the runtime cannot say).
+template <typename... Params>
+size_t max_dynamic_shm(void (*kernel)(Params...)) {
+  int dev = 0, optin = 0;
+  cudaFuncAttributes fa;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess ||
+      cudaFuncGetAttributes(&fa, kernel) != cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  return (size_t)optin > fa.sharedSizeBytes ? (size_t)optin - fa.sharedSizeBytes
+                                           : 0;
+}

@@ -34,8 +34,9 @@ import functools
 import torch
 
 from .carrier import TWO_PI
-from .kernels import (V1Counts, bind, check_offsets, check_tensors,
-                      device_offsets, raise_on, route, stream_of)
+from .kernels import (MAX_TAPS, V1Counts, bind, check_offsets,
+                      check_tensors, device_offsets, raise_on, route,
+                      stream_of)
 from .nco import frac
 
 VARIANTS = ("full", "nosin", "onetap", "aligned")   # kernel variant codes 0-3
@@ -162,13 +163,18 @@ def ablation_taps(win, rc, rem, ftot, n, offsets, smax: int,
     rem:     (B,) float32 carrier phase at the window start (cycles)
     ftot:    (B,) float32 carrier rate (cycles/sample)
     n:       (B,) float32 valid-sample bound (samples i < n count)
-    offsets: T host ints (|o| <= smax), T odd and <= 25
+    offsets: T host ints (|o| <= smax), T odd; the kernel takes at most
+             25 (the one geometry its tool runs has 13), the plain
+             version any
     variant: "full", "nosin", "onetap" or "aligned"
     """
     op, offsets = _check(win, rc, rem, ftot, n, offsets, smax, variant)
     if route(op, win.device) == "plain":
         COUNTS[variant].plain += 1
         return PLAIN[variant](win, rc, rem, ftot, n, offsets, smax)
+    if len(offsets) > MAX_TAPS:
+        raise ValueError(f"{op}: the kernel takes at most {MAX_TAPS} taps, "
+                         f"got {len(offsets)}")
     out = torch.empty((win.shape[0], 2 * len(offsets)), dtype=torch.float32,
                       device=win.device)
     which = launch(variant, win, rc, rem, ftot, n, offsets, smax, out)

@@ -20,7 +20,10 @@ the block.  Inactive and out-of-block windows give zeros.
 kernel (``COUNTS.kernel``), any other offsets to the v1 kernel
 (``COUNTS.v1``); the choice follows the offsets, never a failure.  There is
 no fallback from a kernel to the plain version or from one kernel to the
-other.
+other.  Any odd tap count is one launch: past the 25 taps the source
+instantiates, both kernels loop over groups of 13 taps inside the launch
+(``band_taps_wide_kernel``, ``band_taps_v1_wide_kernel``), so a
+super-step at CORRN 13-32 is still one K1 launch.
 """
 from __future__ import annotations
 
@@ -103,7 +106,7 @@ def band_taps(block, rc, wstart, n, rem, ftot, active, offsets, smax: int):
     rem:     (B,) f32 carrier phase at the window start (cycles)
     ftot:    (B,) f32 carrier rate (cycles/sample, mod 1)
     active:  (B,) bool — the window's channel is tracking
-    offsets: T host ints, the tap offsets (|o| <= smax), T odd and <= 25
+    offsets: T host ints, the tap offsets (|o| <= smax), T odd
     Returns (B, 2T) f32 [cos_0, sin_0, cos_1, ...] and a 0-dim bool tensor
     on the block's device.
     """

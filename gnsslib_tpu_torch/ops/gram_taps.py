@@ -27,7 +27,10 @@ of 16 lanes j, each reading only the n-tiles of 8 lag columns that
 (``COUNTS.kernel``).  Geometries beyond its largest instantiation (smax >
 ``MAX_SMAX`` or more than ``MAX_ROWS`` rows; ``tile_plan`` returns None)
 launch the v1 kernel (``COUNTS.v1``); the choice follows the geometry,
-never a failure, and nothing falls back to the plain version.
+never a failure, and nothing falls back to the plain version.  Both
+kernels are instantiated up to 25 taps: more taps launch the kernel once
+per run of at most 25 offsets (``kernels.tap_plan``), each run's columns
+copied into place, and every launch is counted.
 """
 from __future__ import annotations
 
@@ -38,7 +41,8 @@ import torch
 
 from .carrier import TWO_PI
 from .kernels import (V1Counts, bind, check_offsets, check_tensors,
-                      device_offsets, raise_on, route, stream_of)
+                      device_offsets, raise_on, route, run_plan, stream_of,
+                      tap_plan)
 from .nco import frac
 
 COUNTS = V1Counts("gram_taps")
@@ -134,7 +138,7 @@ def gram_taps(win_i, win_q, rc, rem, ftot, offsets, smax: int):
              [-smax, next - smax) of window b)
     rem:     (B,) f32 carrier phase at the window start (cycles)
     ftot:    (B,) f32 total carrier rate (cycles/sample)
-    offsets: T host ints (|o| <= smax), T odd and <= 25
+    offsets: T host ints (|o| <= smax), T odd
     """
     offsets = _check(win_i, win_q, rc, rem, ftot, offsets, smax)
     if route("gram_taps", win_i.device) == "plain":
@@ -142,39 +146,44 @@ def gram_taps(win_i, win_q, rc, rem, ftot, offsets, smax: int):
         return gram_taps_plain(win_i, win_q, rc, rem, ftot, offsets, smax)
     out = torch.empty((win_i.shape[0], 2 * len(offsets)),
                       dtype=torch.float32, device=win_i.device)
-    which = launch(win_i, win_q, rc, rem, ftot, offsets, smax, out)
-    setattr(COUNTS, which, getattr(COUNTS, which) + 1)
+    launch(win_i, win_q, rc, rem, ftot, offsets, smax, out, COUNTS)
     return out
 
 
-def launch(win_i, win_q, rc, rem, ftot, offsets, smax: int, out) -> str:
+def launch(win_i, win_q, rc, rem, ftot, offsets, smax: int, out,
+           counts=None) -> None:
     """Launch a kernel on the current CUDA stream into ``out`` (B, 2T)
-    f32, with no argument checks and no count: :func:`gram_taps` checks,
-    allocates, counts and calls this.  The banded-Gram kernel takes what
-    :func:`tile_plan` plans, the v1 kernel anything else; returns which
-    (``"kernel"`` or ``"v1"``, the counter to add to).  Raises if the
-    launch is refused."""
+    f32, with no argument checks: :func:`gram_taps` checks, allocates and
+    calls this.  The banded-Gram kernel takes what :func:`tile_plan`
+    plans, the v1 kernel anything else, launched once per group of
+    ``tap_plan(offsets, None)``; each launch adds one to ``counts``
+    (``kernel`` or ``v1``; the wrapper passes ``COUNTS``, None counts
+    nothing).  Raises if a launch is refused."""
     plan = tile_plan(win_i.shape[1], smax)
     if plan is None:
-        launch_v1(win_i, win_q, rc, rem, ftot, offsets, smax, out)
-        return "v1"
-    _launch("gram_taps_launch", win_i, win_q, rc, rem, ftot, offsets, smax,
-            out, len(plan[0]))
-    return "kernel"
+        launch_v1(win_i, win_q, rc, rem, ftot, offsets, smax, out, counts)
+        return
+    run_plan(tap_plan(tuple(int(o) for o in offsets), None), out, smax,
+             lambda offs, sm, dst: _launch(
+                 "gram_taps_launch", counts, "kernel", win_i, win_q, rc,
+                 rem, ftot, offs, sm, dst, len(plan[0])))
 
 
-def launch_v1(win_i, win_q, rc, rem, ftot, offsets, smax: int,
-              out) -> None:
+def launch_v1(win_i, win_q, rc, rem, ftot, offsets, smax: int, out,
+              counts=None) -> None:
     """Launch the v1 kernel (``gram_taps_v1_launch``: one block per
-    window, f32 FMAs, any band) as :func:`launch` does, with no count."""
-    _launch("gram_taps_v1_launch", win_i, win_q, rc, rem, ftot, offsets,
-            smax, out)
+    window, f32 FMAs, any band) as :func:`launch` does."""
+    run_plan(tap_plan(tuple(int(o) for o in offsets), None), out, smax,
+             lambda offs, sm, dst: _launch(
+                 "gram_taps_v1_launch", counts, "v1", win_i, win_q, rc,
+                 rem, ftot, offs, sm, dst))
 
 
-def _launch(fn: str, win_i, win_q, rc, rem, ftot, offsets, smax: int, out,
-            *tiles) -> None:
+def _launch(fn: str, counts, which: str, win_i, win_q, rc, rem, ftot,
+            offsets, smax: int, out, *tiles) -> None:
     """Call the library's entry point ``fn`` (``tiles``: the banded-Gram
-    kernel's n-tiles per m-tile, after smax) and raise on its error."""
+    kernel's n-tiles per m-tile, after smax), raise on its error, and add
+    the launch to ``counts.<which>`` (unless ``counts`` is None)."""
     lib = _library()
     offs = device_offsets(tuple(int(o) for o in offsets), win_i.device)
     iq = win_q is not None
@@ -185,6 +194,8 @@ def _launch(fn: str, win_i, win_q, rc, rem, ftot, offsets, smax: int, out,
             ftot.data_ptr(), offs.data_ptr(), offs.shape[0], int(smax),
             *tiles, win_i.shape[0], out.data_ptr(), stream_of(win_i.device))
     raise_on(lib, "gram_taps", err)
+    if counts is not None:
+        setattr(counts, which, getattr(counts, which) + 1)
 
 
 def ctas_per_window() -> int:

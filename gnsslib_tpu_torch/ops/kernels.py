@@ -1,5 +1,6 @@
 """What the wrappers of the port's CUDA kernels share: launch counters,
-argument checks, the tap-offset progression test, the tap-offset upload
+argument checks, the tap-offset progression test, the split of a wide tap
+set into launches of the instantiated tap counts, the tap-offset upload
 and the ctypes binding.
 
 Every wrapper launches its kernel for CUDA tensors and hands CPU tensors to
@@ -15,7 +16,10 @@ import torch
 
 from .correlator import tap_offsets
 
-MAX_TAPS = 25      # templated tap counts 1, 3, ..., 25 in every csrc/*.cu
+# the tap counts 1, 3, ..., 25 every csrc/*.cu instantiates; K1 takes any
+# odd count in one launch (its wide kernel), K2-K5 more than 25 in
+# launches of at most 25 (tap_plan), K6 at most 25
+MAX_TAPS = 25
 
 
 class LaunchCounts:
@@ -88,14 +92,76 @@ def add(added: dict) -> None:
 
 
 def check_offsets(op: str, offsets, smax: int) -> tuple:
-    """The tap offsets as a tuple of ints: an odd count of at most
-    ``MAX_TAPS``, each within ``[-smax, smax]``."""
+    """The tap offsets as a tuple of ints: an odd count, each within
+    ``[-smax, smax]`` (any count: K6's kernel route checks its cap)."""
     offsets = tuple(int(o) for o in offsets)
-    if len(offsets) % 2 == 0 or len(offsets) > MAX_TAPS or \
-            max(abs(o) for o in offsets) > smax:
-        raise ValueError(f"{op}: need an odd tap count <= {MAX_TAPS} "
-                         f"with |offset| <= smax={smax}, got {offsets}")
+    if len(offsets) % 2 == 0 or max(abs(o) for o in offsets) > smax:
+        raise ValueError(f"{op}: need an odd tap count with |offset| <= "
+                         f"smax={smax}, got {offsets}")
     return offsets
+
+
+@functools.lru_cache(maxsize=64)
+def tap_groups(ntaps: int) -> tuple:
+    """Odd group sizes of at most ``MAX_TAPS`` that add up to the odd
+    ``ntaps``: ``(ntaps,)`` up to ``MAX_TAPS``, else the fewest groups (an
+    odd number of odd sizes adds up to an odd count) as even as they
+    can be, e.g. 33 -> (11, 11, 11), 41 -> (15, 13, 13)."""
+    k = -(-ntaps // MAX_TAPS)
+    k += 1 - k % 2
+    q = ntaps // k
+    q -= 1 - q % 2                       # the largest odd size <= ntaps / k
+    sizes = [q] * k
+    for i in range((ntaps - k * q) // 2):
+        sizes[i] += 2
+    return tuple(sizes)
+
+
+@functools.lru_cache(maxsize=64)
+def tap_plan(offsets: tuple, d) -> tuple:
+    """How a kernel instantiated up to ``MAX_TAPS`` taps computes all of
+    ``offsets``: one launch per group of :func:`tap_groups`, as a tuple of
+    (the launch's offsets, its smax shift, the output taps it fills).
+
+    ``d`` None (any offsets): runs of ``offsets`` in their order, shift 0.
+    ``d`` an int (``offsets == tap_offsets(corrn, d)``, the kernels that
+    reuse replica values across a progression): runs of consecutive lags,
+    each ``tap_offsets(c, d)`` about its centre offset ``shift``; the
+    kernel called with ``smax + shift`` reads the replica bytes of
+    ``shift + tap_offsets(c, d)``.  Up to ``MAX_TAPS`` taps the plan is
+    the one launch ``(offsets, 0, range(T))``."""
+    T = len(offsets)
+    plan, t0 = [], 0
+    for g in tap_groups(T):
+        if d is None:
+            plan.append((offsets[t0:t0 + g], 0, tuple(range(t0, t0 + g))))
+        else:
+            c = (g - 1) // 2
+            shift = (t0 + c - (T - 1) // 2) * d   # t0: the run's first lag
+            offs = tuple(int(o) for o in tap_offsets(c, d))
+            plan.append((offs, shift,
+                         tuple(offsets.index(shift + o) for o in offs)))
+        t0 += g
+    return tuple(plan)
+
+
+def run_plan(plan: tuple, out: torch.Tensor, smax: int, launch) -> None:
+    """Fill ``out`` (B, 2T) f32, tap t's pair in columns 2t and 2t+1, by
+    ``launch(offsets, smax, dst)`` for each group of ``plan``
+    (:func:`tap_plan`): one launch straight into ``out`` for a plan of one
+    group, else each group into a scratch (B, 2G) and its pairs copied to
+    their taps."""
+    if len(plan) == 1:
+        launch(plan[0][0], smax, out)
+        return
+    B, T = out.shape[0], out.shape[1] // 2
+    taps = out.view(B, T, 2)
+    for offs, shift, cols in plan:
+        dst = torch.empty((B, 2 * len(offs)), dtype=out.dtype,
+                          device=out.device)
+        launch(offs, smax + shift, dst)
+        taps.index_copy_(1, device_index(cols, out.device),
+                         dst.view(B, len(offs), 2))
 
 
 @functools.lru_cache(maxsize=64)
@@ -142,6 +208,13 @@ def route(op: str, device: torch.device) -> str:
 def device_offsets(offsets: tuple, device: torch.device) -> torch.Tensor:
     """The tap offsets as an int32 tensor on ``device``, uploaded once."""
     return torch.tensor(offsets, dtype=torch.int32, device=device)
+
+
+@functools.lru_cache(maxsize=64)
+def device_index(index: tuple, device: torch.device) -> torch.Tensor:
+    """An int64 index tensor on ``device``, uploaded once (so that a
+    launch captured in a CUDA graph after its warm-up uploads nothing)."""
+    return torch.tensor(index, dtype=torch.int64, device=device)
 
 
 def bind(name: str, fn: str, argtypes) -> ctypes.CDLL:

@@ -23,7 +23,11 @@ form ``tap_offsets(corrn, d)`` (all the receiver and the profiler make) go
 to the cluster kernel (``COUNTS*.kernel``), any other offsets to the v1
 kernel (``COUNTS*.v1``); the choice follows the offsets, never a failure,
 and there is no fallback from a kernel to the plain version or from one
-kernel to the other.
+kernel to the other.  Both kernels are instantiated up to 25 taps: more
+taps launch the kernel once per group of ``kernels.tap_plan`` (the cluster
+kernel: runs of consecutive lags, each about its own centre; v1: runs of
+the offsets), each group's columns copied into place, and every launch is
+counted.
 """
 from __future__ import annotations
 
@@ -35,7 +39,7 @@ import torch
 from .carrier import TWO_PI
 from .kernels import (V1Counts, bind, check_offsets, check_tensors,
                       device_offsets, progression, raise_on, route,
-                      stream_of)
+                      run_plan, stream_of, tap_plan)
 from .nco import frac
 
 
@@ -110,8 +114,7 @@ def _run(op, counts, kind, windows, rc, rem, ftot, n, offsets, smax):
         return window_taps_plain(windows, rc, rem, ftot, n, offsets, smax)
     out = torch.empty((windows.shape[0], 2 * len(offsets)),
                       dtype=torch.float32, device=windows.device)
-    which = launch(kind, windows, rc, rem, ftot, n, offsets, smax, out)
-    setattr(counts, which, getattr(counts, which) + 1)
+    launch(kind, windows, rc, rem, ftot, n, offsets, smax, out, counts)
     return out
 
 
@@ -123,7 +126,7 @@ def correlate_windows(windows, rc, rem, ftot, n, offsets, smax: int):
     rem:     (B,) f32 carrier phase at the window start (cycles)
     ftot:    (B,) f32 total carrier rate (cycles/sample)
     n:       (B,) int32 valid samples per window
-    offsets: T host ints (|o| <= smax), T odd and <= 25
+    offsets: T host ints (|o| <= smax), T odd
     """
     return _run("correlate_windows", COUNTS5, _F32, windows, rc, rem, ftot,
                 n, offsets, smax)
@@ -145,43 +148,57 @@ def correlate_windows16(windows, rc, rem, ftot, n, offsets, smax: int):
 
 
 def launch(kind: int, windows, rc, rem, ftot, n, offsets, smax: int,
-           out) -> str:
+           out, counts=None) -> None:
     """Launch a kernel of ``kind`` (0: f32, 1: bf16/int8) on the current
-    CUDA stream into ``out`` (B, 2T) f32, with no argument checks and no
-    count: the wrappers check, allocate, count and call this.  Offsets of
-    the form ``tap_offsets(corrn, d)`` launch the cluster kernel, any
-    other offsets the v1 kernel; returns which (``"kernel"`` or ``"v1"``,
-    the counter to add to).  Raises if the launch is refused."""
+    CUDA stream into ``out`` (B, 2T) f32, with no argument checks: the
+    wrappers check, allocate and call this.  Offsets of the form
+    ``tap_offsets(corrn, d)`` launch the cluster kernel, any other
+    offsets the v1 kernel, once per group of ``tap_plan``; each launch
+    adds one to ``counts`` (``kernel`` or ``v1``; the wrappers pass
+    theirs, None counts nothing).  Raises if a launch is refused."""
     offsets = tuple(int(o) for o in offsets)
     d = progression(offsets)
     if d is None:
-        launch_v1(kind, windows, rc, rem, ftot, n, offsets, smax, out)
-        return "v1"
+        launch_v1(kind, windows, rc, rem, ftot, n, offsets, smax, out,
+                  counts)
+        return
     lib = _library()
-    with torch.cuda.device(windows.device):
-        err = lib.window_taps_launch(
-            kind, int(windows.dim() == 3), windows.data_ptr(),
-            windows.shape[1], rc.data_ptr(), rc.shape[1], rem.data_ptr(),
-            ftot.data_ptr(), n.data_ptr(), len(offsets), int(smax), d,
-            windows.shape[0], out.data_ptr(), stream_of(windows.device))
-    raise_on(lib, "window_taps", err)
-    return "kernel"
+
+    def one(offs, sm, dst):
+        # offs = tap_offsets(c, d) about the group's centre: smax ``sm``
+        # carries the centre's shift
+        with torch.cuda.device(windows.device):
+            err = lib.window_taps_launch(
+                kind, int(windows.dim() == 3), windows.data_ptr(),
+                windows.shape[1], rc.data_ptr(), rc.shape[1],
+                rem.data_ptr(), ftot.data_ptr(), n.data_ptr(), len(offs),
+                int(sm), d, windows.shape[0], dst.data_ptr(),
+                stream_of(windows.device))
+        raise_on(lib, "window_taps", err)
+        if counts is not None:
+            counts.kernel += 1
+    run_plan(tap_plan(offsets, d), out, smax, one)
 
 
 def launch_v1(kind: int, windows, rc, rem, ftot, n, offsets, smax: int,
-              out) -> None:
+              out, counts=None) -> None:
     """Launch the v1 kernel (``window_taps_v1_launch``: one block per
-    window, any offsets) as :func:`launch` does, with no count."""
+    window, any offsets) as :func:`launch` does."""
     lib = _library()
-    offs = device_offsets(tuple(int(o) for o in offsets), windows.device)
-    with torch.cuda.device(windows.device):
-        err = lib.window_taps_v1_launch(
-            kind, int(windows.dim() == 3), windows.data_ptr(),
-            windows.shape[1], rc.data_ptr(), rc.shape[1], rem.data_ptr(),
-            ftot.data_ptr(), n.data_ptr(), offs.data_ptr(), offs.shape[0],
-            int(smax), windows.shape[0], out.data_ptr(),
-            stream_of(windows.device))
-    raise_on(lib, "window_taps", err)
+
+    def one(group, sm, dst):
+        offs = device_offsets(group, windows.device)
+        with torch.cuda.device(windows.device):
+            err = lib.window_taps_v1_launch(
+                kind, int(windows.dim() == 3), windows.data_ptr(),
+                windows.shape[1], rc.data_ptr(), rc.shape[1],
+                rem.data_ptr(), ftot.data_ptr(), n.data_ptr(),
+                offs.data_ptr(), offs.shape[0], int(sm), windows.shape[0],
+                dst.data_ptr(), stream_of(windows.device))
+        raise_on(lib, "window_taps", err)
+        if counts is not None:
+            counts.v1 += 1
+    run_plan(tap_plan(tuple(int(o) for o in offsets), None), out, smax, one)
 
 
 def samples_per_thread() -> int:

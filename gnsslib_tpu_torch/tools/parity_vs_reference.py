@@ -924,17 +924,29 @@ def _obs_in(outdir: str) -> dict:
 
 
 def run_mine(workdir: str, ifpath: str, scenario: str,
-             device: str = "cuda") -> tuple:
+             device: str = "cuda", corr=None) -> tuple:
     """The port's half of a scenario: write the configs for ``ifpath``,
     run the port's CLI on ``cli_mine.ini`` (``python -m gnsslib_tpu_torch
     <ini> --quiet --device <device>``, in this process) and read its SBAS
     stream where the scenario has one -> (:func:`parse_obs` of its RINEX,
-    :func:`parse_novatel_sbas` of its stream)."""
+    :func:`parse_novatel_sbas` of its stream).  ``corr`` (CORRN, CORRD,
+    CORRP) replaces the scenario's correlator in the front end's INI."""
     from ..runtime import cli
     knobs = SCENARIOS[scenario]["knobs"]
     write_configs.scenario = scenario
     write_configs(workdir, ifpath, ppm=knobs.get("ppm", 0.0),
                   rtl=knobs.get("rtl", False))
+    if corr is not None:
+        fend = os.path.join(workdir, "fend.ini")
+        with open(fend) as f:
+            text = f.read()
+        for key, value in zip(("CORRN", "CORRD", "CORRP"), corr):
+            text, n = re.subn(rf"^{key}\s*=.*$", f"{key}    ={int(value)}",
+                              text, flags=re.M)
+            if n != 1:
+                raise ValueError(f"{fend}: {n} {key} lines")
+        with open(fend, "w") as f:
+            f.write(text)
     rdr = _SbasTcpReader(SBAS_PORTS["mine"]) if scenario == "sbas" else None
     try:
         rc = cli.main([os.path.join(workdir, "cli_mine.ini"), "--quiet",

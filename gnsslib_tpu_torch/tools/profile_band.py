@@ -3,6 +3,8 @@ source: its build steps and cluster sizes, and variants that each take one
 cost away, at the receiver's shapes.
 
     python -m gnsslib_tpu_torch.tools.profile_band [--iq] [--rounds N]
+    python -m gnsslib_tpu_torch.tools.profile_band --wide [--iq]
+    python -m gnsslib_tpu_torch.tools.profile_band --against OTHER.cu [--iq]
 
 The inputs are those of ``chip_smoke.py`` phase 3 (:func:`inputs`): one
 super-step of 32 channels x 10 windows at 16.368 Msps with
@@ -32,6 +34,27 @@ over copies beyond the L2 cache, so the time is the kernel's own:
     empty      neither: the window's scalars, the reduction of zeros, the
                cluster barriers and the row written
     launch     returns at once: the launch and CTA scheduling floor
+
+``--wide`` times the wide kernel's two designs (more than 25 taps, taps
+looped in groups of 13 inside one launch) at the three wide geometries
+of ``chip_smoke.py`` phase 3 (:data:`WIDE`: CORRN/CORRD 16/2, 20/2, 32/1
+at 16.368 Msps, 33, 41 and 65 taps), each held against the plain version
+first:
+
+    kernel      the source as it is, which at these windows stages the
+                carrier-mixed samples of each CTA's segment once in
+                shared memory, every tap group reading them there
+    recompute   the carrier and the mix recomputed in every tap group, as
+                the narrow kernel's chains compute them: the path the
+                source takes where the staged samples do not fit the
+                card's shared memory (windows past ~51k samples on an
+                H100), forced here at every window
+
+``--against OTHER.cu`` builds another ``band_taps.cu`` (with its
+``launch.cuh`` beside it, e.g. the parent commit's) at 13 taps and runs
+it and this source on phase 3's inputs: whether the two outputs are
+bit-identical, and both times by graph replay in turns (this, other,
+other, this).
 
 The variants of SAME compute K1's function and are held against
 ``band_taps_plain`` (1e-5 of the largest window L1 norm) before they are
@@ -95,6 +118,14 @@ VARIANTS = {
 }
 # the variants that compute K1's function (the others take work away)
 SAME = ("kernel", "step1", "step2", "S1", "S4", "S8", "iq64", "iq128")
+# the wide kernel's designs (--wide), and the wide geometries (CORRN,
+# CORRD, CORRP) phase 3 of chip_smoke.py holds K1 at
+WIDE_VARIANTS = {
+    "kernel": [],
+    "recompute": [("const bool staged = shm + mixed <= room;",
+                   "const bool staged = false;")],
+}
+WIDE = ((16, 2, 6), (20, 2, 6), (32, 1, 6))
 # the tap counts of a source's entry points, and of a variant's (13 only)
 TAPS_ALL = ("#define TAP_CASES(X) X(1) X(3) X(5) X(7) X(9) X(11) X(13) "
             "X(15) X(17) \\\n                     X(19) X(21) X(23) X(25)")
@@ -178,7 +209,8 @@ def variant_source(name: str) -> str:
     variant ``name``'s replacements, built for 13 taps only; raises if a
     replaced line is not in the source."""
     return apply_variant(cuda_build.source("band_taps"),
-                         VARIANTS[name] + [(TAPS_ALL, TAPS13)],
+                         {**VARIANTS, **WIDE_VARIANTS}[name]
+                         + [(TAPS_ALL, TAPS13)],
                          f"profile_band: variant {name}")
 
 
@@ -217,10 +249,13 @@ def compile_sources(sources: dict, out, tool: str) -> dict:
 _LIBS = {}          # variant -> (loaded library, ptxas output), per process
 
 
-def build(names) -> dict:
+def build(names, sources=None) -> dict:
     """Build every variant of ``names`` not built yet (one nvcc each, in
-    parallel) and load it: {name: ctypes library}."""
-    todo = {n: variant_source(n) for n in names if n not in _LIBS}
+    parallel) and load it: {name: ctypes library}.  ``sources`` gives the
+    source text of names that are not variants of this source."""
+    sources = sources or {}
+    todo = {n: sources[n] if n in sources else variant_source(n)
+            for n in names if n not in _LIBS}
     for name, (lib, text) in compile_sources(todo, OUT,
                                              "profile_band").items():
         lib.band_taps_launch.argtypes = bt.LAUNCH_ARGTYPES
@@ -324,6 +359,90 @@ def profile(iq: bool = False, rounds: int = 5, log=print) -> dict:
     return res
 
 
+def profile_wide(iq: bool = False, rounds: int = 5, log=print) -> dict:
+    """Build the wide kernel's designs (:data:`WIDE_VARIANTS`), hold each
+    against the plain version at every geometry of :data:`WIDE`, and time
+    them by graph replay in turns (kernel, recompute, recompute, kernel;
+    the mean of each pair): {(corr, variant): ms per launch}."""
+    dev = torch.device("cuda")
+    t0 = time.time()
+    libs = build(WIDE_VARIANTS)
+    log(f"# {torch.cuda.get_device_name(dev)}: K1's wide designs built in "
+        f"{time.time() - t0:.1f} s; {'iq' if iq else 'real'} input; device "
+        f"ms per launch (CUDA graph, inputs beyond L2)")
+    res = {}
+    for corr in WIDE:
+        trk, host, args = inputs(dev, iq, corr=corr)
+        nbytes = sum(a.numel() * a.element_size() for a in args)
+        copies = [[a.clone() for a in args]
+                  for _ in range(copies_for(nbytes))]
+        zp, _ = bt.band_taps_plain(*args, trk.offsets, trk.smax)
+        out = torch.empty_like(zp)
+        ok = torch.ones(1, dtype=torch.int32, device=dev)
+        tol = tolerance(host, trk.nwin)
+        fns = {}
+        for name in WIDE_VARIANTS:
+            fns[name] = launcher(libs[name], trk.offsets, trk.smax, out, ok)
+            fns[name](args)
+            err = float((out - zp).abs().max())
+            if not (err <= tol and int(ok[0]) == 1):
+                raise AssertionError(f"profile_band: {name} at {corr} vs "
+                                     f"plain: max_abs_err {err} > {tol}")
+        times = {name: [] for name in WIDE_VARIANTS}
+        for name in (*WIDE_VARIANTS, *reversed(WIDE_VARIANTS)):
+            times[name].append(graph_ms(
+                lambda k, fn=fns[name]: fn(copies[k]), len(copies),
+                rounds=rounds))
+        for name in WIDE_VARIANTS:
+            res[corr, name] = float(np.mean(times[name]))
+        log(f"corr {corr} ({len(trk.offsets)} taps): " + ", ".join(
+            f"{n} {res[corr, n]:.4f} ms" for n in WIDE_VARIANTS)
+            + f" (each within {tol:.4g} of the plain version)")
+    return res
+
+
+def profile_against(other: str, iq: bool = False, rounds: int = 5,
+                    log=print) -> dict:
+    """This source and ``other`` (a band_taps.cu path, its launch.cuh
+    beside it) at 13 taps on phase 3's inputs: {"identical": the two
+    outputs bit for bit, "this": ms, "other": ms}, timed in turns."""
+    import pathlib
+    path = pathlib.Path(other)
+    src = re.sub(r'^#include "([\w.]+\.cuh)"$',
+                 lambda m: (path.parent / m[1]).read_text(),
+                 path.read_text(), flags=re.M)
+    libs = build(["kernel", "against"], {"against": apply_variant(
+        src, [(TAPS_ALL, TAPS13)], "profile_band: --against")})
+    dev = torch.device("cuda")
+    trk, host, args = inputs(dev, iq)
+    nbytes = sum(a.numel() * a.element_size() for a in args)
+    copies = [[a.clone() for a in args] for _ in range(copies_for(nbytes))]
+    zs = {}
+    for name in ("kernel", "against"):
+        out = torch.empty((len(host[2]), 2 * len(trk.offsets)),
+                          dtype=torch.float32, device=dev)
+        ok = torch.ones(1, dtype=torch.int32, device=dev)
+        launcher(libs[name], trk.offsets, trk.smax, out, ok)(args)
+        zs[name] = (out, ok)
+    torch.cuda.synchronize()
+    same = all(torch.equal(zs["kernel"][i].view(torch.int32),
+                           zs["against"][i].view(torch.int32))
+               for i in range(2))
+    times = {"kernel": [], "against": []}
+    for name in ("kernel", "against", "against", "kernel"):
+        fn = launcher(libs[name], trk.offsets, trk.smax, *zs[name])
+        times[name].append(graph_ms(lambda k: fn(copies[k]), len(copies),
+                                    rounds=rounds))
+    res = {"identical": same, "this": float(np.mean(times["kernel"])),
+           "other": float(np.mean(times["against"]))}
+    log(f"# {torch.cuda.get_device_name(dev)}: K1 at 13 taps "
+        f"({'iq' if iq else 'real'}), this source against {other}: outputs "
+        f"bit-identical: {'yes' if same else 'NO'}; this {res['this']:.4f}"
+        f" ms, other {res['other']:.4f} ms per launch (CUDA graph, inputs "
+        f"beyond L2, in turns)")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="gnsslib_tpu_torch.tools.profile_band",
@@ -332,11 +451,21 @@ def main(argv=None) -> int:
                     help="I/Q samples instead of real ones")
     ap.add_argument("--rounds", type=int, default=5,
                     help="graph replays per variant (default 5)")
+    ap.add_argument("--wide", action="store_true",
+                    help="time the wide kernel's two designs instead")
+    ap.add_argument("--against", metavar="OTHER_CU",
+                    help="compare another band_taps.cu at 13 taps instead")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_band: no CUDA card", file=sys.stderr)
         return 2
-    profile(a.iq, a.rounds)
+    if a.against:
+        return 0 if profile_against(a.against, a.iq, a.rounds)[
+            "identical"] else 1
+    if a.wide:
+        profile_wide(a.iq, a.rounds)
+    else:
+        profile(a.iq, a.rounds)
     return 0
 
 

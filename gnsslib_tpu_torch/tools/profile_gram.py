@@ -128,14 +128,14 @@ VARIANTS = {
 SAME = ("v1", "mma", "async", "kernel", "S1", "S2", "S4", "B3")
 
 
-def inputs(device, iq: bool, seed: int = 23):
-    """Phase 3's K2 inputs: K3's windows (``profile_window.inputs``)
-    fetched into masked (B, 128, 128) bf16 rows by the fused backend's
-    fetch.  Returns (trk, the largest window L1 norm, the valid lengths
-    as numpy int32, [win_i, win_q or None, rc, rem, ftot] on
+def inputs(device, iq: bool, seed: int = 23, corr=(6, 3, 6)):
+    """Phase 3's K2 inputs: K3's windows (``profile_window.inputs``, at
+    ``corr``) fetched into masked (B, 128, 128) bf16 rows by the fused
+    backend's fetch.  Returns (trk, the largest window L1 norm, the valid
+    lengths as numpy int32, [win_i, win_q or None, rc, rem, ftot] on
     ``device``)."""
     trk, l1, (win, rc, rem, ftot, n), _ = window_inputs(device, "f32", iq,
-                                                        seed=seed)
+                                                        seed=seed, corr=corr)
     fast = FastTracker(trk)
     w = torch.from_numpy(win.reshape((-1,) + win.shape[2:])).to(device)
     starts = torch.arange(len(n), dtype=torch.int32,

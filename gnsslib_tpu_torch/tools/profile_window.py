@@ -147,12 +147,13 @@ SAME = ("v1", "reuse", "async", "cluster", "kernel", "S1", "S2", "S4",
         "l1win", "J17", "J65", "B4", "i2f", "pack")
 
 
-def inputs(device, kind: str, iq: bool, seed: int = 17):
+def inputs(device, kind: str, iq: bool, seed: int = 17, corr=(6, 3, 6)):
     """Phase 3's fetched windows for ``kind`` ("bf16": K3, "f32": K4/K5):
     (trk, the largest window L1 norm over its valid samples, host arrays
     (windows, rc, rem, ftot, n) as float32/int8/int32 numpy, the same as
-    tensors on ``device`` in the kind's types)."""
-    trk = Tracker(TrackConfig(6, 3, 6), [1], [CodeType.L1CA], F_SF, F_IF,
+    tensors on ``device`` in the kind's types).  ``corr`` (CORRN, CORRD,
+    CORRP) gives another tap geometry's windows and rows."""
+    trk = Tracker(TrackConfig(*corr), [1], [CodeType.L1CA], F_SF, F_IF,
                   DType.IQ if iq else DType.REAL, device=device)
     rng = np.random.default_rng(seed + iq)
     nn = trk.n_nom

@@ -28,7 +28,11 @@ Prints one JSON line: ``base_cps_per_dev``, ``scaled_cps_per_dev``
 K1 launches of each run's process 0, and its split of the timed wall
 (base, scaled): ``compute_s``, the shards' blocks (on a card only their
 launch), and ``collect_s``, the copies out and the all-gathers (with the
-wait for the other processes in them).
+wait for the other processes in them); and ``timeline``, every process's
+blocks on one wall clock (base, scaled): per process, per block, the
+seconds from the run's first block start to the block's start, the end
+of its compute and the end of its collect (:func:`timeline_text` prints
+it as a table).
 """
 from __future__ import annotations
 
@@ -91,11 +95,14 @@ def worker(pid: int, nproc: int, coord: str | None, devices: int,
     dd.barrier()
     t0 = time.time()
     compute = 0.0       # the shards' block (on a card: its launch)
+    marks = []          # (start, compute end, collect end) per block
     for _ in range(blocks):
         t1 = time.time()
         _, h = sfast.run_block_start(st, block, nsteps)
-        compute += time.time() - t1
+        t2 = time.time()
+        compute += t2 - t1
         sfast.run_block_collect(h)      # the copy out and the all-gather
+        marks.append((t1, t2, time.time()))
     wall = time.time() - t0
     k1 = kernels.since(before).get("band_taps", {})
     cps = C * nsteps * nsamp * blocks / wall / ndev
@@ -105,6 +112,7 @@ def worker(pid: int, nproc: int, coord: str | None, devices: int,
                           "collect_s": wall - compute, "corr": fast.corr,
                           "k1_launches": k1.get("kernel", 0),
                           "k1_plain": k1.get("plain", 0)}), flush=True)
+    print("MARKS " + json.dumps({"pid": pid, "marks": marks}), flush=True)
     dd.shutdown()
     return 0
 
@@ -133,11 +141,33 @@ def launch(nproc: int, devices: int, channels: int, nsteps: int,
     bad = [(p, rc) for p, (rc, _) in enumerate(res) if rc != 0]
     if bad:
         raise RuntimeError(f"workers failed (process, exit code): {bad}")
+    found, marks = None, {}
     for _, out in res:
         for ln in out.splitlines():
-            if ln.startswith("{"):
-                return json.loads(ln)
-    raise RuntimeError(f"no result line: {res}")
+            if ln.startswith("{") and found is None:
+                found = json.loads(ln)
+            elif ln.startswith("MARKS "):
+                m = json.loads(ln[len("MARKS "):])
+                marks[m["pid"]] = m["marks"]
+    if found is None:
+        raise RuntimeError(f"no result line: {res}")
+    t0 = min(b[0] for m in marks.values() for b in m)
+    found["timeline"] = [[[round(t - t0, 4) for t in b] for b in marks[p]]
+                         for p in sorted(marks)]
+    return found
+
+
+def timeline_text(timeline: list) -> str:
+    """One run's ``timeline`` as a table: per block, each process's
+    compute and collect (wait included) on the common clock (s)."""
+    rows = [f"{'block':>5} " + " ".join(
+        f"{f'p{p} compute':>17} {f'p{p} collect':>17}"
+        for p in range(len(timeline)))]
+    for k in range(len(timeline[0])):
+        rows.append(f"{k:5d} " + " ".join(
+            f"{b[k][0]:7.3f}-{b[k][1]:7.3f}   {b[k][1]:7.3f}-{b[k][2]:7.3f}  "
+            for b in timeline))
+    return "\n".join(rows)
 
 
 def layout(nproc: int, devices: int, device: str) -> str:
@@ -172,8 +202,12 @@ def main(argv=None) -> int:
     if a.worker:
         return worker(a.pid, a.nproc, a.coord, a.devices, a.channels,
                       a.nsteps, a.blocks, a.device)
-    print(json.dumps(run(a.nproc, a.devices, a.channels, a.nsteps,
-                         a.blocks, device=a.device)), flush=True)
+    res = run(a.nproc, a.devices, a.channels, a.nsteps, a.blocks,
+              device=a.device)
+    print(json.dumps(res), flush=True)
+    for name, tl in zip(("base", "scaled"), res["timeline"]):
+        print(f"# {name} timeline (s from its first block's start):\n"
+              + timeline_text(tl), file=sys.stderr, flush=True)
     return 0
 
 
@@ -196,6 +230,7 @@ def run(nproc: int = 2, devices: int = 2, channels: int = 8,
         "wall": [base["wall"], scaled["wall"]],
         "compute_s": [base["compute_s"], scaled["compute_s"]],
         "collect_s": [base["collect_s"], scaled["collect_s"]],
+        "timeline": [base["timeline"], scaled["timeline"]],
     }
 
 

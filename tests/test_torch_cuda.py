@@ -277,7 +277,7 @@ def test_band_taps_kernel_rejects_bad_inputs(dev):
     with pytest.raises(ValueError, match="rem is on cpu"):
         bt.band_taps(*mixed, offsets, trk.smax)
     with pytest.raises(ValueError, match="odd tap count"):
-        bt.band_taps(*args, list(range(-13, 14)), 13)
+        bt.band_taps(*args, list(range(-13, 13)), 13)
 
 
 def _window_inputs(trk, B, iq, seed, dev):
@@ -691,7 +691,7 @@ def test_fetch_backends_reject_bad_inputs(dev):
     with pytest.raises(ValueError, match="odd tap count"):
         gt.gram_taps(torch.zeros((8, 2, 128), dtype=torch.bfloat16,
                                  device=dev), None, rc, rem, ftot,
-                     list(range(-13, 14)), 13)
+                     list(range(-13, 13)), 13)
 
 
 @pytest.mark.cuda
@@ -1123,3 +1123,226 @@ def test_block_program_pipelined_edits_match_eager(dev, name):
         assert _bits_equal(hg[0], he[0]) and _bits_equal(hg[1], he[1])
     progs = list(eng.programs.values())
     assert len(progs) == 1 and progs[0].replays == 4
+
+
+# --- wide geometries: more taps than the sources instantiate (T > 25) -- #
+WIDE = [(16, 2), (20, 2), (32, 1)]          # 33, 41 and 65 taps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iq", [False, True])
+@pytest.mark.parametrize("corrn,corrd", WIDE)
+def test_band_taps_wide_kernel_matches_plain(dev, corrn, corrd, iq):
+    """K1 at 33, 41 and 65 taps: one launch of the wide cluster kernel
+    (COUNTS.kernel), within phase 3's tolerance of the plain version,
+    inactive windows zero, two launches bit-identical, and a launch
+    replayed from a CUDA graph equal to the eager one."""
+    smax = corrn * corrd
+    offsets = tap_offsets(corrn, corrd)
+    host, args = _band_inputs(320, iq, 500 + corrn + iq, dev, smax)
+    bt.COUNTS.reset()
+    zk, okk = bt.band_taps(*args, offsets, smax)
+    z2, _ = bt.band_taps(*args, offsets, smax)
+    zp, okp = bt.band_taps_plain(*args, offsets, smax)
+    torch.cuda.synchronize()
+    assert (bt.COUNTS.kernel, bt.COUNTS.v1, bt.COUNTS.plain) == (2, 0, 0)
+    assert bool(okk) and bool(okp)
+    assert float((zk - zp).abs().max()) <= profile_band.tolerance(host,
+                                                                  16376)
+    assert torch.all(zk[~args[6]] == 0)
+    assert torch.equal(zk.view(torch.int32), z2.view(torch.int32))
+    out = torch.empty_like(zk)
+    ok = torch.ones(1, dtype=torch.int32, device=dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):              # warm-up before capture
+        bt.launch(*args, offsets, smax, out, ok)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        bt.launch(*args, offsets, smax, out, ok)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), zk.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iq", [False, True])
+def test_band_taps_wide_kernel_ragged_and_out_of_block(dev, iq):
+    """K1 at 33 taps on ragged valid lengths (n <= 0, below a segment,
+    past nwin, a window ending at the block's last sample), then with an
+    active window off the block: zeros there and the flag cleared."""
+    smax, nwin = 32, 16376
+    offsets = tap_offsets(16, 2)
+    host, args = _band_inputs(64, iq, 531 + iq, dev, smax)
+    n = np.resize(np.asarray([1, 2, 65, 66, 8249, 8250, 8251, 0, -5, nwin,
+                              nwin + 40, 12345, 7], np.int32), 64)
+    wstart = host[2].copy()
+    wstart[9] = host[0].shape[0] - nwin
+    args[2] = torch.from_numpy(wstart).to(dev)
+    args[3] = torch.from_numpy(n).to(dev)
+    args[6] = torch.ones(64, dtype=torch.bool, device=dev)
+    zk, okk = bt.band_taps(*args, offsets, smax)
+    zp, okp = bt.band_taps_plain(*args, offsets, smax)
+    torch.cuda.synchronize()
+    assert bool(okk) and bool(okp)
+    tol = profile_band.tolerance((host[0], None, wstart, n), nwin)
+    assert float((zk - zp).abs().max()) <= tol
+    assert torch.all(zk[torch.from_numpy(n <= 0).to(dev)] == 0)
+    args[2] = args[2].clone()
+    args[2][9] = host[0].shape[0] - 100            # n = nwin: runs off
+    z, ok = bt.band_taps(*args, offsets, smax)
+    assert not bool(ok) and torch.all(z[9] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iq", [False, True])
+def test_band_taps_wide_v1_matches_plain(dev, iq):
+    """33 offsets that are no progression launch the v1 wide kernel
+    (COUNTS.v1, its taps in groups of 13) within the plain version's
+    tolerance; the wide cluster kernel and v1 agree on a progression."""
+    smax = 40
+    offsets = tuple(int(o) for o in tap_offsets(16, 2))[:-1] + (37,)
+    host, args = _band_inputs(320, iq, 541 + iq, dev, smax)
+    bt.COUNTS.reset()
+    zk, okk = bt.band_taps(*args, offsets, smax)
+    zp, _ = bt.band_taps_plain(*args, offsets, smax)
+    torch.cuda.synchronize()
+    assert (bt.COUNTS.kernel, bt.COUNTS.v1, bt.COUNTS.plain) == (0, 1, 0)
+    tol = profile_band.tolerance(host, 16376)
+    assert bool(okk) and float((zk - zp).abs().max()) <= tol
+    prog = tap_offsets(16, 2)
+    out = torch.empty_like(zk)
+    ok = torch.ones(1, dtype=torch.int32, device=dev)
+    bt.launch_v1(*args, prog, smax, out, ok)
+    zc, _ = bt.band_taps(*args, prog, smax)
+    torch.cuda.synchronize()
+    assert float((out - zc).abs().max()) <= 2 * tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iq", [False, True])
+@pytest.mark.parametrize("corrn,corrd", [(16, 2), (32, 1)])
+def test_band_taps_wide_kernel_long_windows(dev, corrn, corrd, iq):
+    """K1 past 25 taps at windows whose staged mixed samples do not fit
+    the card's shared memory (1 ms at 65.472 Msps: ~9 bytes per segment
+    sample, ~295 KB per CTA, against ~227 KB on an H100): the wide
+    kernel recomputes the mix in every tap group, still one launch,
+    within the plain version's tolerance, as the 13-tap kernel at the
+    same windows."""
+    smax, nn, nwin = corrn * corrd, 65472, 65480
+    host, args = _band_inputs(32, iq, 601 + corrn + iq, dev, smax, nn=nn,
+                              nwin=nwin)
+    tol = profile_band.tolerance(host, nwin)
+    for offsets in (tap_offsets(corrn, corrd), tap_offsets(6, corrd)):
+        bt.COUNTS.reset()
+        zk, okk = bt.band_taps(*args, offsets, smax)
+        zp, okp = bt.band_taps_plain(*args, offsets, smax)
+        torch.cuda.synchronize()
+        assert (bt.COUNTS.kernel, bt.COUNTS.v1) == (1, 0)
+        assert bool(okk) and bool(okp)
+        assert float((zk - zp).abs().max()) <= tol
+        assert torch.all(zk[~args[6]] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iq", [False, True])
+def test_band_taps_wide_designs_match_plain(dev, iq):
+    """tools/profile_band.py --wide's other design (the carrier recomputed
+    in every tap group) against the plain version at 33 taps."""
+    smax = 32
+    offsets = tap_offsets(16, 2)
+    host, args = _band_inputs(320, iq, 551 + iq, dev, smax)
+    zp, _ = bt.band_taps_plain(*args, offsets, smax)
+    out = torch.empty_like(zp)
+    ok = torch.ones(1, dtype=torch.int32, device=dev)
+    lib = profile_band.build(list(profile_band.WIDE_VARIANTS))["recompute"]
+    profile_band.launcher(lib, offsets, smax, out, ok)(args)
+    torch.cuda.synchronize()
+    assert int(ok[0]) == 1
+    assert float((out - zp).abs().max()) <= profile_band.tolerance(host,
+                                                                   16376)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iq", [False, True])
+@pytest.mark.parametrize("kind", ["bf16", "f32"])
+@pytest.mark.parametrize("corrn,corrd", WIDE)
+def test_window_taps_wide_match_plain(dev, kind, corrn, corrd, iq):
+    """K3 and the f32 instantiation at 33, 41 and 65 taps: one cluster
+    launch per group of kernels.tap_plan (each about its centre lag), no
+    v1, within the plain version's tolerance, repeats bit-identical."""
+    smax = corrn * corrd
+    offsets = tap_offsets(corrn, corrd)
+    win, n, args = _win_inputs(kind, 64, iq, 560 + corrn + iq, dev, smax)
+    zk, zp, counts = _win_run(kind, args, offsets, smax)
+    assert counts == (3, 0, 0)
+    assert float((zk - zp).abs().max()) <= _win_tol(kind, win, n)
+    fn, _ = WINDOW_WRAPPERS[kind]
+    z2 = fn(*args, offsets, smax)
+    torch.cuda.synchronize()
+    assert torch.equal(zk.view(torch.int32), z2.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "f32"])
+def test_window_taps_wide_v1_matches_plain(dev, kind):
+    """33 offsets that are no progression: the v1 kernel once per run of
+    offsets (COUNTS.v1 3), within the plain version's tolerance."""
+    smax = 40
+    offsets = tuple(int(o) for o in tap_offsets(16, 2))[:-1] + (37,)
+    win, n, args = _win_inputs(kind, 64, False, 571, dev, smax)
+    zk, zp, counts = _win_run(kind, args, offsets, smax)
+    assert counts == (0, 3, 0)
+    assert float((zk - zp).abs().max()) <= _win_tol(kind, win, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iq", [False, True])
+@pytest.mark.parametrize("corrn,corrd", WIDE)
+def test_gram_taps_wide_matches_plain(dev, corrn, corrd, iq):
+    """K2 at 33, 41 and 65 taps: the banded-Gram kernel (smax 32) or v1
+    (smax 40) once per run of offsets, within the plain version's
+    tolerance, and a wrapper call replayed from a CUDA graph equal to the
+    eager one."""
+    offsets = tuple(int(o) for o in tap_offsets(corrn, corrd))
+    smax = corrn * corrd
+    tol, args = _gram_inputs(64, 128, iq, 580 + corrn + iq, dev, smax)
+    zk, zp, counts = _gram_run(args, offsets, smax)
+    assert counts == ((0, 3, 0) if smax > gt.MAX_SMAX else (3, 0, 0))
+    assert float((zk - zp).abs().max()) <= tol
+    out = torch.empty_like(zk)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):              # warm-up before capture
+        gt.launch(*args, offsets, smax, out)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        gt.launch(*args, offsets, smax, out)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), zk.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_ablation_taps_kernel_keeps_its_cap(dev):
+    """K6's kernel takes at most 25 taps (its tool runs 13): 27 raise on
+    the card before any launch; the plain version takes them."""
+    rng = np.random.default_rng(591)
+    B, nwin, smax = 4, 2000, 27
+    offsets = tap_offsets(13, 2)
+    host = (rng.integers(-128, 128, (B, nwin)).astype(np.float32),
+            rng.choice(np.asarray([-1.0, 1.0], np.float32),
+                       (B, nwin + 2 * smax)),
+            rng.uniform(0, 1, B).astype(np.float32),
+            np.full(B, 0.25, np.float32), np.full(B, nwin, np.float32))
+    ab.COUNTS["full"].reset()
+    with pytest.raises(ValueError, match="at most 25 taps"):
+        ab.ablation_taps(*[torch.from_numpy(a).to(dev) for a in host],
+                         offsets, smax)
+    z = ab.ablation_taps(*[torch.from_numpy(a) for a in host], offsets, smax)
+    assert z.shape == (B, 54)
+    assert (ab.COUNTS["full"].kernel, ab.COUNTS["full"].v1) == (0, 0)
