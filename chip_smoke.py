@@ -133,7 +133,8 @@ Phases (each prints its own lines; any failure raises and exits nonzero):
    the pipelined receiver without acquisition and pull-in pipelining;
    run at 400 steps, not 2000, to leave the script time for phase 17);
    (d)
-   ``profile_receiver``'s stage table; (f) ``receiver_256ch``: 96 of
+   ``profile_receiver``'s span table, with the steady blocks' and the
+   searches' device times; (f) ``receiver_256ch``: 96 of
    256 channels locked, the graph pool and peak memory; (g)
    ``acq_throughput``: 22,720 bins, PRNs 1-8 acquired; (h)
    ``e2e_receiver_check.run()`` to ``E2E PASS``; (i) ``measure_round``
@@ -3080,18 +3081,24 @@ def phase_tools(dev) -> tuple:
     log(f"[14c] it equals the sequential run bit for bit: "
         f"{len(seq['events'])} events and {len(seq['recorded'])} epochs")
 
-    # (d) the receiver's stage table
-    (s, T, total), k1 = _k1_run("14d", dev, profile_receiver.profile, True,
-                                400, device=dev)
+    # (d) the receiver's span table
+    (s, total), k1 = _k1_run("14d", dev, profile_receiver.profile, True,
+                             400, device=dev)
     k1_main += k1
     log(f"[14d] profile_receiver pipelined/400: {total:.2f} s for "
         f"{s['seconds']:.1f} s of signal ({s['msps']:.1f} Msamples/s), "
         f"two passes' K1 launches {k1}; stage walls "
         + ", ".join(f"{k} {v:.3f}" for k, v in s["stage_wall"].items()))
-    for ln in profile_receiver.table(T):
+    for ln in profile_receiver.table(s["spans"]):
         log(f"[14d] {ln}")
+    steady = s["spans"]["stages"].get("steady", {})
+    if not (steady.get("dev.track", {}).get("s", 0) > 0
+            and any(r.get("dev.acq", {}).get("n", 0)
+                    for r in s["spans"]["stages"].values())):
+        raise AssertionError("[14d] no device time of the steady blocks "
+                             "or of the searches in the span table")
     log("[14d] (*.dispatch is launch time: a replayed graph returns at "
-        "once; the device time lands in *.collect)")
+        "once; the device's work shows in *.wait and dev.*)")
 
     # (f) 256 channels in one receiver
     n0 = CAPTURES.captures

@@ -17,6 +17,9 @@ package so each counterpart is easy to find:
 * ``acquire``  — batched FFT acquisition search.
 * ``io``       — the file front end and the device-resident sample cache.
 * ``runtime``  — configuration, the file-replay ``Receiver`` and the CLI.
+* ``spans``    — the receiver's host spans per stage and the device times
+                 of its block programs and searches by CUDA events
+                 (``Receiver.spans``).
 * ``tools``    — ``tools.profile_fast``, the correlator backend profiler.
 
 The host-side layers without any array framework are the port's own

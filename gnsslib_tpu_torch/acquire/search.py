@@ -25,6 +25,7 @@ from ..constants import ACQHBAND, ACQINTG_L1CA, ACQSTEP, ACQTH
 from ..ops import fftcorr, stats
 from ..ops.carrier import TWO_PI
 from ..ops.nco import frac
+from ..spans import NULL, DeviceTimer, device_seconds, timed
 from ..track.loop import resolve_device
 
 F32 = torch.float32
@@ -65,7 +66,12 @@ class Acquirer:
     rounds, peak ratio > ACQTH (sdrinit.c:385-394, 623-653), and the JAX
     package's automatic coarse grid (>= 4 cells per chip).  ``confirm``
     (ACQCONFIRM) also requires the even- and odd-round halves to agree on
-    the peak (``confirm_impl``), the JAX package's false-lock guard."""
+    the peak (``confirm_impl``), the JAX package's false-lock guard.
+
+    ``spans``: the span table of the receiver that runs the search (it
+    sets it; :data:`~..spans.NULL` elsewhere)."""
+
+    spans = NULL
 
     def __init__(self, prns, ctypes, f_sf: float, f_if: float, dtype: int,
                  foffsets=None, *, device, intg: int = ACQINTG_L1CA,
@@ -309,7 +315,9 @@ class Acquirer:
         kept so both packages search the same channel sets); the others
         come back unacquired.  ``diag`` searches every channel (``idx`` is
         ignored) and keeps the power surface on the device in the handle
-        (``AcqResult.P``)."""
+        (``AcqResult.P``).  On a card the handle carries a pair of CUDA
+        events around the search's launches (:func:`~..spans.timed`)."""
+        timer = DeviceTimer.start(self.device)
         consts = self._consts
         if idx is not None and len(idx) < self.C and not diag:
             bucket = 4
@@ -328,13 +336,20 @@ class Acquirer:
             idx = None
         rounds = self._rounds_from_flat(block)
         P, *vecs = self._search_rounds(rounds, consts)
-        return (P if diag else None, *vecs, idx)
+        return timed((P if diag else None, *vecs, idx), timer)
 
     def search_dev_collect(self, handle) -> AcqResult:
         """Copy a search_dev_start handle's decision vectors to the host
-        -> AcqResult (with the handle's device surface as ``P``)."""
+        (span ``acq.wait``) -> AcqResult (with the handle's device surface
+        as ``P``); on a card the search's device time is added to the span
+        table as ``dev.acq``."""
         P, *vecs, idx = handle
-        codei, freqi, cn0, peakr, confirmed = [v.cpu().numpy() for v in vecs]
+        with self.spans("acq.wait"):
+            codei, freqi, cn0, peakr, confirmed = [v.cpu().numpy()
+                                                   for v in vecs]
+        dt = device_seconds(handle)
+        if dt is not None:
+            self.spans.add("dev.acq", None, dt)
         if idx is not None:
             n = len(idx)
             full = [np.zeros(self.C, a.dtype) for a in

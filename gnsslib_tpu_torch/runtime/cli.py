@@ -27,7 +27,9 @@ monitor; ``--watch`` draws the terminal dashboard, ``--watch-html PATH``
 rewrites a self-refreshing HTML page (and implies SPEC), both at the
 SPEC_MS cadence of stream time; ``--profile DIR`` writes a
 ``torch.profiler`` trace of the run (CPU and CUDA activities) into DIR
-for Chrome or TensorBoard.
+for Chrome or TensorBoard, the receiver's host spans in it as ``gnss.*``
+ranges.  The end-of-run line adds the steady stage's host spans, ms per
+block (:func:`..spans.split_line`).
 
 ``--device cuda`` (the default) requires a CUDA card and never falls back
 to the CPU.  ``--devices N`` (N > 1) shards the channels over N devices
@@ -52,6 +54,7 @@ import torch
 from ..constants import FrontendType as FT
 from ..io.frontend import FileFrontend
 from ..obs.spp import ecef2llh
+from ..spans import split_line
 from .config import LIVE_FENDS, load_ini
 from .receiver import build_receiver
 
@@ -394,6 +397,7 @@ def main(argv=None) -> int:
               f"steady {sw['steady']:.1f} s; locked PRNs "
               f"{stats['locked']}, decoded {stats['decoded']}, "
               f"{stats['epochs']} obs epochs, {stats['ephs']} eph records")
+        print(f"host spans: {split_line(stats['spans'], 'steady')}")
         if live:
             print(f"live: largest lag behind the producer "
                   f"{stats['lag']:.3f} s")

@@ -97,6 +97,7 @@ from ..diag.monitor import SpectrumMonitor
 from ..io.devcache import block_cache
 from ..ops.nco import NSPAN
 from ..sat import satno, satno2id
+from ..spans import SpanTable, merge
 from ..track.fast import FastTracker
 from ..track.loop import Tracker
 from ..track.state import loop_interval, state_from_numpy, state_to_numpy
@@ -469,11 +470,17 @@ class Receiver:
         self._events = []
         # wall-clock milestones since construction ("precompiled",
         # "first_block", "first_lock", "first_sync", "steady",
-        # "first_epoch"), and wall seconds spent in step_block per phase:
-        # "acquire" (no channel locked), "pullin" (per-period scan),
-        # "steady" (FastTracker)
+        # "first_epoch"); the host spans of step_block per stage and the
+        # build's split (..spans), which the engines time their waits
+        # and device work into; and wall seconds spent in step_block per
+        # phase, the step_block spans' totals: "acquire" (no channel
+        # locked), "pullin" (per-period scan), "steady" (FastTracker)
         self.timeline = {"t0": time.time()}
-        self.stage_wall = {"acquire": 0.0, "pullin": 0.0, "steady": 0.0}
+        self.spans = SpanTable()
+        for eng in (self.acq, self.trk, self.fast):
+            if eng is not None:
+                eng.spans = self.spans
+        self.stage_wall = self.spans.stage_wall
         # cooperative stop (the reference's keythread 'q' -> stopflag,
         # src/sdrmain.c:59-80): run_seconds ends at the next block boundary
         self.stop_requested = False
@@ -496,13 +503,26 @@ class Receiver:
         card one eager warm-up and one CUDA graph capture each, here and
         never per block.  Marks the ``precompiled`` milestone, which
         therefore carries the kernels' load (and any nvcc build) and the
-        captures."""
+        captures.  The span table's ``build`` stage gets the milestone and
+        its split: the programs' warm-ups, captures and instantiations
+        (``build.*``), and the graph pools' bytes (a counter)."""
         shape = (self.span,) + (
             (2,) if self.spec.dtype == DType.IQ else ())
-        self._slow_eng.program(self.nsteps, shape)
+        progs = [self._slow_eng.program(self.nsteps, shape)]
         if self.fast is not None and self.nsteps % self.fast.L == 0:
-            self._fast_eng.program(self.nsteps, shape)
+            progs.append(self._fast_eng.program(self.nsteps, shape))
         self._mark("precompiled")
+        # a mesh engine gives one program per local shard
+        progs = [p for x in progs for p in (x if isinstance(x, list)
+                                             else [x])]
+        sp = self.spans
+        sp.add("build", "build", self.timeline["precompiled"])
+        for key in ("warmup", "capture", "instantiate"):
+            sp.add(f"build.{key}", "build",
+                   sum(getattr(p, key + "_s") for p in progs),
+                   n=len(progs), parent="build")
+        sp.counters["build.programs"] = len(progs)
+        sp.counters["build.pool_bytes"] = sum(p.pool_bytes for p in progs)
 
     def _block(self):
         """The next tracking block: samples [origin, origin + span) on the
@@ -727,56 +747,63 @@ class Receiver:
         collected block, whose first sample is ``origin``, for each
         channel still on the lock it had when the block was dispatched
         (lock generation ``lock0``): a channel that was idle then, or was
-        reset and started again while the block was queued, skips it."""
+        reset and started again while the block was queued, skips it.
+        Spans ``nav`` (all but the history, per channel) and ``obs.hist``
+        (:meth:`ObsHistory.update`)."""
+        nav, hist = self.spans("nav"), self.spans("obs.hist")
         for ch in self.channels:
             i = ch.idx
             if not (ch.locked and lock0[i] == self._lockgen[i]):
                 continue
             was_started = int(cnt0[i])
             steps = out.ip.shape[0]
-            # the dashboards' shadows (host arrays; no device read)
-            ch.dcarr_live = float(out.dcarr[-1, i])
-            ch.prompt_live = float(np.median(np.abs(out.ip[:, i])))
-            evs = ch.nav.update(
-                out.ip[:, i], origin + out.loc[:, i].astype(np.int64),
-                was_started)
-            for e in evs:
-                self._events.append(("nav:" + e.kind, base / self.spec.f_sf,
-                                     ch.cfg.prn, e.sfid, e.tow))
-            if ch.nav.flagsync and not ch.synced:
-                self.state = self.trk.set_bit_sync(self.state, i,
-                                                   ch.nav.sync_offset)
-                ch.synced = True
-                self._mark("first_sync")
-            if ch.cfg.ctype == CodeType.L1SBAS and self.hub.sbas_srv:
-                self._send_sbas(ch, evs)
-            if i in self.loggers:
-                self.loggers[i].log_block(out, i, ch.nav, ch.hist,
-                                          int(cnt0[i]))
-            if self.spec_monitor is not None:
-                # both loop phases update the taps: show the latest update
-                upd = np.nonzero(out.flagloopfilter[:, i] > 0)[0]
-                if len(upd):
-                    k = int(upd[-1])
-                    self.corr_views[ch.cfg.prn] = dict(
-                        offsets=np.asarray(self.trk.offsets),
-                        mag=np.hypot(out.sum_i[k, i], out.sum_q[k, i]),
-                        t=base / self.spec.f_sf)
-            if self.cfg.relock and ch.synced:
-                self._check_lock(ch, out, base)
-            elif self.cfg.relock and not ch.synced:
-                self._check_pullin(ch, base)
+            with nav:
+                # the dashboards' shadows (host arrays; no device read)
+                ch.dcarr_live = float(out.dcarr[-1, i])
+                ch.prompt_live = float(np.median(np.abs(out.ip[:, i])))
+                evs = ch.nav.update(
+                    out.ip[:, i], origin + out.loc[:, i].astype(np.int64),
+                    was_started)
+                for e in evs:
+                    self._events.append(("nav:" + e.kind,
+                                         base / self.spec.f_sf,
+                                         ch.cfg.prn, e.sfid, e.tow))
+                if ch.nav.flagsync and not ch.synced:
+                    self.state = self.trk.set_bit_sync(self.state, i,
+                                                       ch.nav.sync_offset)
+                    ch.synced = True
+                    self._mark("first_sync")
+                if ch.cfg.ctype == CodeType.L1SBAS and self.hub.sbas_srv:
+                    self._send_sbas(ch, evs)
+                if i in self.loggers:
+                    self.loggers[i].log_block(out, i, ch.nav, ch.hist,
+                                              int(cnt0[i]))
+                if self.spec_monitor is not None:
+                    # both loop phases update the taps: show the latest
+                    upd = np.nonzero(out.flagloopfilter[:, i] > 0)[0]
+                    if len(upd):
+                        k = int(upd[-1])
+                        self.corr_views[ch.cfg.prn] = dict(
+                            offsets=np.asarray(self.trk.offsets),
+                            mag=np.hypot(out.sum_i[k, i], out.sum_q[k, i]),
+                            t=base / self.spec.f_sf)
+                if self.cfg.relock and ch.synced:
+                    self._check_lock(ch, out, base)
+                elif self.cfg.relock and not ch.synced:
+                    self._check_pullin(ch, base)
             if ch.nav.flagdec:
-                ch.hist.update(
-                    cnts=was_started + np.arange(steps),
-                    bufflocs=origin + out.loc[:, i].astype(np.int64),
-                    ns=out.n[:, i], dcarr=out.dcarr[:, i],
-                    remcode=out.remcode[:, i], dcode=out.dcode[:, i],
-                    sum_i=out.sum_i[:, i], remcarr=out.remcarr[:, i],
-                    flagloopfilter=out.flagloopfilter[:, i],
-                    firstsftow=ch.nav.firstsftow,
-                    firstsfcnt=ch.nav.firstsfcnt,
-                    flagsyncf=ch.nav.flagsyncf, polarity=ch.nav.polarity)
+                with hist:
+                    ch.hist.update(
+                        cnts=was_started + np.arange(steps),
+                        bufflocs=origin + out.loc[:, i].astype(np.int64),
+                        ns=out.n[:, i], dcarr=out.dcarr[:, i],
+                        remcode=out.remcode[:, i], dcode=out.dcode[:, i],
+                        sum_i=out.sum_i[:, i], remcarr=out.remcarr[:, i],
+                        flagloopfilter=out.flagloopfilter[:, i],
+                        firstsftow=ch.nav.firstsftow,
+                        firstsfcnt=ch.nav.firstsfcnt,
+                        flagsyncf=ch.nav.flagsyncf,
+                        polarity=ch.nav.polarity)
 
     def _send_sbas(self, ch, evs) -> None:
         """A decoded SBAS message as a NovAtel RAWSBASFRAME over TCP
@@ -966,13 +993,25 @@ class Receiver:
     def step_block(self) -> None:
         """Process one block: acquire, track, nav, observable history and
         epochs.  A pipelined block is only queued here; its nav/obs host
-        work runs when it matures (:meth:`flush` finalizes the rest)."""
-        t0 = time.time()
+        work runs when it matures (:meth:`flush` finalizes the rest).  The
+        block's host work is timed in :attr:`spans` under its stage, and
+        its wall in :attr:`stage_wall`."""
+        sp = self.spans
+        with sp.step(self._ndisp + 1):
+            sp.stage = self._step_block()
+
+    def _step_block(self) -> str:
+        """The body of :meth:`step_block`; returns the block's stage:
+        ``acquire`` (no channel locked), ``pullin`` or ``steady``."""
+        sp = self.spans
         advance = self.nsteps * self.nsamp
         if self.spec_monitor is not None:
-            self.spec_monitor.maybe_update(self.base)
-        self._collect_acq()
-        self._try_acquire()
+            with sp("spec"):
+                self.spec_monitor.maybe_update(self.base)
+        with sp("acq.collect"):
+            self._collect_acq()
+        with sp("acq.dispatch"):
+            self._try_acquire()
         if not any(ch.locked for ch in self.channels):
             # no tracking block: the next block moves with the cursor, and
             # the channels the device still tracks (after a loss of lock)
@@ -981,8 +1020,7 @@ class Receiver:
             self.origin += advance
             self._pos[self._live] += advance
             self._mark("first_block")
-            self.stage_wall["acquire"] += time.time() - t0
-            return
+            return "acquire"
         use_fast = (self.fast is not None and self.nsteps % self.fast.L == 0
                     and all(ch.synced for ch in self.channels if ch.locked))
         if use_fast:
@@ -995,9 +1033,11 @@ class Receiver:
             self._flush_blocks()
         cnt0 = self._cnt_host.copy()
         locked0 = np.array([ch.locked for ch in self.channels])
-        block = self._block()
-        self.state, handle = eng.run_block_start(self.state, block,
-                                                 self.nsteps)
+        with sp("cache.get"):
+            block = self._block()
+        with sp("track.dispatch").at(self._ndisp + 1):
+            self.state, handle = eng.run_block_start(self.state, block,
+                                                     self.nsteps)
         self._ndisp += 1
         self._pos[self._live] += advance
         entry = (functools.partial(eng.run_block_collect, handle),
@@ -1013,11 +1053,11 @@ class Receiver:
         self.base += advance
         # the next block starts from the channels' positions as of the
         # block dispatched pipeline_depth blocks back, in every mode
-        self._track_positions(self._ndisp - self.pipeline_depth)
-        self._place()
+        with sp("place"):
+            self._track_positions(self._ndisp - self.pipeline_depth)
+            self._place()
         self._mark("first_block")
-        self.stage_wall["steady" if use_fast else "pullin"] += \
-            time.time() - t0
+        return "steady" if use_fast else "pullin"
 
     def _place(self) -> None:
         """Choose the next block's first sample from the channels'
@@ -1083,13 +1123,21 @@ class Receiver:
     def _collect(self, getter, base: int, origin: int, ndisp: int,
                  gen0: np.ndarray, lock0: np.ndarray,
                  cnt0: np.ndarray) -> None:
-        out = getter()
-        self._pos_pend.append((
-            ndisp, gen0,
-            origin + out.loc[-1].astype(np.int64) + out.n[-1].astype(np.int64),
-            np.median(np.abs(out.ip) + np.abs(out.qp), axis=0)))
-        self._feed_nav_and_obs(out, cnt0, base, origin, lock0)
-        self._emit_epochs()
+        """The host work of the ``ndisp``-th block, under the span
+        ``track.collect``: its telemetry (the engine's ``track.wait`` and
+        ``track.unpack``), the position estimate, nav and observables,
+        and the epochs (``obs.epoch``)."""
+        sp = self.spans
+        with sp("track.collect").at(ndisp):
+            out = getter()
+            self._pos_pend.append((
+                ndisp, gen0,
+                origin + out.loc[-1].astype(np.int64)
+                + out.n[-1].astype(np.int64),
+                np.median(np.abs(out.ip) + np.abs(out.qp), axis=0)))
+            self._feed_nav_and_obs(out, cnt0, base, origin, lock0)
+            with sp("obs.epoch"):
+                self._emit_epochs()
 
     def _flush_blocks(self) -> None:
         pending, self._pending = self._pending, []
@@ -1122,7 +1170,7 @@ class Receiver:
             locked=[ch.cfg.prn for ch in self.channels if ch.locked],
             decoded=[ch.cfg.prn for ch in self.channels if ch.nav.flagdec],
             epochs=self.epochs_written, ephs=self.ephs_written,
-            stage_wall=dict(self.stage_wall),
+            stage_wall=dict(self.stage_wall), spans=self.spans.table(),
         )
 
     def request_stop(self) -> None:
@@ -1314,8 +1362,11 @@ class MultiReceiver:
             r.request_stop()
 
     def _emit(self) -> None:
-        self.hub.emit_epochs(
-            [ci for r in self.rx for ci in r.collect_obs_inputs()])
+        """The merged epochs, timed as the first group's ``obs.epoch``
+        outside its blocks (stage ``other``)."""
+        with self.rx[0].spans("obs.epoch"):
+            self.hub.emit_epochs(
+                [ci for r in self.rx for ci in r.collect_obs_inputs()])
 
     def step_block(self) -> None:
         """One block of every group, then the epochs all of them cover."""
@@ -1332,8 +1383,8 @@ class MultiReceiver:
                     progress=None) -> dict:
         """Step every group until one reaches the end of its stream (whole
         file by default) or a :meth:`request_stop`; returns summary
-        statistics, with ``stage_wall`` summed over the groups and
-        ``groups`` holding each group's."""
+        statistics, with ``stage_wall`` and the span table (``spans``)
+        summed over the groups and ``groups`` holding each group's."""
         t_start = time.time()
         ends = [r.end_sample(seconds) for r in self.rx]
         nblocks = 0
@@ -1368,7 +1419,7 @@ class MultiReceiver:
             epochs=self.hub.epochs_written, ephs=self.hub.ephs_written,
             stage_wall={k: sum(g["stage_wall"][k] for g in groups)
                         for k in groups[0]["stage_wall"]},
-            groups=groups)
+            spans=merge([g["spans"] for g in groups]), groups=groups)
 
 
 class DualReceiver(MultiReceiver):

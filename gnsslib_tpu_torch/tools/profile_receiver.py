@@ -5,17 +5,22 @@
     python -m gnsslib_tpu_torch.tools.profile_receiver [--device cuda|cpu]
         [--sequential] [--nsteps N]
 
-A warm pass first, then a second receiver whose stage boundaries are
-wrapped to attribute wall time: the device cache's load and block cuts,
-acquisition (dispatch and collect of the search), the tracking blocks
-(dispatch and collect of the pull-in and steady programs), the host nav
-and observable work, epoch emission and the block placement.
+A warm pass first, then a second receiver whose span table
+(``Receiver.spans``, :mod:`gnsslib_tpu_torch.spans`) is printed: per
+stage of ``step_block`` (acquire, pull-in, steady), outside it (other)
+and for the build, each span's count, total, self time (its total less
+its children's) and ms per block: the search's dispatch and collect, the
+device cache, the tracking block's dispatch and collect (the telemetry's
+wait and unpack, nav, the observable history, the epochs), the block
+placement; on a card also ``dev.track`` and ``dev.acq``, the device time
+of the block programs and the searches by CUDA events.
 
 On a card a tracking block is one replayed CUDA graph and a search is a
 queue of launches: both return once queued, so ``*.dispatch`` is launch
-time and the device time lands in ``*.collect``, which copies the
-telemetry or decisions to the host and so waits for the device.  A small
-dispatch beside a large collect is a busy device, not an idle host.
+time and the device's work shows in ``track.wait`` and ``acq.wait``,
+which copy the telemetry or decisions to the host and so wait for the
+device.  A small wait beside a large device time is a host that kept the
+device queued.
 """
 from __future__ import annotations
 
@@ -23,61 +28,15 @@ import argparse
 import sys
 import time
 
-import numpy as np
-
 from . import no_card
 from . import receiver_throughput as rxt
-
-# (object attribute of the receiver or "" for the receiver, method,
-# label); the stages nest: acquire holds acq.dispatch, collect+feed holds
-# the blocks' collects and nav+obs
-STAGES = (
-    ("cache", "_load", "cache.load"),
-    ("cache", "get", "cache.get"),
-    ("", "_try_acquire", "acquire"),
-    # not rx._acq_search: replacing the override point would make the
-    # receiver take the synchronous path; the Acquirer's own
-    # dispatch/collect are timed instead
-    ("acq", "search_dev_start", "acq.dispatch"),
-    ("acq", "search_dev_collect", "acq.collect"),
-    ("fast", "run_block_start", "fast.dispatch"),
-    ("fast", "run_block_collect", "fast.collect"),
-    ("trk", "run_block_start", "slow.dispatch"),
-    ("trk", "run_block_collect", "slow.collect"),
-    ("trk", "rebase", "rebase"),
-    ("", "_feed_nav_and_obs", "nav+obs(host)"),
-    ("", "_emit_epochs", "emit"),
-    ("", "_place", "place"),
-    ("", "_collect", "collect+feed"),
-    ("", "_collect_acq", "acq.collect+apply"),
-)
-
-
-def instrument(rx, stages=STAGES) -> dict:
-    """Wrap ``rx``'s stage methods in place; returns {label: [walls]},
-    filled as the receiver runs."""
-    T = {}
-
-    def timed(obj, name, label):
-        fn = getattr(obj, name)
-
-        def wrap(*a, **k):
-            t0 = time.perf_counter()
-            r = fn(*a, **k)
-            T.setdefault(label, []).append(time.perf_counter() - t0)
-            return r
-        setattr(obj, name, wrap)
-
-    for attr, name, label in stages:
-        obj = getattr(rx, attr) if attr else rx
-        if obj is not None:
-            timed(obj, name, label)
-    return T
+from ..spans import STAGES, STEP
 
 
 def profile(pipeline: bool = True, nsteps: int = 400, *, device="cuda",
             capture=None) -> tuple:
-    """(the timed run's summary, {label: [walls]}, its wall seconds)."""
+    """(the timed run's summary, with its span table in ``spans``, and
+    its wall seconds)."""
     cap = rxt.default_capture() if capture is None else capture
 
     def build():
@@ -86,24 +45,31 @@ def profile(pipeline: bool = True, nsteps: int = 400, *, device="cuda",
     rx = build()
     rx.run_seconds()                      # warm pass
     rxt.close(rx)
-    rx = build()
-    T = instrument(rx)
     t0 = time.time()
+    rx = build()
     s = rx.run_seconds()
     total = time.time() - t0
     rxt.close(rx)
     s["device"] = rx.trk.device.type
-    return s, T, total
+    return s, total
 
 
-def table(T: dict) -> list:
-    """The stage table's lines, largest sum first."""
+def table(spans: dict) -> list:
+    """The span table's lines: per stage, its spans by total."""
     out = []
-    for k in sorted(T, key=lambda k: -sum(T[k])):
-        v = np.asarray(T[k])
-        tail = " ".join(f"{x:.4f}" for x in v[-3:])
-        out.append(f"  {k:18s} {v.sum():7.3f}s  x{len(v):<5d} "
-                   f"med {np.median(v):7.4f}  last3 [{tail}]")
+    for st in STAGES:
+        rows = spans["stages"].get(st)
+        if not rows:
+            continue
+        nb = rows[STEP]["n"] if STEP in rows else 0
+        out.append(f"  [{st}]" + (f" {nb} blocks" if nb else ""))
+        for name, r in sorted(rows.items(), key=lambda kv: -kv[1]["s"]):
+            per = (f"  {1e3 * r['s'] / nb:8.3f} ms/block" if nb else "")
+            out.append(f"    {name:16s} x{r['n']:<6d} {r['s']:8.3f}s  "
+                       f"self {r['self_s']:8.3f}s{per}  in "
+                       f"{r['parent'] or '-'}")
+    for k, v in spans["counters"].items():
+        out.append(f"  {k} {v}")
     return out
 
 
@@ -120,17 +86,17 @@ def main(argv=None) -> int:
     if no_card(a.device, "profile_receiver"):
         return 2
     rxt.synthesize()
-    s, T, total = profile(not a.sequential, a.nsteps, device=a.device)
+    s, total = profile(not a.sequential, a.nsteps, device=a.device)
     print(f"mode={'sequential' if a.sequential else 'pipelined'}/"
           f"{a.nsteps} [{s['device']}]  total {total:.2f}s for "
           f"{s['seconds']:.1f}s of signal ({s['msps']:.1f} Msps)  stage "
           f"walls: " + ", ".join(f"{k} {v:.2f}s"
                                  for k, v in s["stage_wall"].items()))
-    print("\n".join(table(T)))
+    print("\n".join(table(s["spans"])))
     print("note: *.dispatch is launch time (a replayed graph returns at "
-          "once); the device time lands in *.collect, which waits for the "
-          "block's telemetry.  Stages nest: acquire holds acq.dispatch, "
-          "collect+feed holds the collects and nav+obs(host).")
+          "once); the device's work shows in track.wait and acq.wait, "
+          "which wait for the block's telemetry or the search's "
+          "decisions, and in dev.* (CUDA events, on a card).")
     return 0
 
 

@@ -16,8 +16,8 @@ nav decoders run.  A warm pass first, then a timed pass by a manual
 Prints one JSON line: the steady stream rate (window average and median
 block), the aggregate channel-samples per second (stream rate x 256), x
 real time against the 32-channel envelope, the block programs' graph
-pool and the peak device memory reserved; and a host-stage wall budget on
-stderr.  ``GNSSLIB_256CH_NSTEPS`` (400) and ``GNSSLIB_256CH_DEPTH`` (2)
+pool and the peak device memory reserved; and the receiver's span table
+on stderr.  ``GNSSLIB_256CH_NSTEPS`` (400) and ``GNSSLIB_256CH_DEPTH`` (2)
 set the steps per block and the pipeline depth.
 """
 from __future__ import annotations
@@ -28,28 +28,18 @@ import os
 import sys
 import time
 
-import numpy as np
 
 from . import no_card
 from . import receiver_throughput as rxt
-from .profile_receiver import instrument
+from .profile_receiver import table
 
 NCOPIES = 8
-# the host stages timed in the second pass (see profile_receiver)
-STAGES = (
-    ("", "_feed_nav_and_obs", "nav+obs(host)"),
-    ("", "_emit_epochs", "emit(host)"),
-    ("", "_collect", "collect+feed"),
-    ("", "_collect_acq", "acq.collect+apply"),
-    ("", "_try_acquire", "acq.dispatch"),
-    ("fast", "run_block_collect", "fast.collect"),
-)
 
 
 def run(ncopies: int = NCOPIES, nsteps: int | None = None,
         depth: int | None = None, *, device="cuda", capture=None) -> dict:
-    """The timed pass's numbers, its stage walls (``stages``, seconds)
-    and ``events``."""
+    """The timed pass's numbers, its spans' totals over every stage
+    (``stages``, seconds; the receiver's span table) and ``events``."""
     import torch
     from ..track.program import CAPTURES
     nsteps = (int(os.environ.get("GNSSLIB_256CH_NSTEPS", "400"))
@@ -83,7 +73,6 @@ def run(ncopies: int = NCOPIES, nsteps: int | None = None,
     t_build = time.time()
     rx = build()
     build_s = time.time() - t_build
-    T = instrument(rx, STAGES)
     s = rxt.steady_loop(rx, depth)
     rxt.close(rx)
     wall = s["wall"]
@@ -111,13 +100,14 @@ def run(ncopies: int = NCOPIES, nsteps: int | None = None,
         out["msps_steady_p50"] = round(p50, 2)
         out["aggregate_p50_channel_msps"] = round(p50 * C, 1)
         out["aggregate_p50_x_32ch"] = round(p50 * ncopies / rt_msps, 2)
-    out["stages"] = {k: round(float(np.sum(v)), 3) for k, v in T.items()}
-    print("# host-stage budget (sum over run / per block):",
-          file=sys.stderr)
-    for k in sorted(T, key=lambda k: -sum(T[k])):
-        v = np.asarray(T[k])
-        print(f"#   {k:18s} {v.sum():7.2f}s x{len(v)}  "
-              f"med {np.median(v) * 1e3:7.1f} ms", file=sys.stderr)
+    stages = {}
+    for rows in s["spans"]["stages"].values():
+        for name, r in rows.items():
+            stages[name] = stages.get(name, 0.0) + r["s"]
+    out["stages"] = {k: round(v, 3) for k, v in stages.items()}
+    print("# host spans of the timed pass:", file=sys.stderr)
+    for ln in table(s["spans"]):
+        print(f"#{ln}", file=sys.stderr)
     out["events"] = rx.events
     return out
 

@@ -59,6 +59,8 @@ class FastTracker(BlockRunner):
     default backend ``"band"``, ``True`` selects ``"pallas"``, ``False``
     selects ``"xla"``.  Assign :attr:`corr` to choose any backend."""
 
+    stage = "steady"
+
     def __init__(self, tracker: Tracker, use_pallas: bool | None = None):
         loops = {int(loop_interval(ct)) for ct in tracker._ctypes}
         if len(loops) != 1:
@@ -458,8 +460,13 @@ class FastTracker(BlockRunner):
     def run_block_collect(self, handle) -> TrackOutputs:
         """Copy a run_block_start handle to the host and rebuild the
         per-period layout; raises if any active window left the block."""
-        packf, packi = handle
-        o = self._unpack(packf.cpu().numpy(), packi.cpu().numpy())
+        packf, packi = self._fetch(handle)
+        with self.spans("track.unpack"):
+            return self._outputs(packf, packi)
+
+    def _outputs(self, packf: np.ndarray, packi: np.ndarray
+                 ) -> TrackOutputs:
+        o = self._unpack(packf, packi)
         if not np.all(o["bandok"]):
             raise RuntimeError(
                 f"{self._corr} correlator: an active window ran outside the "

@@ -412,9 +412,9 @@ class Tracker(BlockRunner):
 
     def run_block_collect(self, handle) -> TrackOutputs:
         """Copy a run_block_start handle to the host and unpack it."""
-        packf, packi = handle
-        return TrackOutputs(**self._unpack_outs(packf.cpu().numpy(),
-                                                packi.cpu().numpy()))
+        packf, packi = self._fetch(handle)
+        with self.spans("track.unpack"):
+            return TrackOutputs(**self._unpack_outs(packf, packi))
 
 
 def discriminators(sum_i, sum_q, oldsum_i, oldsum_q, ne: int, nl: int):

@@ -43,6 +43,7 @@ import weakref
 import torch
 
 from ..ops import kernels
+from ..spans import NULL, DeviceTimer, device_seconds, timed
 from .state import STATE_FIELDS, TrackState
 
 # the state fields a block changes (the others, dcarr_acq, flagsync,
@@ -87,6 +88,8 @@ class BlockProgram:
 
     ``replays`` counts the blocks run; on a card ``launches`` holds the
     kernel launches of one replay ({counter name: {attribute: n}}),
+    ``warmup_s`` the seconds from the eager warm-up's start to the
+    capture's (the warm-up and the capture's own synchronize),
     ``capture_s``/``instantiate_s`` the seconds spent recording the body
     and instantiating the graph, and ``pool_bytes`` the device memory the
     graph's private pool reserved."""
@@ -107,7 +110,7 @@ class BlockProgram:
         self.graph = None
         self.launches = {}
         self.replays = 0
-        self.capture_s = self.instantiate_s = 0.0
+        self.warmup_s = self.capture_s = self.instantiate_s = 0.0
         self.pool_bytes = 0
         if self.device.type == "cuda":
             with torch.cuda.device(self.device):
@@ -129,6 +132,7 @@ class BlockProgram:
 
     def _capture(self) -> None:
         dev = self.device
+        tw = time.perf_counter()
         cur = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
         side.wait_stream(cur)
@@ -150,6 +154,7 @@ class BlockProgram:
             with torch.cuda.graph(graph):
                 reserved = torch.cuda.memory_reserved(dev)
                 t0 = time.perf_counter()
+                self.warmup_s = t0 - tw
                 self._body()
                 t1 = time.perf_counter()
         finally:
@@ -202,17 +207,28 @@ class BlockProgram:
         return state, self.outputs()
 
     def start(self, state: TrackState, block: torch.Tensor):
-        """One block: load, replay, take -> (new_state, (packf, packi))."""
+        """One block: load, replay, take -> (new_state, (packf, packi));
+        on a card the pair is a :class:`~..spans.Timed` handle whose
+        CUDA events bracket the three on the device."""
+        timer = DeviceTimer.start(self.device)
         self.load(state, block)
         self.replay()
-        return self.take(state)
+        state, outs = self.take(state)
+        return state, timed(outs, timer)
 
 
 class BlockRunner:
     """The block entry points the trackers share.  An engine provides
     ``device``, ``C``, ``cfg``, ``state_to_carry``, ``carry_to_state``,
     ``run_steps(carry, block, count)``, ``run_block_collect(handle)`` and a
-    ``programs`` dict, and may override :meth:`_count` and :meth:`_key`."""
+    ``programs`` dict, and may override :meth:`_count` and :meth:`_key`.
+
+    ``spans`` is the span table of the receiver that runs the engine (it
+    sets it; :data:`~..spans.NULL` elsewhere), and ``stage`` the receiver
+    stage the engine's blocks run in."""
+
+    spans = NULL
+    stage = "pullin"
 
     def _count(self, nsteps: int) -> int:
         """The ``run_steps`` count of ``nsteps`` code periods."""
@@ -232,6 +248,18 @@ class BlockRunner:
             prog = self.programs[key] = BlockProgram(self, count,
                                                      block_shape)
         return prog
+
+    def _fetch(self, handle):
+        """A run_block_start handle's (packf, packi) copied to the host as
+        numpy arrays (span ``track.wait``); on a card its device time is
+        added to the span table as ``dev.track`` of :attr:`stage`."""
+        packf, packi = handle
+        with self.spans("track.wait"):
+            hf, hi = packf.cpu().numpy(), packi.cpu().numpy()
+        dt = device_seconds(handle)
+        if dt is not None:
+            self.spans.add("dev.track", self.stage, dt)
+        return hf, hi
 
     def run_block(self, state: TrackState, block, nsteps: int):
         """Advance every active channel ``nsteps`` code periods through

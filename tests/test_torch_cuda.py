@@ -1346,3 +1346,56 @@ def test_ablation_taps_kernel_keeps_its_cap(dev):
     z = ab.ablation_taps(*[torch.from_numpy(a) for a in host], offsets, smax)
     assert z.shape == (B, 54)
     assert (ab.COUNTS["full"].kernel, ab.COUNTS["full"].v1) == (0, 0)
+
+
+@pytest.mark.cuda
+def test_receiver_device_spans(dev, tmp_path, monkeypatch):
+    """On a card the receiver's span table carries the block programs'
+    device time (``dev.track``, one per dispatched block, under the
+    stage of the engine that ran it) and the searches' (``dev.acq``), by
+    CUDA events read once the results are on the host: stepping calls no
+    ``torch.cuda.synchronize``.  The build's split has its captures and
+    graph pools."""
+    from gnsslib_tpu_torch.io.frontend import FileFrontend
+    from gnsslib_tpu_torch.runtime.config import load_ini
+    from gnsslib_tpu_torch.runtime.receiver import Receiver
+    f_sf, f_if, tow0, seconds = 4.092e6, 1.023e6, 352800.0, 9.0
+    eph = sim.example_eph(prn=3, week=2200, toe_tow=tow0)
+    pad = np.concatenate([np.tile([1, -1], 149), [1, 1]]).astype(np.int8)
+    ch = sim.SimChannel(prn=3, doppler=800.0, code_phase=-75.0,
+                        carr_phase=0.3, nav_bits=np.concatenate(
+                            [pad, sim.lnav_bit_stream(eph, tow0 + 6.0)]))
+    noise = sim.noise_std_for_cn0(1.0, 47.0, f_sf, DType.REAL)
+    path = tmp_path / "sim.bin"
+    x = sim.synthesize([ch], f_sf, f_if, DType.REAL, int(seconds * f_sf),
+                       noise_std=noise, seed=5)
+    sim.quantize_int8(x, 16.0).tofile(path)
+    (tmp_path / "fend.ini").write_text(
+        f"[FEND]\nTYPE=FILE\nCF1=1575.42e6\nSF1={f_sf}\nIF1={f_if}\n"
+        f"DTYPE1=1\nFILE1={path}\n[TRACK]\nCORRN=4\nCORRD=2\nCORRP=2\n")
+    (tmp_path / "rx.ini").write_text(
+        f"[RCV]\nFENDCONF={tmp_path / 'fend.ini'}\n[CHANNEL]\nNCH=2\n"
+        "PRN=3,5\nSYS=1,1\nCTYPE=1,1\nFTYPE=1,1\n[OUTPUT]\nOUTMS=400\n"
+        "RINEX=0\n")
+    cfg = load_ini(str(tmp_path / "rx.ini"))
+    rx = Receiver(cfg, FileFrontend(cfg.files[0], cfg.fends[0]),
+                  device=dev)
+    syncs = []
+    real = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a, **k: (syncs.append(1), real(*a, **k)))
+    s = rx.run_seconds()
+    monkeypatch.setattr(torch.cuda, "synchronize", real)
+    rx.close()
+    assert syncs == []
+    st = s["spans"]["stages"]
+    assert "steady" in st and "pullin" in st
+    assert sum(st[k].get("dev.track", {}).get("n", 0)
+               for k in st) == rx._ndisp
+    for k in ("pullin", "steady"):
+        assert st[k]["dev.track"]["s"] > 0
+    acq = [st[k]["dev.acq"] for k in st if "dev.acq" in st[k]]
+    assert sum(r["n"] for r in acq) >= 2 and all(r["s"] > 0 for r in acq)
+    assert st["build"]["build.capture"]["n"] == 2
+    assert st["build"]["build.capture"]["s"] > 0
+    assert s["spans"]["counters"]["build.pool_bytes"] > 0
