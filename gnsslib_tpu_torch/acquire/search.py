@@ -25,8 +25,8 @@ from ..constants import ACQHBAND, ACQINTG_L1CA, ACQSTEP, ACQTH
 from ..ops import fftcorr, stats
 from ..ops.carrier import TWO_PI
 from ..ops.nco import frac
-from ..spans import NULL, DeviceTimer, device_seconds, timed
-from ..track.loop import resolve_device
+from ..spans import NULL, DeviceTimer, device_seconds, host_copy, timed, wait
+from ..track.loop import resolve_device, upload
 
 F32 = torch.float32
 # bytes of (rounds x Doppler x nfft) complex64 mixing grid per channel
@@ -315,8 +315,10 @@ class Acquirer:
         kept so both packages search the same channel sets); the others
         come back unacquired.  ``diag`` searches every channel (``idx`` is
         ignored) and keeps the power surface on the device in the handle
-        (``AcqResult.P``).  On a card the handle carries a pair of CUDA
-        events around the search's launches (:func:`~..spans.timed`)."""
+        (``AcqResult.P``).  The decision vectors' copy to the host is
+        queued after the search; on a card the handle carries a pair of
+        CUDA events around the search's launches and that copy
+        (:func:`~..spans.timed`)."""
         timer = DeviceTimer.start(self.device)
         consts = self._consts
         if idx is not None and len(idx) < self.C and not diag:
@@ -327,26 +329,29 @@ class Acquirer:
                 idx = None
             else:
                 idx = np.asarray(idx, np.int64)
-                idxp = torch.as_tensor(np.concatenate(
+                idxp = upload(np.concatenate(
                     [idx, np.repeat(idx[:1], bucket - len(idx))]),
-                    device=self.device)
+                    self.device)
                 consts = {k: (v[idxp] if k in self.ch_const_keys else v)
                           for k, v in consts.items()}
         else:
             idx = None
         rounds = self._rounds_from_flat(block)
         P, *vecs = self._search_rounds(rounds, consts)
-        return timed((P if diag else None, *vecs, idx), timer)
+        return timed((P if diag else None, *map(host_copy, vecs), idx),
+                     timer)
 
     def search_dev_collect(self, handle) -> AcqResult:
-        """Copy a search_dev_start handle's decision vectors to the host
-        (span ``acq.wait``) -> AcqResult (with the handle's device surface
-        as ``P``); on a card the search's device time is added to the span
+        """A search_dev_start handle's decision vectors, once the search
+        has run (span ``acq.wait``; counted in ``acq.ready`` when it had
+        run already) -> AcqResult (with the handle's device surface as
+        ``P``); on a card the search's device time is added to the span
         table as ``dev.acq``."""
         P, *vecs, idx = handle
         with self.spans("acq.wait"):
-            codei, freqi, cn0, peakr, confirmed = [v.cpu().numpy()
-                                                   for v in vecs]
+            if wait(handle):
+                self.spans.add("acq.ready", None, 0.0, parent="acq.wait")
+            codei, freqi, cn0, peakr, confirmed = [v.numpy() for v in vecs]
         dt = device_seconds(handle)
         if dt is not None:
             self.spans.add("dev.acq", None, dt)

@@ -28,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from ..acquire.search import Acquirer, AcqResult
+from ..spans import wait
 from ..track.fast import FastTracker
 from ..track.loop import Tracker, TrackOutputs
 from ..track.program import CARRY_FIELDS
@@ -119,14 +120,17 @@ class _ChannelShards:
         return state.replace(**joined), (self._dispatched, nsteps, handles)
 
     def _gather(self, handle, kind: str):
-        """The shards' (packf, packi) on the host, joined along the
-        channel axis (dim 1) in channel order, every process's (each
-        process must collect the same block: its number is in the tag).
-        A process that runs none of the channels gives none."""
+        """The shards' (packf, packi) on the host once each has run,
+        joined along the channel axis (dim 1) in channel order, every
+        process's (each process must collect the same block: its number
+        is in the tag).  A process that runs none of the channels gives
+        none."""
         n, nsteps, handles = handle
+        for h in handles:
+            wait(h)
         if handles:
-            packf = torch.cat([h[0].cpu() for h in handles], dim=1)
-            packi = torch.cat([h[1].cpu() for h in handles], dim=1)
+            packf = torch.cat([h[0] for h in handles], dim=1)
+            packi = torch.cat([h[1] for h in handles], dim=1)
         else:
             nf, ni = self._eng.pack_widths()
             steps = self._eng._count(nsteps)

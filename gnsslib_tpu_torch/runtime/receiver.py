@@ -16,13 +16,15 @@ is built (the counterpart of the JAX receiver's ``_precompile``) and
 replayed per block.  The JAX receiver's pipeline options carry over with
 its defaults: tracking blocks are queued ``pipeline_depth`` blocks deep in
 the steady state (``pipeline``) and in pull-in (``pipeline_pullin``), and a
-block's telemetry is copied to the host (``.cpu()``) only after later
-blocks have been queued; searches are queued too (``pipeline_acq``) and
-decided ``acq_pipeline_depth`` blocks later, the code phase propagated
-along the acquired code-Doppler trajectory.  Without them a block's or a
-search's results are read at once.  A block's telemetry feeds only the
-lock it was dispatched for: a channel reset and started again while the
-block was queued has a new lock generation.
+block's telemetry, whose copy to the host is queued right behind it, is
+read only after later blocks have been queued, waiting for that block's
+own end event and not for the later ones; searches are queued too
+(``pipeline_acq``) and decided ``acq_pipeline_depth`` blocks later, the
+code phase propagated along the acquired code-Doppler trajectory.
+Without them a block's or a search's results are read at once.  A
+block's telemetry feeds only the lock it was dispatched for: a channel
+reset and started again while the block was queued has a new lock
+generation.
 
 With SPEC (``[SPECTRUM] SPEC=1``) the receiver carries the diagnostics of
 the JAX receiver: a :class:`~..diag.monitor.SpectrumMonitor` on the

@@ -20,7 +20,13 @@ kept per stage:
 
 Device times (``dev.*``) come from a pair of CUDA events around the work
 (:class:`DeviceTimer`), read once the work's results are on the host, so
-reading them waits for nothing; they exist only on a card.
+reading them waits for nothing; they exist only on a card.  The same end
+event is what a collect waits on (:func:`wait`): a handle's results are
+copied to the host in stream order before it (:func:`host_copy`), so the
+host waits for that work alone and never for the whole stream.  A
+``*.ready`` count (``track.ready``, ``acq.ready``) beside each ``*.wait``
+span counts the collects whose work had already run when they began:
+every collect on the CPU, on a card the share the host did not wait for.
 
 While a ``torch.profiler`` records, each span also opens a
 ``record_function`` range ``gnss.<name>``, so a trace carries the spans on
@@ -43,6 +49,7 @@ _OPEN = len(STAGES)        # the open step_block's slot, folded at its end
 _SLOTS = len(STAGES) + 1
 PREFIX = "gnss."
 STEP = "step_block"
+READY = ".ready"
 
 _perf = time.perf_counter
 
@@ -218,16 +225,30 @@ def merge(tables: list) -> dict:
     return dict(stages=stages, counters=counters)
 
 
+def ready_of(rows: dict, name: str) -> tuple[int, int] | None:
+    """(ready, collects) of one stage's rows (:meth:`SpanTable.table`)
+    when ``name`` is a ``*.ready`` count, the collects being its
+    ``*.wait`` span's count; else None."""
+    if not name.endswith(READY):
+        return None
+    wait = rows.get(name[:-len(READY)] + ".wait")
+    return rows[name]["n"], (wait["n"] if wait else rows[name]["n"])
+
+
 def split_line(table: dict, stage: str = "steady") -> str:
     """One line of ``stage``'s spans by total, each with its self time
     where it has children: ms per block where the stage has blocks, else
-    ms in all."""
+    ms in all; a ``*.ready`` count as ready/collects."""
     rows = table["stages"].get(stage)
     if not rows:
         return f"{stage}: nothing"
     nb = rows[STEP]["n"] if STEP in rows else 0
     parts = []
     for name, r in sorted(rows.items(), key=lambda kv: -kv[1]["s"]):
+        ready = ready_of(rows, name)
+        if ready is not None:
+            parts.append(f"{name} {ready[0]}/{ready[1]}")
+            continue
         ms = 1e3 * r["s"] / max(nb, 1)
         self_ms = 1e3 * r["self_s"] / max(nb, 1)
         parts.append(f"{name} {ms:.2f}" if abs(ms - self_ms) < 5e-3 else
@@ -308,6 +329,30 @@ def timed(values, timer: DeviceTimer | None) -> tuple:
     h = Timed(values)
     h.timer = timer
     return h
+
+
+def host_copy(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` on the host.  From a card the copy goes into
+    page-locked memory and is only queued on the current stream: read it
+    after :func:`wait` on a :func:`timed` handle stopped after it.  The
+    caching host allocator keeps the buffer from reuse until the copy has
+    run, however early the caller drops it."""
+    if t.device.type != "cuda":
+        return t.clone()
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t, non_blocking=True)
+    return out
+
+
+def wait(handle) -> bool:
+    """Wait until a :func:`timed` handle's work has run (its timer's end
+    event), not for the work queued after it; returns whether it had run
+    already.  A handle with no timer (on the CPU) always has."""
+    timer = getattr(handle, "timer", None)
+    if timer is None or timer.b.query():
+        return True
+    timer.b.synchronize()
+    return False
 
 
 def device_seconds(handle) -> float | None:

@@ -13,14 +13,17 @@ its children's) and ms per block: the search's dispatch and collect, the
 device cache, the tracking block's dispatch and collect (the telemetry's
 wait and unpack, nav, the observable history, the epochs), the block
 placement; on a card also ``dev.track`` and ``dev.acq``, the device time
-of the block programs and the searches by CUDA events.
+of the block programs and the searches by CUDA events.  Beside the
+waits, ``track.ready`` and ``acq.ready`` count the collects that found
+their work done, of all the collects.
 
 On a card a tracking block is one replayed CUDA graph and a search is a
-queue of launches: both return once queued, so ``*.dispatch`` is launch
-time and the device's work shows in ``track.wait`` and ``acq.wait``,
-which copy the telemetry or decisions to the host and so wait for the
-device.  A small wait beside a large device time is a host that kept the
-device queued.
+queue of launches: both return once queued, with their results' copy to
+the host queued behind them, so ``*.dispatch`` is launch time and the
+device's work shows in ``track.wait`` and ``acq.wait``, which wait for
+that block's or search's own end event.  A small wait beside a large
+device time, and collects mostly ready, are a host that kept the device
+queued.
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ import time
 
 from . import no_card
 from . import receiver_throughput as rxt
-from ..spans import STAGES, STEP
+from ..spans import STAGES, STEP, ready_of
 
 
 def profile(pipeline: bool = True, nsteps: int = 400, *, device="cuda",
@@ -64,6 +67,12 @@ def table(spans: dict) -> list:
         nb = rows[STEP]["n"] if STEP in rows else 0
         out.append(f"  [{st}]" + (f" {nb} blocks" if nb else ""))
         for name, r in sorted(rows.items(), key=lambda kv: -kv[1]["s"]):
+            ready = ready_of(rows, name)
+            if ready is not None:
+                out.append(f"    {name:16s} x{ready[0]:<6d} of "
+                           f"{ready[1]} collects "
+                           f"({100.0 * ready[0] / ready[1]:.1f}%)")
+                continue
             per = (f"  {1e3 * r['s'] / nb:8.3f} ms/block" if nb else "")
             out.append(f"    {name:16s} x{r['n']:<6d} {r['s']:8.3f}s  "
                        f"self {r['self_s']:8.3f}s{per}  in "
@@ -96,7 +105,8 @@ def main(argv=None) -> int:
     print("note: *.dispatch is launch time (a replayed graph returns at "
           "once); the device's work shows in track.wait and acq.wait, "
           "which wait for the block's telemetry or the search's "
-          "decisions, and in dev.* (CUDA events, on a card).")
+          "decisions (*.ready: the collects that did not wait), and in "
+          "dev.* (CUDA events, on a card).")
     return 0
 
 

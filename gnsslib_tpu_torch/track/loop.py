@@ -62,6 +62,17 @@ def resolve_device(device) -> torch.device:
     return d
 
 
+def upload(x, device: torch.device, dtype=None) -> torch.Tensor:
+    """Host values ``x`` as a tensor on ``device``.  To a card the copy
+    goes from page-locked memory and is only queued on the current
+    stream: a copy from pageable memory would wait for the whole stream,
+    so for every block queued before it."""
+    t = torch.as_tensor(np.asarray(x), dtype=dtype)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 class Tracker(BlockRunner):
     """Tracking program for a group of channels sharing one front end.
     A block runs as a :class:`~.program.BlockProgram` (a CUDA graph on a
@@ -207,8 +218,8 @@ class Tracker(BlockRunner):
     def _set(self, t: torch.Tensor, idx, v) -> torch.Tensor:
         """Functional ``t.at[idx].set(v)``: a new tensor, ``t`` untouched."""
         out = t.clone()
-        out[torch.as_tensor(np.asarray(idx, np.int64), device=t.device)] = \
-            torch.as_tensor(np.asarray(v), dtype=t.dtype).to(t.device)
+        out[upload(np.asarray(idx, np.int64), t.device)] = \
+            upload(v, t.device, t.dtype)
         return out
 
     def start_channels(self, state: TrackState, idx, loc, dcarr
@@ -246,9 +257,9 @@ class Tracker(BlockRunner):
         or a (C,) array of each channel's shift."""
         if np.ndim(advance) == 0:
             return state.replace(loc=state.loc - int(advance))
-        shift = torch.as_tensor(np.asarray(advance, np.int64),
-                                device=state.loc.device)
-        return state.replace(loc=state.loc - shift.to(state.loc.dtype))
+        shift = upload(np.asarray(advance, np.int64), state.loc.device,
+                       state.loc.dtype)
+        return state.replace(loc=state.loc - shift)
 
     # ------------------------------------------------------------------ #
     def state_to_carry(self, s: TrackState) -> dict:

@@ -20,9 +20,13 @@ A program owns
   give.  The warm-up fills what must not be filled inside a capture: the
   kernel libraries, the tap offsets' uploads, the cuBLAS handle.
 
-:meth:`BlockProgram.take` hands back clones, so the state and telemetry a
-caller holds never alias the program's buffers: the next block's load and
-replay may overwrite them while earlier blocks are still in flight.  The
+:meth:`BlockProgram.take` hands back the state as clones and the
+telemetry as host copies, so nothing a caller holds aliases the
+program's buffers: the next block's load and replay may overwrite them
+while earlier blocks are still in flight.  On a card the telemetry's
+copy into page-locked memory is queued on the stream right after the
+replay, and a collect waits for the block's own end event alone
+(:func:`~..spans.wait`), never for the blocks queued after it.  The
 copies in and out are ~40 small launches per block, where the eager loop
 makes ~250 per steady super-step and ~90 per pull-in period.
 
@@ -43,7 +47,7 @@ import weakref
 import torch
 
 from ..ops import kernels
-from ..spans import NULL, DeviceTimer, device_seconds, timed
+from ..spans import NULL, DeviceTimer, device_seconds, host_copy, timed, wait
 from .state import STATE_FIELDS, TrackState
 
 # the state fields a block changes (the others, dcarr_acq, flagsync,
@@ -196,8 +200,9 @@ class BlockProgram:
         self.replays += 1
 
     def outputs(self) -> tuple[torch.Tensor, torch.Tensor]:
-        """Clones of the last replay's (packf, packi)."""
-        return self._packf.clone(), self._packi.clone()
+        """The last replay's (packf, packi) copied to the host
+        (:func:`~..spans.host_copy`: on a card only queued)."""
+        return host_copy(self._packf), host_copy(self._packi)
 
     def take(self, template: TrackState):
         """(``template`` with the block's changed fields, as clones of the
@@ -207,9 +212,10 @@ class BlockProgram:
         return state, self.outputs()
 
     def start(self, state: TrackState, block: torch.Tensor):
-        """One block: load, replay, take -> (new_state, (packf, packi));
-        on a card the pair is a :class:`~..spans.Timed` handle whose
-        CUDA events bracket the three on the device."""
+        """One block: load, replay, take -> (new_state, (packf, packi)),
+        the pair on the host; on a card it is a :class:`~..spans.Timed`
+        handle whose CUDA events bracket the three on the device, and the
+        pair is written once its end event has passed."""
         timer = DeviceTimer.start(self.device)
         self.load(state, block)
         self.replay()
@@ -250,11 +256,16 @@ class BlockRunner:
         return prog
 
     def _fetch(self, handle):
-        """A run_block_start handle's (packf, packi) copied to the host as
-        numpy arrays (span ``track.wait``); on a card its device time is
-        added to the span table as ``dev.track`` of :attr:`stage`."""
+        """A run_block_start handle's (packf, packi) as numpy arrays on
+        the host, once its block has run (span ``track.wait``; counted in
+        ``track.ready`` when it had run already); on a card its device
+        time is added to the span table as ``dev.track`` of
+        :attr:`stage`.  A run_block_eager handle is copied here."""
         packf, packi = handle
         with self.spans("track.wait"):
+            if wait(handle):
+                self.spans.add("track.ready", None, 0.0,
+                               parent="track.wait")
             hf, hi = packf.cpu().numpy(), packi.cpu().numpy()
         dt = device_seconds(handle)
         if dt is not None:

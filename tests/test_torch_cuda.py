@@ -1039,6 +1039,7 @@ def _graph_engine(trk, name):
 
 
 def _bits_equal(a, b) -> bool:
+    a, b = a.cpu(), b.cpu()      # a replayed block's telemetry is on the host
     if a.dtype.is_floating_point:
         return torch.equal(a.view(torch.int32), b.view(torch.int32))
     return torch.equal(a, b)
@@ -1084,6 +1085,19 @@ def test_block_program_replay_matches_eager(dev, name):
         assert counts.plain == 0
 
 
+def _host_edits(trk, st, k: int, adv: int):
+    """The receiver's host edits after the ``k``-th block: the window
+    rebased, and a channel started, bit-synced or restarted."""
+    st = trk.rebase(st, adv)
+    if k == 0:
+        st = trk.start_channels(st, [2], [500], [250.0])
+    if k == 1:
+        st = trk.set_bit_sync(st, 2, 0)
+    if k == 2:
+        st = trk.start_channels(st, [0], [900], [-900.0])
+    return st
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["pullin", "band"])
 def test_block_program_pipelined_edits_match_eager(dev, name):
@@ -1096,23 +1110,13 @@ def test_block_program_pipelined_edits_match_eager(dev, name):
     base = 100 * trk.n_nom
     st0 = trk.rebase(st, base)
 
-    def edits(st, k):
-        st = trk.rebase(st, adv)
-        if k == 0:
-            st = trk.start_channels(st, [2], [500], [250.0])
-        if k == 1:
-            st = trk.set_bit_sync(st, 2, 0)
-        if k == 2:
-            st = trk.start_channels(st, [0], [900], [-900.0])
-        return st
-
     def run(start):
         st, handles = st0, []
         for k in range(4):
             st, h = start(st, block[base + k * adv:base + (k + 6) * adv],
                           nsteps)
             handles.append(h)
-            st = edits(st, k)
+            st = _host_edits(trk, st, k, adv)
         return st, handles
 
     st_g, replayed = run(eng.run_block_start)
@@ -1123,6 +1127,62 @@ def test_block_program_pipelined_edits_match_eager(dev, name):
         assert _bits_equal(hg[0], he[0]) and _bits_equal(hg[1], he[1])
     progs = list(eng.programs.values())
     assert len(progs) == 1 and progs[0].replays == 4
+
+
+# ~25-50 ms of a spinning kernel at the H100's clocks: far longer than a
+# block of the scene takes
+SPIN_CYCLES = 50_000_000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["pullin", "band"])
+def test_pipelined_collect_waits_for_its_own_block(dev, name):
+    """Four blocks queued two deep with the host edits between them, and
+    a spinning kernel queued before each, so that a block's telemetry
+    lands on the host long after its start returns and the host's
+    uploads are queued behind work still running: every collect waits
+    for its own block (its end event) and gives the eager loop's
+    telemetry, end state and TrackOutputs run one block at a time, bit
+    for bit; the collects made while the card still spun count as not
+    ready."""
+    from gnsslib_tpu_torch.spans import SpanTable
+    trk, st, block = _graph_scene(dev)
+    eng = _graph_engine(trk, name)
+    nsteps, adv = 20, 20 * trk.n_nom
+    base = 100 * trk.n_nom
+    st0 = trk.rebase(st, base)
+    blocks = [block[base + k * adv:base + (k + 6) * adv] for k in range(4)]
+    eng.program(nsteps, blocks[0].shape)          # captured before
+    st_e, ref = st0, []
+    for k, blk in enumerate(blocks):
+        st_e, h = eng.run_block_eager(st_e, blk, nsteps)
+        ref.append((h, eng.run_block_collect(h)))
+        st_e = _host_edits(trk, st_e, k, adv)
+    eng.spans = SpanTable()
+    try:
+        st_g, pend, got = st0, [], []
+        for k, blk in enumerate(blocks):
+            torch.cuda._sleep(SPIN_CYCLES)
+            st_g, h = eng.run_block_start(st_g, blk, nsteps)
+            pend.append(h)
+            st_g = _host_edits(trk, st_g, k, adv)
+            if len(pend) > 2:
+                h = pend.pop(0)
+                got.append((h, eng.run_block_collect(h)))
+        got += [(h, eng.run_block_collect(h)) for h in pend]
+        rows = eng.spans.table()["stages"]["other"]
+    finally:
+        del eng.spans                      # back to the class's NULL
+    assert _same_state(st_g, st_e)
+    for (hg, og), (he, oe) in zip(got, ref):
+        assert _bits_equal(hg[0], he[0]) and _bits_equal(hg[1], he[1])
+        for f in og.__dataclass_fields__:
+            a, b = getattr(og, f), getattr(oe, f)
+            assert a.dtype == b.dtype and np.array_equal(
+                np.ascontiguousarray(a).view(np.uint8),
+                np.ascontiguousarray(b).view(np.uint8)), f
+    assert rows["track.wait"]["n"] == 4
+    assert rows.get("track.ready", {"n": 0})["n"] < 4
 
 
 # --- wide geometries: more taps than the sources instantiate (T > 25) -- #
@@ -1348,14 +1408,10 @@ def test_ablation_taps_kernel_keeps_its_cap(dev):
     assert (ab.COUNTS["full"].kernel, ab.COUNTS["full"].v1) == (0, 0)
 
 
-@pytest.mark.cuda
-def test_receiver_device_spans(dev, tmp_path, monkeypatch):
-    """On a card the receiver's span table carries the block programs'
-    device time (``dev.track``, one per dispatched block, under the
-    stage of the engine that ran it) and the searches' (``dev.acq``), by
-    CUDA events read once the results are on the host: stepping calls no
-    ``torch.cuda.synchronize``.  The build's split has its captures and
-    graph pools."""
+def _small_receiver(dev, tmp_path):
+    """A receiver on the card over a 9 s capture of one GPS satellite
+    (PRN 3 at 47 dB-Hz; PRN 5, absent, searched again every ACQSLEEP) at
+    4.092 Msps: acquisition, pull-in, then steady blocks."""
     from gnsslib_tpu_torch.io.frontend import FileFrontend
     from gnsslib_tpu_torch.runtime.config import load_ini
     from gnsslib_tpu_torch.runtime.receiver import Receiver
@@ -1378,8 +1434,19 @@ def test_receiver_device_spans(dev, tmp_path, monkeypatch):
         "PRN=3,5\nSYS=1,1\nCTYPE=1,1\nFTYPE=1,1\n[OUTPUT]\nOUTMS=400\n"
         "RINEX=0\n")
     cfg = load_ini(str(tmp_path / "rx.ini"))
-    rx = Receiver(cfg, FileFrontend(cfg.files[0], cfg.fends[0]),
-                  device=dev)
+    return Receiver(cfg, FileFrontend(cfg.files[0], cfg.fends[0]),
+                    device=dev)
+
+
+@pytest.mark.cuda
+def test_receiver_device_spans(dev, tmp_path, monkeypatch):
+    """On a card the receiver's span table carries the block programs'
+    device time (``dev.track``, one per dispatched block, under the
+    stage of the engine that ran it) and the searches' (``dev.acq``), by
+    CUDA events read once the results are on the host: stepping calls no
+    ``torch.cuda.synchronize``.  The build's split has its captures and
+    graph pools."""
+    rx = _small_receiver(dev, tmp_path)
     syncs = []
     real = torch.cuda.synchronize
     monkeypatch.setattr(torch.cuda, "synchronize",
@@ -1399,3 +1466,33 @@ def test_receiver_device_spans(dev, tmp_path, monkeypatch):
     assert st["build"]["build.capture"]["n"] == 2
     assert st["build"]["build.capture"]["s"] > 0
     assert s["spans"]["counters"]["build.pool_bytes"] > 0
+
+
+@pytest.mark.cuda
+def test_steady_blocks_never_wait_for_the_whole_stream(dev, tmp_path):
+    """The receiver's steady blocks, the searches among them and the final
+    flush under ``torch.cuda.set_sync_debug_mode("error")``, which raises
+    at every call that waits for a whole stream or the card (a blocking
+    copy to the host, a copy from pageable memory, ``.item()``, a
+    synchronize) and not at an event's wait: nothing raises, and each
+    collect is counted beside its wait."""
+    rx = _small_receiver(dev, tmp_path)
+    end = rx.end_sample()
+    while rx.can_step(end) and rx.spans.stage != "steady":
+        rx.step_block()
+    before = rx.spans.table()["stages"]["steady"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        while rx.can_step(end):
+            rx.step_block()
+            assert rx.spans.stage == "steady"
+        rx.flush()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    rx.close()
+    st = rx.spans.table()["stages"]["steady"]
+    assert st["step_block"]["n"] - before["step_block"]["n"] >= 5
+    assert st["acq.wait"]["n"] > before.get("acq.wait", {"n": 0})["n"]
+    for kind in ("track", "acq"):
+        ready = st.get(f"{kind}.ready", {"n": 0})["n"]
+        assert 0 <= ready <= st[f"{kind}.wait"]["n"]

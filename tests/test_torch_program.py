@@ -148,7 +148,9 @@ def test_pipelined_blocks_with_host_edits_match_one_at_a_time(scene, name):
 
 def test_returned_state_and_telemetry_do_not_alias(scene):
     """Neither the returned state nor the handle shares storage with the
-    program's buffers, and the next block leaves both as they were."""
+    program's buffers, and the next block leaves both as they were; the
+    collect hands back the handle's host buffers themselves (on a card
+    the page-locked ones its copy wrote), as they were."""
     trk, st, block = scene
     fast = _engine(trk, "band")
     st1, h1 = fast.run_block_start(st, block, 30)
@@ -163,6 +165,12 @@ def test_returned_state_and_telemetry_do_not_alias(scene):
     st2, h2 = fast.run_block_start(st1, block, 30)
     assert all(_same(a, b) for a, b in zip(held, keep))
     assert not _same(h1[0], h2[0])
+    got = fast._fetch(h1)
+    for a, t, k in zip(got, h1, keep[-2:]):
+        assert np.shares_memory(a, t.numpy())
+        assert not any(np.shares_memory(a, b.numpy())
+                       for b in (prog._packf, prog._packi))
+        assert _same(torch.from_numpy(a), k)
 
 
 def test_launch_counter_registry():

@@ -31,8 +31,8 @@ PROFILED = 2                 # steady blocks run under the profiler
 PER_BLOCK = ("step_block", "acq.collect", "acq.dispatch")
 PER_TRACK = ("cache.get", "track.dispatch", "place")
 NAMES = set(PER_BLOCK + PER_TRACK) | {
-    "acq.wait", "track.collect", "track.wait", "track.unpack", "nav",
-    "obs.hist", "obs.epoch"}
+    "acq.wait", "acq.ready", "track.collect", "track.wait", "track.ready",
+    "track.unpack", "nav", "obs.hist", "obs.epoch"}
 
 
 @pytest.fixture(scope="module")
@@ -214,6 +214,31 @@ def test_profiler_ranges_nest_in_step_block(runs):
 
 
 @pytest.mark.parametrize("pipeline", [True, False])
+def test_ready_counts_beside_the_waits(runs, pipeline):
+    """Each stage that collects a tracking block or a search counts its
+    ready collects beside the wait (``track.ready``, ``acq.ready``), never
+    more than it collects; on the CPU every collect is ready."""
+    stab = runs[pipeline]["summary"]["spans"]["stages"]
+    seen = set()
+    for st, rows in stab.items():
+        for kind in ("track", "acq"):
+            wait = rows.get(f"{kind}.wait")
+            ready = rows.get(f"{kind}.ready")
+            assert (wait is None) == (ready is None), (st, kind)
+            if wait is None:
+                continue
+            seen.add(kind)
+            assert ready["n"] == wait["n"], (st, kind)
+            assert ready["parent"] == f"{kind}.wait"
+            assert spans.ready_of(rows, f"{kind}.ready") == (wait["n"],) * 2
+    assert seen == {"track", "acq"}
+    assert "track.ready" in stab["steady"] and "track.ready" in stab["pullin"]
+    line = spans.split_line(runs[pipeline]["summary"]["spans"])
+    n = stab["steady"]["track.wait"]["n"]
+    assert f"track.ready {n}/{n}" in line
+
+
+@pytest.mark.parametrize("pipeline", [True, False])
 def test_no_device_spans_on_the_cpu(runs, pipeline):
     """No dev.* entry exists on the CPU; the build's split is there with
     no graph pool."""
@@ -233,6 +258,8 @@ def test_profile_receiver_table(runs):
     assert any(ln.strip().startswith("[steady]") for ln in lines)
     assert any(ln.split()[0] == "obs.hist" for ln in lines
                if ln.startswith("    "))
+    ready = [ln.split() for ln in lines if ln.startswith("    track.ready")]
+    assert ready and all(r[-1] == "(100.0%)" for r in ready)
     assert "steady, ms per block of" in spans.split_line(
         runs[True]["summary"]["spans"])
 
