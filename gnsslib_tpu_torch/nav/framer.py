@@ -24,6 +24,7 @@ import dataclasses
 import numpy as np
 
 from .. import native
+from ..spans import FEC, NULL
 from ..constants import (CodeType, NAVSYNCTH, NAVRATE_L1CA, NAVFLEN_L1CA,
                          NAVADDFLEN_L1CA, NAVPRELEN_L1CA, NAVEPHCNT_L1CA,
                          NAVRATE_SBAS, NAVFLEN_SBAS, NAVADDFLEN_SBAS,
@@ -121,11 +122,15 @@ class NavChannel:
         return (self.synci + 1) % self.p.rate
 
     # ------------------------------------------------------------------ #
-    def update(self, ip: np.ndarray, buffloc: np.ndarray, cnt0: int
-               ) -> list[NavEvent]:
+    def update(self, ip: np.ndarray, buffloc: np.ndarray, cnt0: int,
+               spans=NULL) -> list[NavEvent]:
         """Feed prompt-I values for periods cnt0 .. cnt0+len(ip)-1.
 
         ``buffloc[k]`` is the absolute sample index of period k's start.
+        ``spans``: the receiver's span table, which times an SBAS
+        channel's FEC predecodes (``nav.fec``, with the preamble and CRC
+        check while searching) and counts its preamble matches whose CRC
+        fails (``sbas.crc_fail``).
         Returns the nav events produced by this batch.
         """
         self.events = []
@@ -139,7 +144,8 @@ class NavChannel:
                 self.last_ip = ip[-1] if n else self.last_ip
                 return self.events
         if start < n:
-            self._bits_batch(ip[start:], buffloc[start:], cnt0 + start)
+            self._bits_batch(ip[start:], buffloc[start:], cnt0 + start,
+                             spans)
         self.last_ip = ip[-1] if n else self.last_ip
         return self.events
 
@@ -179,8 +185,8 @@ class NavChannel:
         return n
 
     # ------------------------------------------------------------------ #
-    def _bits_batch(self, ip: np.ndarray, buffloc: np.ndarray, cnt0: int
-                    ) -> None:
+    def _bits_batch(self, ip: np.ndarray, buffloc: np.ndarray, cnt0: int,
+                    spans) -> None:
         """Vectorized bit integration + per-bit frame logic."""
         n = len(ip)
         cnts = cnt0 + np.arange(n, dtype=np.int64)
@@ -201,7 +207,8 @@ class NavChannel:
             return s  # reset at j0: bitIP starts fresh there
         for e in ends:
             bit_sum = seg_sum(int(e))
-            self._complete_bit(bit_sum, int(cnts[e]), int(buffloc[e]))
+            self._complete_bit(bit_sum, int(cnts[e]), int(buffloc[e]),
+                               spans)
         # carry for the trailing partial bit
         if len(resets) and resets[-1] > (ends[-1] if len(ends) else -1):
             j0 = int(resets[-1])
@@ -212,7 +219,8 @@ class NavChannel:
             self.bit_ip += float(csum[-1]) if n else 0.0
 
     # ------------------------------------------------------------------ #
-    def _complete_bit(self, bit_sum: float, cnt: int, buffloc: int) -> None:
+    def _complete_bit(self, bit_sum: float, cnt: int, buffloc: int,
+                      spans) -> None:
         pol = -1 if self.flagpol else 1
         bit = -pol if bit_sum < 0 else pol
         self.fbits[:-1] = self.fbits[1:]
@@ -220,11 +228,14 @@ class NavChannel:
         self.nbits_seen += 1
 
         p = self.p
+        fec = (spans if self.ctype == CodeType.L1SBAS else NULL)(FEC)
         if not self.flagtow:
             if self.nbits_seen < p.flen + p.addflen:
                 return
-            self._predecodefec()
-            if not self._findpreamble():
+            with fec:
+                self._predecodefec()
+                found = self._findpreamble(spans)
+            if not found:
                 return
             self.flagsyncf = True
             self.firstsf = buffloc
@@ -234,7 +245,8 @@ class NavChannel:
             # fall through: the reference decodes in the same call
             # (src/sdrnav.c:57-82 with cnt==firstsfcnt)
         if (cnt - self.firstsfcnt) % p.update == 0:
-            self._predecodefec()
+            with fec:
+                self._predecodefec()
             sfid = self._decodenav()
             if self.eph.tow_gpst == 0.0:
                 # reset on failed tow decode (src/sdrnav.c:69-72)
@@ -264,8 +276,10 @@ class NavChannel:
         self.fbitsdec = np.zeros_like(self.fbits)
         self.fbitsdec[:p.flen // 2] = dec
 
-    def _findpreamble(self) -> bool:
-        """Preamble correlation + parity gate (src/sdrnav.c:373-415)."""
+    def _findpreamble(self, spans) -> bool:
+        """Preamble correlation + parity gate (src/sdrnav.c:373-415); an
+        SBAS preamble whose CRC fails counts in ``spans``'
+        ``sbas.crc_fail``."""
         p = self.p
         if self.ctype == CodeType.L1CA:
             corr = int(np.dot(self.fbitsdec[p.addflen:p.addflen + p.prelen],
@@ -282,8 +296,10 @@ class NavChannel:
         self.polarity = 1 if corr > 0 else -1
         if self._paritycheck():
             return True
-        if self.ctype == CodeType.L1SBAS and self.polarity == 1:
-            self.flagpol = True   # retry with flipped bits (src/sdrnav.c:404)
+        if self.ctype == CodeType.L1SBAS:
+            spans.count("sbas.crc_fail")
+            if self.polarity == 1:
+                self.flagpol = True   # retry with flipped bits (sdrnav.c:404)
         return False
 
     def _paritycheck(self) -> bool:

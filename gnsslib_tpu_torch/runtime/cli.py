@@ -29,7 +29,8 @@ SPEC_MS cadence of stream time; ``--profile DIR`` writes a
 ``torch.profiler`` trace of the run (CPU and CUDA activities) into DIR
 for Chrome or TensorBoard, the receiver's host spans in it as ``gnss.*``
 ranges.  The end-of-run line adds the steady stage's host spans, ms per
-block (:func:`..spans.split_line`).
+block, and where SBAS channels run the messages sent and the CRC failures
+(:func:`..spans.split_line`).
 
 ``--device cuda`` (the default) requires a CUDA card and never falls back
 to the CPU.  ``--devices N`` (N > 1) shards the channels over N devices

@@ -99,7 +99,7 @@ from ..diag.monitor import SpectrumMonitor
 from ..io.devcache import block_cache
 from ..ops.nco import NSPAN
 from ..sat import satno, satno2id
-from ..spans import SpanTable, merge
+from ..spans import SBAS_COUNTERS, SBAS_SEND, SpanTable, merge
 from ..track.fast import FastTracker
 from ..track.loop import Tracker
 from ..track.state import loop_interval, state_from_numpy, state_to_numpy
@@ -482,6 +482,9 @@ class Receiver:
         for eng in (self.acq, self.trk, self.fast):
             if eng is not None:
                 eng.spans = self.spans
+        if any(ch.cfg.ctype == CodeType.L1SBAS for ch in self.channels):
+            # shown from the start: no frame is a count too
+            self.spans.counters.update(dict.fromkeys(SBAS_COUNTERS, 0))
         self.stage_wall = self.spans.stage_wall
         # cooperative stop (the reference's keythread 'q' -> stopflag,
         # src/sdrmain.c:59-80): run_seconds ends at the next block boundary
@@ -750,8 +753,9 @@ class Receiver:
         channel still on the lock it had when the block was dispatched
         (lock generation ``lock0``): a channel that was idle then, or was
         reset and started again while the block was queued, skips it.
-        Spans ``nav`` (all but the history, per channel) and ``obs.hist``
-        (:meth:`ObsHistory.update`)."""
+        Spans ``nav`` (all but the history, per channel), ``obs.hist``
+        (:meth:`ObsHistory.update`) and, for an SBAS message decoded,
+        ``sbas.send`` between the framer and the checks."""
         nav, hist = self.spans("nav"), self.spans("obs.hist")
         for ch in self.channels:
             i = ch.idx
@@ -765,7 +769,7 @@ class Receiver:
                 ch.prompt_live = float(np.median(np.abs(out.ip[:, i])))
                 evs = ch.nav.update(
                     out.ip[:, i], origin + out.loc[:, i].astype(np.int64),
-                    was_started)
+                    was_started, self.spans)
                 for e in evs:
                     self._events.append(("nav:" + e.kind,
                                          base / self.spec.f_sf,
@@ -775,24 +779,16 @@ class Receiver:
                                                        ch.nav.sync_offset)
                     ch.synced = True
                     self._mark("first_sync")
-                if ch.cfg.ctype == CodeType.L1SBAS and self.hub.sbas_srv:
-                    self._send_sbas(ch, evs)
-                if i in self.loggers:
-                    self.loggers[i].log_block(out, i, ch.nav, ch.hist,
-                                              int(cnt0[i]))
-                if self.spec_monitor is not None:
-                    # both loop phases update the taps: show the latest
-                    upd = np.nonzero(out.flagloopfilter[:, i] > 0)[0]
-                    if len(upd):
-                        k = int(upd[-1])
-                        self.corr_views[ch.cfg.prn] = dict(
-                            offsets=np.asarray(self.trk.offsets),
-                            mag=np.hypot(out.sum_i[k, i], out.sum_q[k, i]),
-                            t=base / self.spec.f_sf)
-                if self.cfg.relock and ch.synced:
-                    self._check_lock(ch, out, base)
-                elif self.cfg.relock and not ch.synced:
-                    self._check_pullin(ch, base)
+                sends = (ch.cfg.ctype == CodeType.L1SBAS
+                         and self.hub.sbas_srv is not None
+                         and any(e.kind == "decode" for e in evs))
+                if not sends:
+                    self._nav_checks(ch, out, cnt0, base)
+            if sends:
+                with self.spans(SBAS_SEND):
+                    self._send_sbas(ch)
+                with nav:
+                    self._nav_checks(ch, out, cnt0, base)
             if ch.nav.flagdec:
                 with hist:
                     ch.hist.update(
@@ -807,12 +803,31 @@ class Receiver:
                         flagsyncf=ch.nav.flagsyncf,
                         polarity=ch.nav.polarity)
 
-    def _send_sbas(self, ch, evs) -> None:
-        """A decoded SBAS message as a NovAtel RAWSBASFRAME over TCP
-        (src/sdrnav_sbs.c:100-140); before the channel's own MT12 gives the
-        week, it is borrowed from a decoded channel of any group."""
-        if not any(e.kind == "decode" for e in evs):
-            return
+    def _nav_checks(self, ch, out, cnt0: np.ndarray, base: int) -> None:
+        """A channel's work after its framer in a collected block: its
+        track log, the correlator view and the relock checks."""
+        i = ch.idx
+        if i in self.loggers:
+            self.loggers[i].log_block(out, i, ch.nav, ch.hist, int(cnt0[i]))
+        if self.spec_monitor is not None:
+            # both loop phases update the taps: show the latest
+            upd = np.nonzero(out.flagloopfilter[:, i] > 0)[0]
+            if len(upd):
+                k = int(upd[-1])
+                self.corr_views[ch.cfg.prn] = dict(
+                    offsets=np.asarray(self.trk.offsets),
+                    mag=np.hypot(out.sum_i[k, i], out.sum_q[k, i]),
+                    t=base / self.spec.f_sf)
+        if self.cfg.relock and ch.synced:
+            self._check_lock(ch, out, base)
+        elif self.cfg.relock and not ch.synced:
+            self._check_pullin(ch, base)
+
+    def _send_sbas(self, ch) -> None:
+        """The SBAS message a channel has just decoded as a NovAtel
+        RAWSBASFRAME over TCP (src/sdrnav_sbs.c:100-140), counted in
+        ``sbas.frames``; before the channel's own MT12 gives the week, it
+        is borrowed from a decoded channel of any group."""
         sb = ch.nav.sbas
         if sb.week == 0:
             for other in (self.peer_channels or self.channels):
@@ -823,6 +838,7 @@ class Receiver:
         if sb.week:
             gen_novatel_sbasmsg(sb)
             self.hub.sbas_srv.send(bytes(sb.novatelmsg))
+            self.spans.count("sbas.frames")
 
     def _check_lock(self, ch, out, base: int) -> None:
         """Loss-of-lock test (RELOCK=1) on a bit-synced channel: the

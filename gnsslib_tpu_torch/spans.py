@@ -50,6 +50,13 @@ _SLOTS = len(STAGES) + 1
 PREFIX = "gnss."
 STEP = "step_block"
 READY = ".ready"
+# what SBAS channels add: each FEC predecode with its preamble and CRC-24Q
+# check (a child of ``nav``), each message's NovAtel frame and send (a
+# child of ``track.collect``), and the counts of messages sent and of
+# preamble matches whose CRC failed
+FEC = "nav.fec"
+SBAS_SEND = "sbas.send"
+SBAS_COUNTERS = ("sbas.frames", "sbas.crc_fail")
 
 _perf = time.perf_counter
 
@@ -144,7 +151,8 @@ class SpanTable:
     ``step(num)`` is the ``step_block`` span of block ``num``, whose
     stage the caller sets in ``stage`` before it ends; :meth:`add` adds
     a measured time (a device time, a build split) to a stage.
-    ``stage_wall`` is the dict of stage walls the receiver exposes."""
+    ``stage_wall`` is the dict of stage walls the receiver exposes;
+    :meth:`count` adds to a counter of ``counters``."""
 
     def __init__(self) -> None:
         self.stage_wall = {"acquire": 0.0, "pullin": 0.0, "steady": 0.0}
@@ -194,6 +202,9 @@ class SpanTable:
         if parent is not None:
             self(parent).child[k] += seconds
 
+    def count(self, name: str, n: int = 1) -> None:
+        self.counters[name] = self.counters.get(name, 0) + n
+
     def table(self) -> dict:
         """{"stages": {stage: {span: {"n", "s", "self_s", "parent"}}},
         "counters": {...}}: plain numbers, every stage with a count."""
@@ -238,7 +249,8 @@ def ready_of(rows: dict, name: str) -> tuple[int, int] | None:
 def split_line(table: dict, stage: str = "steady") -> str:
     """One line of ``stage``'s spans by total, each with its self time
     where it has children: ms per block where the stage has blocks, else
-    ms in all; a ``*.ready`` count as ready/collects."""
+    ms in all; a ``*.ready`` count as ready/collects; then the SBAS
+    counters of the table where it has them (the whole run's)."""
     rows = table["stages"].get(stage)
     if not rows:
         return f"{stage}: nothing"
@@ -254,6 +266,8 @@ def split_line(table: dict, stage: str = "steady") -> str:
         parts.append(f"{name} {ms:.2f}" if abs(ms - self_ms) < 5e-3 else
                      f"{name} {ms:.2f} (self {self_ms:.2f})")
     head = f"ms per block of {nb}" if nb else "ms"
+    parts += [f"{k} {table['counters'][k]}" for k in SBAS_COUNTERS
+              if k in table["counters"]]
     return f"{stage}, {head}: " + ", ".join(parts)
 
 
@@ -279,6 +293,9 @@ class _NullTable:
         return self._span
 
     def add(self, *args, **kwargs) -> None:
+        pass
+
+    def count(self, name: str, n: int = 1) -> None:
         pass
 
 

@@ -31,6 +31,15 @@ from .state import TrackConfig, TrackState, loop_interval
 
 F32 = torch.float32
 I32 = torch.int32
+# code periods after a channel's start in which its carrier loop is the
+# FLL alone, with no PLL gain: half of the framer's bit-sync wait (2000
+# periods), so the PLL (PLLB1) joins with the frequency pulled in.  A PLL
+# on from the start, as in the reference (sdrtrk.c), holds a channel
+# acquired ~230 Hz or more off its carrier near the 250 Hz edge of the
+# 1 ms FLL, until the loop's cadence after bit sync (2 periods for SBAS,
+# 10 for GPS) locks it a Costas ambiguity (250 or 50 Hz) off: bit-synced,
+# never a frame
+FLL_PULLIN = 1000
 
 
 @dataclasses.dataclass
@@ -190,11 +199,14 @@ class Tracker(BlockRunner):
             self.offsets, dtype=torch.long, device=dev)[:, None]
             + self._iwin[None, :])                         # (T, nwin)
         self._tbl_flat = self._consts["table"].reshape(-1)
-        # (prm1, prm2) loop coefficients as f32 rows [pllaw, pllw2, fllw,
-        # dllaw, dllw2], selected per channel by the loop phase
+        # loop coefficients as f32 rows [pllaw, pllw2, fllw, dllaw, dllw2],
+        # selected per channel by the loop phase: prm1 with no PLL (the
+        # first FLL_PULLIN periods), prm1, prm2 (after bit sync)
+        p1, p2 = cfg.prm1, cfg.prm2
         self._prm = torch.tensor(
-            [[p.pllaw, p.pllw2, p.fllw, p.dllaw, p.dllw2]
-             for p in (cfg.prm1, cfg.prm2)], dtype=F32, device=dev)
+            [[0.0, 0.0, p1.fllw, p1.dllaw, p1.dllw2]]
+            + [[p.pllaw, p.pllw2, p.fllw, p.dllaw, p.dllw2]
+               for p in (p1, p2)], dtype=F32, device=dev)
         self.programs = {}       # block programs by (steps, block shape)
 
     def shard(self, sl: slice, device) -> "Tracker":
@@ -335,7 +347,8 @@ class Tracker(BlockRunner):
         update = do1 | do2
         flagloop = torch.where(do1, 1, torch.where(do2, 2, 0)).to(I32)
         dt = torch.where(do1, cc["dt1"], cc["dt2"])
-        prm = torch.where(do1[:, None], self._prm[0], self._prm[1])
+        row = torch.where(do1, (st["cnt"] >= FLL_PULLIN).long(), 2)
+        prm = self._prm[row]
         pllaw, pllw2, fllw, dllaw, dllw2 = prm.unbind(1)
 
         carr_err, freq_err, code_err = discriminators(

@@ -23,7 +23,11 @@ from gnsslib_tpu.track import Tracker as JaxTracker
 from gnsslib_tpu_torch.ops import band_taps as bt
 from gnsslib_tpu_torch.track import (FastTracker, TrackConfig, Tracker,
                                      state_from_numpy)
+from torch_reference_loop import reference_carrier_loop  # noqa: F401
 
+# the carrier loop's pull-in as the reference and the JAX package run it
+# (tests/torch_reference_loop.py): the port's FLL pulls in alone first
+pytestmark = pytest.mark.usefixtures("reference_carrier_loop")
 torch.set_num_threads(2)
 jax.config.update("jax_platforms", "cpu")
 

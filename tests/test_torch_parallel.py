@@ -45,6 +45,7 @@ from gnsslib_tpu_torch.parallel import (Mesh, ShardedAcquirer,
                                         make_mesh)
 from gnsslib_tpu_torch.track import (FastTracker, TrackConfig, Tracker,
                                      state_from_numpy, state_to_numpy)
+from torch_reference_loop import reference_carrier_loop  # noqa: F401
 
 torch.set_num_threads(2)
 jax.config.update("jax_platforms", "cpu")
@@ -53,8 +54,11 @@ F_SF = 1.023e6          # 1 sample/chip: tiny shapes
 F_IF = F_SF / 4
 C = 8
 
-pytestmark = pytest.mark.skipif(len(jax.devices()) < 8,
-                                reason="needs 8 JAX devices")
+# the carrier loop's pull-in as the reference and the JAX package run it
+# (tests/torch_reference_loop.py): the port's FLL pulls in alone first
+pytestmark = [pytest.mark.usefixtures("reference_carrier_loop"),
+              pytest.mark.skipif(len(jax.devices()) < 8,
+                                 reason="needs 8 JAX devices")]
 
 
 def _signal(n):

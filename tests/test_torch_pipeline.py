@@ -250,9 +250,9 @@ def test_lock_generation_guard(capture, monkeypatch):
     fed, starts, stale = [], {}, []
     update = NavChannel.update
 
-    def record_update(nav, ip, locs, cnt):
+    def record_update(nav, ip, locs, cnt, *spans):
         fed.append((nav, int(locs[0])))
-        return update(nav, ip, locs, cnt)
+        return update(nav, ip, locs, cnt, *spans)
     monkeypatch.setattr(NavChannel, "update", record_update)
     start = Receiver._start
 

@@ -27,7 +27,11 @@ from gnsslib_tpu_torch.runtime.cli import UNPORTED_FLAGS
 from gnsslib_tpu_torch.runtime.cli import main as torch_cli
 from gnsslib_tpu_torch.runtime.config import load_ini, unported_options
 from gnsslib_tpu_torch.runtime.receiver import Receiver
+from torch_reference_loop import reference_carrier_loop  # noqa: F401
 
+# the carrier loop's pull-in as the reference and the JAX package run it
+# (tests/torch_reference_loop.py): the port's FLL pulls in alone first
+pytestmark = pytest.mark.usefixtures("reference_carrier_loop")
 torch.set_num_threads(2)
 jax.config.update("jax_platforms", "cpu")
 

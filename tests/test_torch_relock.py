@@ -21,7 +21,11 @@ from gnsslib_tpu_torch.io.frontend import FileFrontend, FrontendSpec
 from gnsslib_tpu_torch.runtime.config import ChannelConfig, ReceiverConfig
 from gnsslib_tpu_torch.runtime.receiver import Receiver
 from gnsslib_tpu_torch.track.state import TrackConfig
+from torch_reference_loop import reference_carrier_loop  # noqa: F401
 
+# the carrier loop's pull-in as the reference and the JAX package run it
+# (tests/torch_reference_loop.py): the port's FLL pulls in alone first
+pytestmark = pytest.mark.usefixtures("reference_carrier_loop")
 torch.set_num_threads(2)
 jax.config.update("jax_platforms", "cpu")
 

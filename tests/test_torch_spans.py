@@ -315,3 +315,150 @@ def test_summary_carries_the_table(runs):
     json.dumps(tab)
     assert set(tab["stages"]) >= {"acquire", "pullin", "steady", "other",
                                   "build"}
+
+
+# --------------------------------------------------------------- SBAS
+# one GPS L1CA and one SBAS channel (rxbench.sky's sky of seed 3000000403
+# of rxbench/traffic/sbas_long.json, PRN 3 and 133) from a capture file,
+# built as profile_receiver --ini builds it (the CLI's build_receiver):
+# two channel groups in a MultiReceiver, the SBAS messages on the stream
+SBAS_SEED, SBAS_PRNS, SBAS_SECONDS = 3000000403, (3, 133), 10.0
+
+
+@pytest.fixture(scope="module")
+def sbas_run(tmp_path_factory):
+    import os
+    from rxbench import sky
+    tmp = tmp_path_factory.mktemp("torch_spans_sbas")
+    with open(os.path.join(os.path.dirname(sky.__file__), "traffic",
+                           "sbas_long.json")) as f:
+        mix = json.load(f)
+    sk = sky.draw_sky(mix, np.random.default_rng([SBAS_SEED, 0]),
+                      mix["seconds"])
+    sk.signals = [s for s in sk.signals if s.prn in SBAS_PRNS]
+    sky.synthesize(sk, F_SF, F_IF, int(SBAS_SECONDS * F_SF), device="cpu",
+                   noise_seed=5).numpy().tofile(tmp / "capture.bin")
+    (tmp / "fend.ini").write_text(f"""[FEND]
+TYPE     =FILE
+CF1      =1575.42e6
+SF1      ={F_SF}
+IF1      ={F_IF}
+DTYPE1   =1
+FILE1    ={tmp / "capture.bin"}
+[TRACK]
+CORRN    =2
+CORRD    =2
+CORRP    =2
+""")
+    ini = tmp / "rx.ini"
+    ini.write_text(f"""[RCV]
+FENDCONF ={tmp / "fend.ini"}
+[CHANNEL]
+NCH      =2
+PRN      =3,133
+SYS      =1,2
+CTYPE    =1,27
+FTYPE    =1,1
+[OUTPUT]
+OUTMS    =400
+RINEX    =0
+SBAS     =1
+SBASPORT =0
+""")
+    rx = profile_receiver._configured(str(ini), "cpu", True, 400)
+    sent = bytearray()
+    send = rx.hub.sbas_srv.send
+
+    def keep(b):
+        sent.extend(b)
+        send(b)
+    rx.hub.sbas_srv.send = keep
+    s = rx.run_seconds()
+    profile_receiver._close(rx)
+    return dict(rx=rx, summary=s, sbas=bytes(sent), sky=sk)
+
+
+def _sbas_group(run):
+    """(index, summary) of the run's group with the SBAS channel."""
+    return next((k, g) for k, (g, r) in enumerate(zip(
+        run["summary"]["groups"], run["rx"].rx))
+        if any(c.cfg.prn == 133 for c in r.channels))
+
+
+def test_sbas_spans_and_counters(sbas_run):
+    """The SBAS group's table has nav.fec under nav and sbas.send under
+    track.collect, and sbas.frames counts the frames on the stream; the
+    GPS group has none of them."""
+    from rxbench import truth
+    k, g = _sbas_group(sbas_run)
+    frames = truth.parse_novatel_sbas(sbas_run["sbas"])
+    assert frames
+    tab = g["spans"]
+    assert tab["counters"]["sbas.frames"] == len(frames)
+    assert tab["counters"]["sbas.crc_fail"] == 0
+    rows = {}                   # every stage's, the final flush's too
+    for st_rows in tab["stages"].values():
+        for name, r in st_rows.items():
+            rows.setdefault(name, []).append(r)
+    assert {r["parent"] for r in rows[spans.FEC]} == {"nav"}
+    assert {r["parent"] for r in rows[spans.SBAS_SEND]} == {"track.collect"}
+    assert sum(r["n"] for r in rows[spans.SBAS_SEND]) == len(frames)
+    # a predecode per symbol while it searched, one a message after
+    assert sum(r["n"] for r in rows[spans.FEC]) > len(frames)
+    gps = sbas_run["summary"]["groups"][1 - k]["spans"]
+    assert not set(spans.SBAS_COUNTERS) & set(gps["counters"])
+    assert not {n for rows_ in gps["stages"].values() for n in rows_} & {
+        spans.FEC, spans.SBAS_SEND}
+    merged = sbas_run["summary"]["spans"]
+    assert merged["counters"]["sbas.frames"] == len(frames)
+    line = spans.split_line(merged)
+    assert f"sbas.frames {len(frames)}" in line and "sbas.crc_fail 0" in line
+    assert spans.FEC in line
+
+
+def test_profile_receiver_shows_the_sbas_group(sbas_run):
+    """profile_receiver prints each group's table; the SBAS group's has
+    its spans and counters."""
+    k, _ = _sbas_group(sbas_run)
+    lines = profile_receiver.tables(sbas_run["summary"])
+    heads = [i for i, ln in enumerate(lines) if ln.startswith(" group ")]
+    assert len(heads) == 2
+    end = heads[k + 1] if k + 1 < len(heads) else len(lines)
+    body = lines[heads[k]:end]
+    names = {ln.split()[0] for ln in body if ln.startswith("    ")}
+    assert {spans.FEC, spans.SBAS_SEND} <= names
+    assert any(ln.strip().startswith("sbas.frames ") for ln in body)
+    assert any(ln.strip().startswith("sbas.crc_fail ") for ln in body)
+
+
+def test_sbas_crc_fail_counts_a_corrupted_run():
+    """An SBAS framer fed a symbol stream whose first messages carry a
+    run of 24 inverted symbols mid-body (past what the K=7 code corrects,
+    their preambles intact): each such message whose preamble pair it
+    matches counts in sbas.crc_fail, and the first clean one frames."""
+    from rxbench import sky
+    from gnsslib_tpu_torch.constants import CodeType
+    from gnsslib_tpu_torch.nav import NavChannel
+    msgs = sky.sbas_messages(9.0, np.random.default_rng(7), -1)
+
+    def run(bad: int):
+        sym = sky.sbas_symbols(msgs).astype(np.float64)
+        for k in range(bad):
+            sym[500 * k + 200:500 * k + 224] *= -1.0
+        ip = np.repeat(sym, 2) * 1000.0
+        nav = NavChannel(CodeType.L1SBAS, 133)
+        tab = spans.SpanTable()
+        pre = []
+        for c0 in range(0, len(ip), 400):
+            evs = nav.update(ip[c0:c0 + 400],
+                             np.arange(c0, c0 + 400) * 4092, c0, tab)
+            pre += [e.cnt for e in evs if e.kind == "preamble"]
+        return tab, pre
+    tab, pre = run(0)
+    assert tab.counters.get("sbas.crc_fail", 0) == 0 and pre
+    clean = pre[0]
+    tab, pre = run(6)
+    assert tab.counters["sbas.crc_fail"] >= 1
+    assert pre and pre[0] > clean
+    rows = tab.table()["stages"]["other"]
+    assert rows[spans.FEC]["n"] > 0
